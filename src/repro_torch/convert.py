@@ -1,0 +1,48 @@
+"""Carry trained parameters across from the JAX package.
+
+:func:`params_from_jax` takes the reference's parameter pytree — nested
+dicts and lists whose leaves are numpy (or JAX) arrays, e.g.
+``{"cells": [{"w", "b"}, ...], "head_w", "head_b"}`` or the conv1d
+``{"blocks": [...], ...}`` form — and returns the port's parameter dict:
+the same keys, float32 numpy arrays, checked leaf by leaf against the
+port's schema for ``cfg``. This is what ``rtl.ir.lower_model`` takes.
+"""
+from __future__ import annotations
+
+import numpy as np
+
+from repro_torch.core.types import ModelConfig
+from repro_torch.model.layers import is_pspec
+
+
+def _convert(tree, schema, path: str):
+    if is_pspec(schema):
+        arr = np.array(tree, dtype=np.float32)     # copies; reads any array
+        if arr.shape != tuple(schema.shape):
+            raise ValueError(f"params{path}: shape {arr.shape} != schema "
+                             f"{tuple(schema.shape)}")
+        return arr
+    if isinstance(schema, dict):
+        if not isinstance(tree, dict):
+            raise TypeError(f"params{path}: expected a dict, got "
+                            f"{type(tree).__name__}")
+        missing = sorted(set(schema) - set(tree))
+        extra = sorted(set(tree) - set(schema))
+        if missing or extra:
+            raise KeyError(f"params{path}: missing keys {missing}, "
+                           f"unexpected keys {extra}")
+        return {k: _convert(tree[k], schema[k], f"{path}[{k!r}]")
+                for k in schema}
+    if not isinstance(tree, (list, tuple)) or len(tree) != len(schema):
+        raise ValueError(f"params{path}: expected a list of {len(schema)}, "
+                         f"got {type(tree).__name__} of "
+                         f"{len(tree) if hasattr(tree, '__len__') else '?'}")
+    return [_convert(t, s, f"{path}[{i}]")
+            for i, (t, s) in enumerate(zip(tree, schema))]
+
+
+def params_from_jax(tree, cfg: ModelConfig):
+    """The reference's parameter pytree for ``cfg`` -> the port's dict."""
+    from repro_torch.verify.vectors import schema_for
+
+    return _convert(tree, schema_for(cfg), "")

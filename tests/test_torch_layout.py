@@ -1,0 +1,70 @@
+"""PyTorch port, package rules: the port and chip_smoke.py import nothing
+of JAX or of the JAX package, and every kernel keeps the reference layout
+with its CUDA source in ``repro_torch/csrc/``."""
+import os
+import pathlib
+import re
+import subprocess
+import sys
+
+import pytest
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PORT = ROOT / "src" / "repro_torch"
+PORT_FILES = sorted(p.relative_to(ROOT).as_posix()
+                    for p in PORT.rglob("*.py")) + ["chip_smoke.py"]
+FORBIDDEN = re.compile(
+    r"^\s*(import\s+(jax|repro)(\s|\.|,|$)|from\s+(jax|repro)(\s|\.))",
+    re.MULTILINE)
+
+
+@pytest.mark.parametrize("rel", PORT_FILES)
+def test_port_file_imports_no_jax_and_no_reference(rel):
+    text = (ROOT / rel).read_text()
+    bad = [m.group(0).strip() for m in FORBIDDEN.finditer(text)]
+    assert not bad, f"{rel} imports {bad}"
+
+
+def test_forbidden_pattern_catches_what_it_should():
+    for line in ("import jax", "import jax.numpy as jnp", "from jax import lax",
+                 "from repro.rtl import ir", "import repro", "  import repro.x"):
+        assert FORBIDDEN.search(line), line
+    for line in ("import repro_torch", "from repro_torch.rtl import ir",
+                 "import jaxtyping", "# import jax"):
+        assert not FORBIDDEN.search(line), line
+
+
+def test_importing_the_port_loads_neither_jax_nor_repro():
+    code = ("import sys, repro_torch.rtl, repro_torch.verify, "
+            "repro_torch.convert, repro_torch.configs; "
+            "bad = sorted(m for m in sys.modules if m == 'jax' or "
+            "m.startswith(('jax.', 'repro.')) or m == 'repro'); "
+            "assert not bad, bad")
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    subprocess.run([sys.executable, "-c", code], check=True, env=env,
+                   timeout=120)
+
+
+def test_every_kernel_has_source_launcher_wrapper_and_plain_version():
+    from repro_torch.kernels import build
+
+    names = build.kernel_names()
+    assert names == ["lstm_cell_int", "mac_int"]
+    for name in names:
+        for part in ("kernel.py", "ops.py", "ref.py"):
+            assert (PORT / "kernels" / name / part).is_file(), (name, part)
+    assert build.BUILD_DIR == ROOT / "build" / "repro_torch"
+
+
+def test_library_key_follows_source_flags_and_compiler(monkeypatch):
+    from repro_torch.kernels import build
+
+    monkeypatch.setattr(build, "nvcc_version", lambda: "release 12.4")
+    path = build.library_path("mac_int")
+    assert path.parent == build.BUILD_DIR and path.name.startswith("mac_int-")
+    assert build.library_path("lstm_cell_int") != path
+    monkeypatch.setattr(build, "nvcc_version", lambda: "release 12.8")
+    assert build.library_path("mac_int") != path
+    monkeypatch.setattr(build, "nvcc_version", lambda: "release 12.4")
+    monkeypatch.setattr(build, "NVCC_FLAGS", build.NVCC_FLAGS + ("-G",))
+    assert build.library_path("mac_int") != path
