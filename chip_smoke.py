@@ -1,24 +1,44 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port (``src/repro_torch``) on one CUDA card.
 
-Drives the port's main path — the Elastic Node's bit-exact integer emulator
-on the paper's Table-I design ``elastic-lstm`` (and on ``elastic-conv1d``)
-— through the kernels written for Hopper, and checks every answer:
+Drives the port's two main paths through the kernels written for Hopper
+and checks every answer. The Elastic Node's bit-exact integer emulator on
+the paper's Table-I design ``elastic-lstm`` (and on ``elastic-conv1d``),
+with kernels B1 and B2:
 
-1. build every kernel from ``src/repro_torch/csrc/`` (``nvcc``, sm_90a);
-2. hold each kernel against its plain PyTorch version on the card, exact
-   integer equality, at the test shapes and at the serving shapes;
+1. build every kernel from ``src/repro_torch/csrc/`` (``nvcc``, sm_90a, one
+   process per source, all at once);
+2. hold B1 and B2 against their plain PyTorch versions on the card, exact
+   integer equality, at the test shapes and at the serving shapes; hold B5
+   against its plain version at the reference's test shapes and at every
+   Yi-9B prefill shape (2e-5 in f32, 0.03 for bf16 against f32);
 3. replay both checked-in golden vector sets in the three emulator modes;
 4. serve ragged requests through ``RTLEmulator.run_many`` in ``fused`` mode,
    one design at a time (kernel launch counts are set to 0 just before each
    design's ``run_many`` and read just after it, and must equal one launch
    per node the kernel serves), each answer held against its solo run, the
-   plain path and the float oracle; the kernels line carries the counts of
-   the main path, ``elastic-lstm``;
-5. time each kernel and its plain version at the serving shape (CUDA
+   plain path and the float oracle;
+5. time B1 and B2 and their plain versions at the serving shape (CUDA
    events around CUDA-graph replays), the emulator's windows/s, and the
-   device busy share of one emulator run (``torch.profiler``);
-6. print the kernels line and the card's name and power limit.
+   device busy share of one emulator run (``torch.profiler``).
+
+The dense-LM server on full-width ``yi-9b`` (all 48 layers, seeded random
+bf16 weights drawn on the card), with kernel B5 (flash attention) for
+every prefill layer:
+
+6. serve 8 requests (prompts of 16 ... 4,000 tokens, 16 new tokens each)
+   through ``Server`` with ``attn_impl="flash"`` on 4 slots of 4,096
+   positions; B5's launch count is set to 0 just before and read just
+   after, and must be 48 per admitted request; prints tokens/s, the TTFT
+   and latency summaries and the prefill ms at each length;
+7. prefill the same prompts with ``attn_impl="ref"`` (plain einsum
+   attention) and hold the last-position logits to the flash path's: in
+   bf16 at full depth within the bound stated below, and in f32 at full
+   width and 4 layers within 1e-3 relative with identical greedy tokens;
+8. time B5, its plain version and ``scaled_dot_product_attention`` at
+   Yi-9B prefill layers of 1,024, 2,048 and 4,000 tokens, and profile one
+   2,048-token prefill and one 4-slot decode tick over 8 Yi-9B layers;
+9. print the kernels line and the card's name and power limit.
 
 Usage, from the repository root: ``python3 chip_smoke.py``. Needs one CUDA
 card and ``nvcc``; exits non-zero, printing no result, without them. The
@@ -45,6 +65,21 @@ CONV_REQUESTS = (1, 5, 33, 1000, 8192)
 # 2 flops x 1.98 GHz), i.e. 132 x 64 x 1.98e9 IMAD/s.
 HBM_BYTES_PER_S = 3.35e12
 INT32_MAC_PER_S = 132 * 64 * 1.98e9
+BF16_FLOP_PER_S = 989e12              # dense tensor-core peak
+# the Yi-9B serving run
+PROMPT_LENS = (16, 17, 128, 333, 1024, 2048, 3000, 4000)
+SLOTS, MAX_LEN, MAX_NEW = 4, 4096, 16
+B5_F32_TOL, B5_BF16_TOL = 2e-5, 0.03   # the reference's bars for B5
+# flash vs plain attention through the whole model, last-position logits.
+# Both paths round every attention output to bf16, after rounding the
+# softmax weights to bf16 at different points (before vs after the
+# normalisation), so one layer's attention outputs differ by up to about
+# 2^-8 relative. Summed with random signs over L pre-norm residual layers
+# whose Jacobians are near identity, that gives about sqrt(L) * 2^-8
+# relative at the final hidden state and so in the logits; the bound takes
+# twice that: sqrt(L) * 2^-7 (0.054 at L = 48), on the relative rms
+# difference.
+F32_LOGIT_REL_TOL = 1e-3              # f32, full width, 4 layers (max abs)
 
 
 def log(msg: str) -> None:
@@ -116,10 +151,11 @@ def profile_ms(fn):
     return wall * 1e3, device
 
 
-def bound_ms(n_bytes: int, n_macs: int):
-    """Least time on the card: bytes over HBM rate vs MACs over the int32
-    IMAD rate, whichever is larger, and which one it is."""
-    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_macs / INT32_MAC_PER_S
+def bound_ms(n_bytes: int, n_ops: int, ops_per_s: float = INT32_MAC_PER_S):
+    """Least time on the card: bytes over HBM rate vs operations over their
+    peak rate (default: int32 MACs over the IMAD rate), whichever is
+    larger, and which one it is."""
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / ops_per_s
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
 
@@ -141,7 +177,16 @@ def main() -> int:
     sys.path.insert(0, os.path.join(ROOT, "src"))
     import numpy as np
 
+    import torch.nn.functional as F
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.types import (SMOKE_MESH, ParallelismConfig,
+                                        ShapeConfig)
     from repro_torch.kernels import build
+    from repro_torch.kernels.flash_attention import (attention_ref,
+                                                     flash_attention,
+                                                     flash_attention_cuda)
+    from repro_torch.kernels.flash_attention import ops as flash_ops
     from repro_torch.kernels.lstm_cell_int import (CellSpec, lstm_window_int,
                                                    lstm_window_int_cuda,
                                                    lstm_window_int_ref)
@@ -150,9 +195,15 @@ def main() -> int:
                                              mac_int_ref)
     from repro_torch.kernels.mac_int import ops as mac_ops
     from repro_torch.model.conv1d import conv1d_frames
+    from repro_torch.model.layers import param_count
+    from repro_torch.model.lm import (Stepper, make_decode_step,
+                                      make_prefill_step)
+    from repro_torch.model.transformer import pad_cache
+    from repro_torch.obs import Tracer, find_spans, set_tracer
     from repro_torch.quant.fixedpoint import FxpFormat
     from repro_torch.rtl.emulator import RTLEmulator, assert_bit_exact
     from repro_torch.rtl.oplib import requant_shift
+    from repro_torch.runtime.server import Server, ServerConfig
     from repro_torch.verify.vectors import (canonical_graph, golden_dir,
                                             load_vectors)
 
@@ -238,6 +289,39 @@ def main() -> int:
             mac_int_ref(*args, shift=shift, lo=fmt.lo, hi=fmt.hi)))
     log(f"phase 2b kernels = plain versions at the serving shapes, "
         f"B={B_SERVE} windows (exact): {sorted(mac_cases)}")
+
+    yi = get_config("yi-9b")
+    b5_cases = ([(s, c) for s in ((2, 256, 4, 64), (1, 512, 2, 128),
+                                  (2, 256, 3, 96), (1, 384, 2, 160))
+                 for c in (True, False)]
+                + [((1, n, yi.n_heads, yi.hd), True) for n in PROMPT_LENS])
+    b5_err = {"float32": 0.0, "bfloat16": 0.0}
+    b5_rng = np.random.default_rng(SEED + 5)     # phases 3-5 keep ``rng``
+    for shape, causal in b5_cases:
+        q, k, v = (torch.as_tensor(b5_rng.standard_normal(shape) * 0.5,
+                                   dtype=torch.float32, device="cuda")
+                   for _ in range(3))
+        want = attention_ref(q, k, v, causal)
+        got = flash_attention(q, k, v, causal)
+        torch.cuda.synchronize()
+        b5_err["float32"] = max(b5_err["float32"],
+                                (got - want).abs().max().item())
+        qb, kb, vb = (t.to(torch.bfloat16) for t in (q, k, v))
+        want = attention_ref(qb.float(), kb.float(), vb.float(), causal)
+        got = flash_attention(qb, kb, vb, causal)
+        torch.cuda.synchronize()
+        b5_err["bfloat16"] = max(b5_err["bfloat16"],
+                                 (got.float() - want).abs().max().item())
+        del q, k, v, qb, kb, vb, want, got
+    if b5_err["float32"] > B5_F32_TOL or b5_err["bfloat16"] > B5_BF16_TOL:
+        raise AssertionError(f"B5 != plain version: max |err| {b5_err}, "
+                             f"bars {B5_F32_TOL} (f32), {B5_BF16_TOL} "
+                             "(bf16 vs f32)")
+    log(f"phase 2c B5 = plain version at the reference's 4 test shapes x "
+        f"causal/not and at the {len(PROMPT_LENS)} Yi-9B prefill shapes "
+        f"(1, S, 32, 128): max |err| f32 {b5_err['float32']:.3g} (bar "
+        f"{B5_F32_TOL}), bf16 vs f32 {b5_err['bfloat16']:.3g} (bar "
+        f"{B5_BF16_TOL})")
 
     # ---- 3. golden replay --------------------------------------------------
     for arch, graph in (("elastic-lstm", lstm_g), ("elastic-conv1d", conv_g)):
@@ -376,7 +460,190 @@ def main() -> int:
             f"of the unprofiled run ({wall:.3f} ms with the profiler on); "
             + "; ".join(f"{name[:60]} {ms:.4f} ms" for name, ms in top))
 
-    # ---- 6. report ---------------------------------------------------------
+    # ---- 6. serve Yi-9B (the LM main path) ---------------------------------
+    t0 = time.perf_counter()
+    par = ParallelismConfig(compute_dtype="bfloat16", attn_impl="flash")
+    st = Stepper(yi, ShapeConfig("serve", "prefill", MAX_LEN, SLOTS),
+                 SMOKE_MESH, par)
+    params = st.init(seed=SEED, dtype_override=torch.bfloat16)
+    torch.cuda.synchronize()
+    log(f"phase 6 yi-9b: {param_count(st.schema) / 1e9:.3f} B parameters "
+        f"drawn on the card in bf16 in {time.perf_counter() - t0:.2f} s; "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+    lm_rng = np.random.default_rng(SEED + 6)
+    prompts = [lm_rng.integers(2, yi.vocab_size, n).tolist()
+               for n in PROMPT_LENS]
+    warm = Server(yi, params, ServerConfig(batch_slots=1, max_len=64,
+                                           eos_token=-1), SMOKE_MESH, par)
+    warm.submit(prompts[0], max_new_tokens=2)       # cuBLAS/allocator warm-up
+    warm.run_until_drained()
+    del warm
+    srv = Server(yi, params, ServerConfig(batch_slots=SLOTS, max_len=MAX_LEN,
+                                          eos_token=-1), SMOKE_MESH, par)
+    tracer = Tracer()
+    prev_tracer = set_tracer(tracer)
+    flash_ops.launches = 0
+    t0 = time.perf_counter()
+    for prompt in prompts:
+        srv.submit(prompt, max_new_tokens=MAX_NEW)
+    done = srv.run_until_drained()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    yi_launches = flash_ops.launches
+    set_tracer(prev_tracer)
+    stats = done.stats
+    if not done.drained or stats.admitted != len(prompts) or \
+            stats.retired != len(prompts):
+        raise AssertionError(f"yi-9b: server did not serve every request: "
+                             f"{stats}")
+    for req in done:
+        if len(req.out_tokens) != MAX_NEW or not all(
+                0 <= t < yi.padded_vocab for t in req.out_tokens):
+            raise AssertionError(f"yi-9b: request {req.rid} out_tokens "
+                                 f"{req.out_tokens}")
+    if yi_launches != yi.n_layers * stats.admitted:
+        raise AssertionError(f"yi-9b: B5 launched {yi_launches} times for "
+                             f"{stats.admitted} requests, expected "
+                             f"{yi.n_layers} per request")
+    n_tok = sum(len(r.out_tokens) for r in done)
+    prefill_ms = {sp.attrs["prompt_len"]: sp.duration * 1e3
+                  for sp in find_spans(tracer.spans, "server.prefill")}
+    log(f"phase 6 served yi-9b: {len(done)} requests, {n_tok} tokens in "
+        f"{wall:.3f} s = {n_tok / wall:.2f} tokens/s ({SLOTS} slots, "
+        f"max_len {MAX_LEN}, {stats.ticks} ticks); B5 launches "
+        f"{yi_launches} = {yi.n_layers} per request")
+    log("phase 6 ttft_s " + json.dumps(stats.ttft_s))
+    log("phase 6 latency_s " + json.dumps(stats.latency_s))
+    log("phase 6 prefill ms by prompt length (host clock, ends in the "
+        "first token's copy to the host): " + ", ".join(
+            f"{n}: {prefill_ms[n]:.1f}" for n in PROMPT_LENS))
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    log(f"phase 6 peak device memory {peak:.2f} GiB")
+    del srv
+
+    # ---- 7. flash vs ref through the whole model ----------------------------
+    def last_logits(cfg, prm, impl, dtype, prompt):
+        step = make_prefill_step(cfg, SMOKE_MESH, ParallelismConfig(
+            compute_dtype=dtype, attn_impl=impl))
+        with torch.no_grad():
+            logits, _ = step(prm, {"tokens": torch.tensor(
+                [prompt], dtype=torch.int64, device="cuda")})
+        if not torch.isfinite(logits).all():
+            raise AssertionError(f"{cfg.name} {impl} {dtype}: non-finite "
+                                 "logits")
+        return logits[0]
+
+    bf16_bound = yi.n_layers ** 0.5 * 2.0 ** -7
+    worst_rel, agree = 0.0, 0
+    for req, prompt in zip(done, prompts):
+        lf = last_logits(yi, params, "flash", "bfloat16", prompt)
+        lr = last_logits(yi, params, "ref", "bfloat16", prompt)
+        if int(lf.argmax()) != req.out_tokens[0]:
+            raise AssertionError(f"yi-9b: served first token "
+                                 f"{req.out_tokens[0]} != flash prefill's "
+                                 f"{int(lf.argmax())}")
+        rel = ((lf - lr).norm() / lr.norm()).item()
+        worst_rel = max(worst_rel, rel)
+        agree += int(lf.argmax()) == int(lr.argmax())
+        log(f"phase 7 bf16 48 layers S={len(prompt)}: rel rms |flash-ref| "
+            f"{rel:.3e}, max abs {(lf - lr).abs().max().item():.3e} "
+            f"(logits max abs {lr.abs().max().item():.3f}), first token "
+            f"flash {int(lf.argmax())} ref {int(lr.argmax())}")
+    if worst_rel > bf16_bound:
+        raise AssertionError(f"yi-9b bf16: flash vs ref logits rel rms "
+                             f"{worst_rel:.3e} > bound {bf16_bound:.3e}")
+    log(f"phase 7 bf16 full depth: worst rel rms {worst_rel:.3e} <= bound "
+        f"sqrt(48) * 2^-7 = {bf16_bound:.3e}; first tokens agree on "
+        f"{agree}/{len(prompts)}")
+    del params
+    torch.cuda.empty_cache()
+    yi4 = yi.with_(n_layers=4)
+    params4 = Stepper(yi4, ShapeConfig("check", "prefill", MAX_LEN, 1),
+                      SMOKE_MESH, ParallelismConfig(compute_dtype="float32")
+                      ).init(seed=SEED + 1)
+    worst_rel = 0.0
+    for prompt in prompts:
+        lf = last_logits(yi4, params4, "flash", "float32", prompt)
+        lr = last_logits(yi4, params4, "ref", "float32", prompt)
+        rel = ((lf - lr).abs().max() / lr.abs().max()).item()
+        worst_rel = max(worst_rel, rel)
+        if rel > F32_LOGIT_REL_TOL or int(lf.argmax()) != int(lr.argmax()):
+            raise AssertionError(
+                f"yi-9b f32 4 layers S={len(prompt)}: rel {rel:.3e} (bar "
+                f"{F32_LOGIT_REL_TOL}), tokens {int(lf.argmax())} vs "
+                f"{int(lr.argmax())}")
+    log(f"phase 7 f32 full width, 4 layers: worst max|flash-ref|/max|ref| "
+        f"{worst_rel:.3e} <= {F32_LOGIT_REL_TOL}; greedy tokens identical "
+        f"on {len(prompts)}/{len(prompts)}")
+    del params4
+    torch.cuda.empty_cache()
+
+    # ---- 8. B5 timing --------------------------------------------------------
+    b5_rows = {}
+    for n in (1024, 2048, 4000):
+        shape = (1, n, yi.n_heads, yi.hd)
+        q, k, v = (torch.randn(shape, device="cuda", dtype=torch.bfloat16)
+                   * 0.5 for _ in range(3))
+        out = torch.empty_like(q)
+        k_ms = time_ms(functools.partial(flash_attention_cuda, q, k, v, out,
+                                         causal=True))
+        p_ms = time_ms(functools.partial(attention_ref, q, k, v, True),
+                       reps=5)
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        l_ms = time_ms(functools.partial(
+            F.scaled_dot_product_attention, qt, kt, vt, is_causal=True))
+        flops = 4 * (n * (n + 1) // 2) * yi.hd * yi.n_heads
+        bnd, by = bound_ms(4 * q.numel() * q.element_size(), flops,
+                           BF16_FLOP_PER_S)
+        b5_rows[n] = (k_ms, p_ms, l_ms, bnd, by)
+        log(f"phase 8 B5 (1, {n}, 32, 128) bf16 causal: kernel {k_ms:.4f} "
+            f"ms ({flops / k_ms / 1e9:.1f} TFLOP/s), plain {p_ms:.4f} ms, "
+            f"scaled_dot_product_attention {l_ms:.4f} ms, bound {bnd:.4f} ms "
+            f"({by})")
+    yi8 = yi.with_(n_layers=8)
+    params2 = Stepper(yi8, ShapeConfig("p", "prefill", 2048, 1), SMOKE_MESH,
+                      par).init(seed=SEED, dtype_override=torch.bfloat16)
+    prefill = make_prefill_step(yi8, SMOKE_MESH, par)
+    decode = make_decode_step(yi8, SMOKE_MESH, par)
+    toks = torch.tensor([prompts[5]], dtype=torch.int64, device="cuda")
+    with torch.no_grad():
+        _, cache = prefill(params2, {"tokens": toks})
+        pool = {"layers": tuple(      # 4 slots at 2,048 of 4,096 positions
+            {key: torch.cat([buf] * SLOTS) for key, buf in c.items()}
+            for c in pad_cache(cache, MAX_LEN)["layers"])}
+        last = torch.zeros((SLOTS, 1), dtype=torch.int64, device="cuda")
+        _, pool = decode(params2, last, pool)
+        for label, fn in (
+                ("one 2048-token prefill", lambda: prefill(
+                    params2, {"tokens": toks})),
+                (f"one decode tick of {SLOTS} slots over a {MAX_LEN}-"
+                 "position cache", lambda: decode(params2, last, pool))):
+            fn()
+            wall, device = profile_ms(fn)
+            busy = sum(device.values())
+            if busy == 0:
+                log(f"phase 8 profile, {label}: device time not measured "
+                    "(the profiler saw no GPU activity)")
+                continue
+            b5_dev = sum(t for name, t in device.items()
+                         if "flash_fwd" in name)
+            top = sorted(device.items(), key=lambda kv: -kv[1])[:6]
+            log(f"phase 8 profile, {label} of 8 Yi-9B layers: device busy "
+                f"{busy:.3f} ms of {wall:.3f} ms host clock (profiler on); "
+                f"B5 {b5_dev:.3f} ms = {100 * b5_dev / busy:.1f}% of device "
+                "time; " + "; ".join(f"{name[:60]} {ms:.3f} ms"
+                                     for name, ms in top))
+    del params2, cache, pool
+    k_ms, p_ms, l_ms, bnd, by = b5_rows[2048]
+    kernel_rows.append({
+        "name": "flash_attention", "route": "cuda",
+        "source": "src/repro_torch/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention/kernel.py:26",
+        "launches": yi_launches,
+        "max_abs_err": max(b5_err.values()), "ms": k_ms, "plain_ms": p_ms,
+        "bound_ms": bnd, "bound_by": by, "library_ms": l_ms})
+
+    # ---- 9. report ---------------------------------------------------------
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,

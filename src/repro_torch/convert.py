@@ -6,13 +6,23 @@ dicts and lists whose leaves are numpy (or JAX) arrays, e.g.
 ``{"blocks": [...], ...}`` form — and returns the port's parameter dict:
 the same keys, float32 numpy arrays, checked leaf by leaf against the
 port's schema for ``cfg``. This is what ``rtl.ir.lower_model`` takes.
+
+It also takes the dense LM's tree (``{"embed", "g0", "final_norm"}``),
+whose ``g0`` leaves carry a leading layer axis of length ``n_layers``;
+:func:`to_torch` then puts a converted tree on a device for
+``model.transformer.apply_model`` and ``runtime.server.Server``. A wrong
+key or a wrong (stacked) shape raises with its path.
 """
 from __future__ import annotations
 
+from typing import Optional, Union
+
 import numpy as np
+import torch
 
 from repro_torch.core.types import ModelConfig
-from repro_torch.model.layers import is_pspec
+from repro_torch.device import resolve_device
+from repro_torch.model.layers import is_pspec, tree_map
 
 
 def _convert(tree, schema, path: str):
@@ -43,6 +53,18 @@ def _convert(tree, schema, path: str):
 
 def params_from_jax(tree, cfg: ModelConfig):
     """The reference's parameter pytree for ``cfg`` -> the port's dict."""
-    from repro_torch.verify.vectors import schema_for
+    if cfg.family == "dense":
+        from repro_torch.model.transformer import param_schema as schema_for
+    else:
+        from repro_torch.verify.vectors import schema_for
 
     return _convert(tree, schema_for(cfg), "")
+
+
+def to_torch(tree, device: Optional[Union[str, torch.device]] = None,
+             dtype: Optional[torch.dtype] = None):
+    """A converted tree of numpy arrays -> tensors on ``device`` (None
+    means CUDA), cast to ``dtype`` if given."""
+    dev = resolve_device(device)
+    return tree_map(lambda a: torch.as_tensor(a, device=dev, dtype=dtype),
+                    tree)

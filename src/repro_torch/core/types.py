@@ -1,14 +1,19 @@
-"""Configuration dataclasses of the paper's two model families.
+"""Configuration dataclasses: the paper's two model families and the dense
+LM family.
 
-Port of the ``ModelConfig``/``LSTMConfig``/``Conv1dConfig`` part of
-``repro/core/types.py``. The LM zoo's sub-configs and the parallelism and
-shape tables wait for the slices that port those families.
+Port of ``ModelConfig``/``LSTMConfig``/``Conv1dConfig``, ``ShapeConfig``,
+``MeshConfig`` and ``ParallelismConfig`` from ``repro/core/types.py``. The
+LM zoo's other sub-configs (MoE, SSM, RWKV, encoder, frontends) wait for
+the slices that port those families; ``ParallelismConfig`` keeps only the
+knobs that the port's one-card dense path reads.
 """
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
 from typing import Optional, Tuple
+
+import torch
 
 
 @dataclass(frozen=True)
@@ -56,7 +61,7 @@ class Conv1dConfig:
         return self.block_lens()[-1] * self.channels
 
 
-FAMILIES = ("lstm", "conv1d")
+FAMILIES = ("dense", "lstm", "conv1d")
 
 
 @dataclass(frozen=True)
@@ -71,6 +76,81 @@ class ModelConfig:
     vocab_size: int
     lstm: Optional[LSTMConfig] = None
     conv1d: Optional[Conv1dConfig] = None
+    head_dim: Optional[int] = None          # default: d_model // n_heads
+    qk_norm: bool = False
+    rope_theta: float = 10_000.0
+    norm: str = "rmsnorm"                   # "rmsnorm" | "layernorm"
+    act: str = "silu"                       # "silu" (swiglu) | "gelu" | "relu_sq"
+    tie_embeddings: bool = False
+    vocab_pad_multiple: int = 128
+    dtype: str = "bfloat16"
+
+    @property
+    def hd(self) -> int:
+        if self.head_dim is not None:
+            return self.head_dim
+        return self.d_model // self.n_heads
+
+    @property
+    def padded_vocab(self) -> int:
+        m = self.vocab_pad_multiple
+        return ((self.vocab_size + m - 1) // m) * m
+
+    @property
+    def torch_dtype(self) -> torch.dtype:
+        return torch_dtype(self.dtype)
 
     def with_(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
+
+
+def torch_dtype(name: str) -> torch.dtype:
+    """``"bfloat16"``/``"float32"``/... -> the torch dtype of that name."""
+    dt = getattr(torch, name, None)
+    if not isinstance(dt, torch.dtype):
+        raise ValueError(f"unknown dtype name {name!r}")
+    return dt
+
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    name: str                      # train_4k | prefill_32k | decode_32k | ...
+    kind: str                      # "train" | "prefill" | "decode"
+    seq_len: int
+    global_batch: int
+
+
+@dataclass(frozen=True)
+class MeshConfig:
+    """The device mesh the reference shards over. The port runs on one
+    card and reads nothing from it yet; entry points take it so that
+    their signatures stay the reference's."""
+
+    shape: Tuple[int, ...]
+    axes: Tuple[str, ...]
+
+
+SMOKE_MESH = MeshConfig((1, 1), ("data", "model"))
+
+ATTN_IMPLS = ("ref", "flash")
+
+
+@dataclass(frozen=True)
+class ParallelismConfig:
+    """Runtime knobs of the dense path on one card.
+
+    ``attn_impl``: ``"ref"`` (plain PyTorch einsum attention) or
+    ``"flash"`` (the B5 kernel for every causal prefill, whose plain
+    version runs on a CPU tensor). ``gqa_grouped`` contracts q-head groups
+    against unrepeated K/V instead of materialising repeated K/V.
+    """
+
+    compute_dtype: str = "bfloat16"
+    attn_impl: str = "ref"
+    gqa_grouped: bool = False
+
+    def __post_init__(self):
+        if self.attn_impl not in ATTN_IMPLS:
+            raise ValueError(f"attn_impl {self.attn_impl!r} is not one of "
+                             f"{ATTN_IMPLS}")
+        torch_dtype(self.compute_dtype)

@@ -12,6 +12,8 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "error_string.cuh"
+
 namespace repro {
 
 __device__ __forceinline__ int32_t wrap_add(int32_t a, int32_t b) {
@@ -54,7 +56,3 @@ __device__ __forceinline__ int32_t requant(int32_t v, int shift, int32_t lo,
 }
 
 }  // namespace repro
-
-extern "C" const char* repro_cuda_error_string(int err) {
-  return cudaGetErrorString(static_cast<cudaError_t>(err));
-}

@@ -6,5 +6,6 @@ binds a CUDA source of ``repro_torch/csrc/`` through ``ctypes``), ``ops.py``
 the plain version on a CPU tensor, counts its launches) and ``ref.py`` (the
 plain PyTorch version, which also runs on CUDA). ``lstm_cell_int`` is the
 RTL emulator's fused int32 LSTM window; ``mac_int`` the int32 MAC + requant
-of the linear, conv1d and per-step LSTM templates.
+of the linear, conv1d and per-step LSTM templates; ``flash_attention`` the
+LM's online-softmax attention forward, run by every causal prefill layer.
 """

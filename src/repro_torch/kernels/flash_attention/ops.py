@@ -1,0 +1,67 @@
+"""Public wrapper of the flash-attention template (B5): the reference's
+``(B, S, H, hd)`` layout with GQA-repeated K/V.
+
+The reference's backward is the plain VJP (``jax.custom_vjp`` around the
+kernel's forward); the port serves only, so no gradient is defined here
+yet: the training slice adds a ``torch.autograd.Function`` whose backward
+is the plain version's.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels.flash_attention.kernel import (DTYPES,
+                                                        flash_attention_cuda)
+from repro_torch.kernels.flash_attention.ref import attention_ref
+
+#: kernel launches made by :func:`flash_attention` (CPU calls do not count)
+launches = 0
+
+MAX_HEAD_DIM = 256
+
+
+def _check(q, k, v) -> None:
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.ndim != 4:
+            raise ValueError(f"flash_attention: {name} must be (B, S, H, hd),"
+                             f" got {tuple(t.shape)}")
+        if t.dtype != q.dtype or t.dtype not in DTYPES:
+            raise ValueError(f"flash_attention: {name} is {t.dtype}; q, k, v "
+                             f"must share one of {sorted(map(str, DTYPES))}")
+        if t.device != q.device:
+            raise ValueError(f"flash_attention: {name} is on {t.device}, q "
+                             f"on {q.device}")
+        if t.stride(-1) != 1:
+            raise ValueError(f"flash_attention: {name}'s head dim must be "
+                             "contiguous")
+    B, Sq, H, hd = q.shape
+    if k.shape != v.shape or k.shape[0] != B or k.shape[2:] != (H, hd):
+        raise ValueError(f"flash_attention: shapes q {tuple(q.shape)}, k "
+                         f"{tuple(k.shape)}, v {tuple(v.shape)} do not match "
+                         "(K/V must be GQA-repeated)")
+    if Sq < 1 or k.shape[1] < 1 or not 1 <= hd <= MAX_HEAD_DIM:
+        raise ValueError(f"flash_attention: needs S >= 1 and 1 <= hd <= "
+                         f"{MAX_HEAD_DIM}, got q {tuple(q.shape)}, k "
+                         f"{tuple(k.shape)}")
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool = True) -> torch.Tensor:
+    """q/k/v: (B, S, H, hd) (K/V already GQA-repeated). Returns
+    (B, Sq, H, hd) in q's dtype.
+
+    On a CUDA tensor this launches the kernel, for every S and every
+    hd <= 256 (the kernel masks ragged tiles itself); on a CPU tensor it
+    runs the plain version.
+    """
+    global launches
+    _check(q, k, v)
+    if q.device.type == "cpu":
+        return attention_ref(q, k, v, causal)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention: no kernel for device {q.device}")
+    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    with torch.cuda.device(q.device):
+        flash_attention_cuda(q, k, v, out, causal=causal)
+    launches += 1
+    return out

@@ -1,15 +1,32 @@
-"""The parameter-schema leaf (port of ``PSpec``/``is_pspec`` from
+"""Shared layers + the parameter-schema machinery (port of
 ``repro/model/layers.py``).
 
-A model's parameters are described once as nested dicts and lists of
-:class:`PSpec` leaves. Sharding specs wait for the multi-GPU slice.
+A model's parameters are described once as nested dicts (and tuples or
+lists) of :class:`PSpec` leaves: shape, dtype, init. :func:`init_params`
+draws real tensors from the same schema that ``convert.params_from_jax``
+checks a carried-over tree against.
+
+Sharding has no meaning on one card: the reference's partition specs
+(``PSpec.pspec``, ``shardings``, ``abstract_params``) and activation
+constraints (``Ctx.constrain``, ``shard_axis``) are dropped, and every
+tensor lives whole on its device. The multi-GPU slice brings them back as
+``torch.distributed`` layouts.
 """
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
-from typing import Optional, Tuple
+from typing import Any, Callable, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
+
+from repro_torch.core.types import (MeshConfig, ModelConfig,
+                                    ParallelismConfig, torch_dtype)
+
+# ---------------------------------------------------------------------------
+# Parameter schema
+# ---------------------------------------------------------------------------
 
 
 @dataclass(frozen=True)
@@ -18,9 +35,205 @@ class PSpec:
 
     shape: Tuple[int, ...]
     dtype: torch.dtype = torch.float32
-    init: str = "normal"          # normal | zeros
+    init: str = "normal"          # normal | zeros | ones | embed
     scale: Optional[float] = None  # stddev override (default: 1/sqrt(fan_in))
 
 
 def is_pspec(x) -> bool:
     return isinstance(x, PSpec)
+
+
+def tree_map(fn: Callable, tree, *rest, is_leaf=None):
+    """Map ``fn`` over the leaves of nested dicts/tuples/lists (``None`` is
+    kept as is); dict keys are visited in sorted order, as
+    ``jax.tree.flatten`` does. ``rest`` are trees of the same structure."""
+    if is_leaf is not None and is_leaf(tree):
+        return fn(tree, *rest)
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, tree[k], *(r[k] for r in rest),
+                            is_leaf=is_leaf) for k in sorted(tree)}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(tree_map(fn, t, *(r[i] for r in rest),
+                                   is_leaf=is_leaf)
+                          for i, t in enumerate(tree))
+    if tree is None:
+        return None
+    return fn(tree, *rest)
+
+
+def tree_leaves(tree, is_leaf=None) -> list:
+    """The leaves of ``tree`` in :func:`tree_map`'s order."""
+    out: list = []
+    tree_map(out.append, tree, is_leaf=is_leaf)
+    return out
+
+
+def _init_leaf(spec: PSpec, gen: torch.Generator,
+               dtype_override: Optional[torch.dtype]) -> torch.Tensor:
+    dtype = dtype_override or spec.dtype
+    dev = gen.device
+    if spec.init == "zeros":
+        return torch.zeros(spec.shape, dtype=dtype, device=dev)
+    if spec.init == "ones":
+        return torch.ones(spec.shape, dtype=dtype, device=dev)
+    if spec.init == "embed":
+        std = spec.scale if spec.scale is not None else 0.02
+    else:                                          # fan-in normal
+        fan_in = spec.shape[-2] if len(spec.shape) >= 2 else spec.shape[-1]
+        std = spec.scale if spec.scale is not None else fan_in ** -0.5
+    x = torch.randn(spec.shape, generator=gen, dtype=torch.float32,
+                    device=dev)
+    return x.mul_(std).to(dtype)
+
+
+def init_params(schema, generator: torch.Generator,
+                dtype_override: Optional[torch.dtype] = None):
+    """Materialise real tensors from a schema on ``generator.device``,
+    leaves drawn one after another from ``generator`` (dict keys in sorted
+    order). The reference folds a JAX key per leaf, so the two packages
+    draw different numbers from one seed: tests carry the reference's
+    tensors across with ``convert.params_from_jax`` instead."""
+    return tree_map(lambda s: _init_leaf(s, generator, dtype_override),
+                    schema, is_leaf=is_pspec)
+
+
+def param_count(schema) -> int:
+    return sum(math.prod(s.shape) for s in tree_leaves(schema, is_pspec))
+
+
+# ---------------------------------------------------------------------------
+# Apply-time context
+# ---------------------------------------------------------------------------
+
+
+@dataclass
+class Ctx:
+    """Threaded through every block's ``apply``."""
+
+    cfg: ModelConfig
+    mesh_cfg: MeshConfig
+    mode: str                                  # "prefill" | "decode"
+    par: ParallelismConfig = ParallelismConfig()
+    positions: Optional[torch.Tensor] = None   # (B, S) absolute positions
+    attn_impl: str = "ref"                     # "ref" | "flash" (kernel B5)
+
+    @property
+    def compute_dtype(self) -> torch.dtype:
+        return torch_dtype(self.par.compute_dtype)
+
+
+# ---------------------------------------------------------------------------
+# Norms
+# ---------------------------------------------------------------------------
+
+
+def norm_schema(cfg: ModelConfig, d: Optional[int] = None):
+    d = d or cfg.d_model
+    if cfg.norm == "layernorm":
+        return {"scale": PSpec((d,), init="ones"),
+                "bias": PSpec((d,), init="zeros")}
+    return {"scale": PSpec((d,), init="ones")}
+
+
+def apply_norm(p, x: torch.Tensor, cfg: ModelConfig,
+               eps: float = 1e-5) -> torch.Tensor:
+    xf = x.float()
+    if "bias" in p:  # layernorm
+        mu = xf.mean(-1, keepdim=True)
+        var = xf.var(-1, keepdim=True, correction=0)
+        y = (xf - mu) * torch.rsqrt(var + eps)
+        y = y * p["scale"].float() + p["bias"].float()
+    else:  # rmsnorm
+        ms = xf.square().mean(-1, keepdim=True)
+        y = xf * torch.rsqrt(ms + eps) * p["scale"].float()
+    return y.to(x.dtype)
+
+
+def rms_head_norm(scale: torch.Tensor, x: torch.Tensor,
+                  eps: float = 1e-6) -> torch.Tensor:
+    """Per-head RMS norm over head_dim (qwen3 qk-norm)."""
+    xf = x.float()
+    ms = xf.square().mean(-1, keepdim=True)
+    return (xf * torch.rsqrt(ms + eps) * scale.float()).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# RoPE
+# ---------------------------------------------------------------------------
+
+
+def rope_angles(positions: torch.Tensor, head_dim: int, theta: float):
+    """positions: (B, S) -> cos/sin (B, S, head_dim/2), f32."""
+    half = head_dim // 2
+    exps = -torch.arange(0, half, dtype=torch.float32,
+                         device=positions.device) / half
+    freqs = torch.pow(torch.tensor(theta, dtype=torch.float32,
+                                   device=positions.device), exps)
+    ang = positions.float()[..., None] * freqs  # (B, S, half)
+    return torch.cos(ang), torch.sin(ang)
+
+
+def apply_rope(x: torch.Tensor, cos: torch.Tensor,
+               sin: torch.Tensor) -> torch.Tensor:
+    """x: (B, S, H, hd). Rotates pairs (even, odd) halves (llama convention)."""
+    half = x.shape[-1] // 2
+    x1, x2 = x[..., :half], x[..., half:]
+    c = cos[:, :, None, :].to(x.dtype)
+    s = sin[:, :, None, :].to(x.dtype)
+    return torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1)
+
+
+# ---------------------------------------------------------------------------
+# MLP (SwiGLU / GELU-2mat / relu^2)
+# ---------------------------------------------------------------------------
+
+
+def mlp_schema(cfg: ModelConfig, d_ff: Optional[int] = None):
+    d, f = cfg.d_model, d_ff or cfg.d_ff
+    if cfg.act in ("gelu", "relu_sq"):
+        return {"wi": PSpec((d, f)), "wo": PSpec((f, d))}
+    return {"w_gate": PSpec((d, f)), "w_up": PSpec((d, f)),
+            "wo": PSpec((f, d))}
+
+
+def apply_mlp(p, x: torch.Tensor, cfg: ModelConfig, ctx: Ctx) -> torch.Tensor:
+    dt = ctx.compute_dtype
+    xd = x.to(dt)
+    if "w_gate" in p:
+        g = xd @ p["w_gate"].to(dt)
+        u = xd @ p["w_up"].to(dt)
+        h = F.silu(g) * u
+    else:
+        h = xd @ p["wi"].to(dt)
+        if cfg.act == "gelu":
+            h = F.gelu(h, approximate="tanh")     # jax.nn.gelu's default
+        else:  # relu^2 (RWKV channel-mix nonlinearity)
+            h = F.relu(h).square()
+    return (h @ p["wo"].to(dt)).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Embedding / head
+# ---------------------------------------------------------------------------
+
+
+def embed_schema(cfg: ModelConfig):
+    v = cfg.padded_vocab
+    sch: Any = {"embedding": PSpec((v, cfg.d_model), init="embed")}
+    if not cfg.tie_embeddings:
+        sch["lm_head"] = PSpec((cfg.d_model, v))
+    return sch
+
+
+def embed_tokens(p, tokens: torch.Tensor, cfg: ModelConfig,
+                 ctx: Ctx) -> torch.Tensor:
+    return p["embedding"][tokens].to(ctx.compute_dtype)
+
+
+def lm_logits(p, h: torch.Tensor, cfg: ModelConfig, ctx: Ctx) -> torch.Tensor:
+    dt = ctx.compute_dtype
+    if cfg.tie_embeddings:
+        w = p["embedding"].to(dt).T
+    else:
+        w = p["lm_head"].to(dt)
+    return (h.to(dt) @ w).float()

@@ -36,7 +36,9 @@ def test_forbidden_pattern_catches_what_it_should():
 
 def test_importing_the_port_loads_neither_jax_nor_repro():
     code = ("import sys, repro_torch.rtl, repro_torch.verify, "
-            "repro_torch.convert, repro_torch.configs; "
+            "repro_torch.convert, repro_torch.configs, "
+            "repro_torch.runtime.server, repro_torch.launch.serve, "
+            "repro_torch.kernels.flash_attention; "
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'repro.')) or m == 'repro'); "
             "assert not bad, bad")
@@ -49,7 +51,7 @@ def test_every_kernel_has_source_launcher_wrapper_and_plain_version():
     from repro_torch.kernels import build
 
     names = build.kernel_names()
-    assert names == ["lstm_cell_int", "mac_int"]
+    assert names == ["flash_attention", "lstm_cell_int", "mac_int"]
     for name in names:
         for part in ("kernel.py", "ops.py", "ref.py"):
             assert (PORT / "kernels" / name / part).is_file(), (name, part)
