@@ -1,10 +1,10 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port (``src/repro_torch``) on one CUDA card.
 
-Drives the port's two main paths through the kernels written for Hopper
-and checks every answer. The Elastic Node's bit-exact integer emulator on
-the paper's Table-I design ``elastic-lstm`` (and on ``elastic-conv1d``),
-with kernels B1 and B2:
+Drives the port's main paths through the kernels written for Hopper and
+checks every answer. The Elastic Node's bit-exact integer emulator on the
+paper's Table-I design ``elastic-lstm`` (and on ``elastic-conv1d``), with
+kernels B1 and B2:
 
 1. build every kernel from ``src/repro_torch/csrc/`` (``nvcc``, sm_90a, one
    process per source, all at once);
@@ -37,8 +37,28 @@ every prefill layer:
    width and 4 layers within 1e-3 relative with identical greedy tokens;
 8. time B5, its plain version and ``scaled_dot_product_attention`` at
    Yi-9B prefill layers of 1,024, 2,048 and 4,000 tokens, and profile one
-   2,048-token prefill and one 4-slot decode tick over 8 Yi-9B layers;
-9. print the kernels line and the card's name and power limit.
+   2,048-token prefill and one 4-slot decode tick over 8 Yi-9B layers.
+
+The four templates the reference reaches only through their public
+wrappers, each driven through its wrapper at the widths of a model the
+repo's configs give it (every launch count set to 0 just before and read
+just after: that kernel must have launched and no other), held against its
+plain version there and at the reference test's shapes within the
+reference test's bar, then timed beside its bound, its plain version and,
+where one exists, the PyTorch call that computes the same function:
+
+9. B3, the float LSTM window, at ``elastic-lstm`` over 65,536 windows
+   (1e-5; yardstick cuDNN's LSTM);
+10. B4, the int8 matmul, at Yi-9B's MLP, 4096 <-> 11008, with weights
+    quantized on the card by ``quantize_params_int8`` and 2,048 or 4 rows
+    of bf16 activations (bit for bit; yardstick ``torch._int_mm`` plus the
+    same epilogue);
+11. B6, the Mamba-2 SSD scan, at Zamba2-7B's 112 heads of P = N = 64 over
+    4,096 steps, chunks 128 and 256, with and without h0 (1e-4 on y and
+    the state, against the per-step oracle);
+12. B7, the RWKV-6 WKV recurrence, at RWKV6-7B's 64 heads of N = 64 over
+    4,096 steps, with and without h0 (1e-4, per-step oracle);
+13. print the kernels line and the card's name and power limit.
 
 Usage, from the repository root: ``python3 chip_smoke.py``. Needs one CUDA
 card and ``nvcc``; exits non-zero, printing no result, without them. The
@@ -66,6 +86,8 @@ CONV_REQUESTS = (1, 5, 33, 1000, 8192)
 HBM_BYTES_PER_S = 3.35e12
 INT32_MAC_PER_S = 132 * 64 * 1.98e9
 BF16_FLOP_PER_S = 989e12              # dense tensor-core peak
+F32_FLOP_PER_S = 67e12                # f32 FMA on the CUDA cores, 2 flops
+INT8_OP_PER_S = 1979e12               # dense int8 tensor-core peak
 # the Yi-9B serving run
 PROMPT_LENS = (16, 17, 128, 333, 1024, 2048, 3000, 4000)
 SLOTS, MAX_LEN, MAX_NEW = 4, 4096, 16
@@ -80,6 +102,19 @@ B5_F32_TOL, B5_BF16_TOL = 2e-5, 0.03   # the reference's bars for B5
 # twice that: sqrt(L) * 2^-7 (0.054 at L = 48), on the relative rms
 # difference.
 F32_LOGIT_REL_TOL = 1e-3              # f32, full width, 4 layers (max abs)
+# the wrapper-only templates B3, B4, B6, B7 at the widths of the models the
+# repo's configs give them, and the reference tests' bars
+# (tests/test_kernels.py:88, :35, :165-166, :147-148)
+B3_WINDOWS = 65536                     # B1's serving batch of windows
+B4_ROWS = (2048, 4)                    # a prefill, a 4-slot decode tick
+SEQ = 4096                             # B6/B7 sequence length
+# Zamba2-7B's SSD (src/repro/configs/zamba2_7b.py: d_model 3584, expand 2,
+# headdim 64, d_state 64, one group): 112 heads of P = 64, N = 64
+SSD_H, SSD_P, SSD_N = 2 * 3584 // 64, 64, 64
+# RWKV6-7B's WKV (src/repro/configs/rwkv6_7b.py: d_model 4096, head_size
+# 64, chunk 128): 64 heads of N = 64
+WKV_H, WKV_N, WKV_CHUNK = 4096 // 64, 64, 128
+B3_TOL, B4_TOL, B6_TOL, B7_TOL = 1e-5, 1e-3, 1e-4, 1e-4
 
 
 def log(msg: str) -> None:
@@ -128,6 +163,43 @@ def time_ms(fn, reps: int = 20) -> float:
     return start.elapsed_time(end) / (3 * reps)
 
 
+def events_ms(fn, reps: int = 1, warm: bool = True) -> float:
+    """Device time of one ``fn()``: CUDA events around ``reps`` eager calls
+    (after a warm-up call, if ``warm``). For a call that does not go into a
+    CUDA graph (cuDNN's LSTM) or that is thousands of small launches (the
+    per-step plain versions of B6 and B7), so its host launch gaps count."""
+    import torch
+
+    if warm:
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def drive(ops_by_name: dict, name: str, fn):
+    """Run ``fn`` (one kernel's entry-point calls) with every kernel's
+    launch count set to 0 just before and read just after: the named
+    kernel must have launched and no other; returns (fn(), its count)."""
+    import torch
+
+    for mod in ops_by_name.values():
+        mod.launches = 0
+    out = fn()
+    torch.cuda.synchronize()
+    counts = {key: mod.launches for key, mod in ops_by_name.items()}
+    if counts[name] <= 0 or any(n for key, n in counts.items()
+                                if key != name):
+        raise AssertionError(f"{name}: launches {counts}")
+    return out, counts[name]
+
+
 def profile_ms(fn):
     """One ``fn()`` under ``torch.profiler``: host-clock ms of the run
     (profiler on), and the device time of each GPU activity (kernels,
@@ -165,6 +237,285 @@ def rand_codes(rng, fmt, shape):
 
     return torch.as_tensor(rng.integers(fmt.lo, fmt.hi + 1, shape),
                            dtype=torch.int32, device="cuda")
+
+
+def randn(gen, *shape, scale: float = 1.0):
+    import torch
+
+    return torch.randn(shape, generator=gen, device="cuda") * scale
+
+
+def max_err(got, want) -> float:
+    return (got.float() - want.float()).abs().max().item()
+
+
+def phase_b3(ops_by_name: dict) -> dict:
+    """B3, the float LSTM window, at ``elastic-lstm`` (Table I: H = 20,
+    S = 6, d_in = 1) over 65,536 windows, and at the reference test's
+    widest shape (32, 12, 4, 32)."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.lstm_cell import (lstm_window, lstm_window_cuda,
+                                               lstm_window_ref)
+
+    c = get_config("elastic-lstm").lstm
+    B, S, din, H = B3_WINDOWS, c.seq_len, c.in_features, c.hidden
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 9)
+    x, w, b = (randn(gen, B, S, din), randn(gen, din + H, 4 * H, scale=0.3),
+               randn(gen, 4 * H, scale=0.1))
+    got, n = drive(ops_by_name, "lstm_cell", lambda: lstm_window(x, w, b))
+    err = max_err(got, lstm_window_ref(x, w, b))
+    args2 = (randn(gen, 32, 12, 4), randn(gen, 36, 128, scale=0.3),
+             randn(gen, 128, scale=0.1))
+    err = max(err, max_err(lstm_window(*args2), lstm_window_ref(*args2)))
+    if err > B3_TOL:
+        raise AssertionError(f"B3 != plain version: max |err| {err:.3g} > "
+                             f"{B3_TOL}")
+    log(f"phase 9 B3 = plain version at (B, S, d_in, H) = ({B}, {S}, {din}, "
+        f"{H}) and (32, 12, 4, 32): max |err| {err:.3g} (bar {B3_TOL}); "
+        f"launches {n}")
+    out = torch.empty((B, H), device="cuda")
+    ms = time_ms(functools.partial(lstm_window_cuda, x, w, b, out,
+                                   block_b=128))
+    plain = time_ms(functools.partial(lstm_window_ref, x, w, b), reps=5)
+    # the library call: cuDNN's LSTM (gate order i, f, g, o, as B3's)
+    lstm = torch.nn.LSTM(din, H, batch_first=True).cuda()
+    with torch.no_grad():
+        lstm.weight_ih_l0.copy_(w[:din].T)
+        lstm.weight_hh_l0.copy_(w[din:].T)
+        lstm.bias_ih_l0.copy_(b)
+        lstm.bias_hh_l0.zero_()
+        lib_err = max_err(lstm(x)[1][0][0], got)
+        lib = events_ms(lambda: lstm(x), reps=20)
+    bnd, by = bound_ms(4 * (B * S * din + (din + H) * 4 * H + 4 * H + B * H),
+                       2 * B * S * (din + H) * 4 * H, F32_FLOP_PER_S)
+    log(f"phase 9 B3 timing at {B} windows: kernel {ms:.4f} ms, plain "
+        f"{plain:.4f} ms, cuDNN LSTM {lib:.4f} ms (max |cuDNN - kernel| "
+        f"{lib_err:.3g}), bound {bnd:.4f} ms ({by})")
+    return {"name": "lstm_cell", "route": "cuda",
+            "source": "src/repro_torch/csrc/lstm_cell.cu",
+            "replaces": "src/repro/kernels/lstm_cell/kernel.py:23",
+            "launches": n, "max_abs_err": err, "ms": ms, "plain_ms": plain,
+            "bound_ms": bnd, "bound_by": by, "library_ms": lib}
+
+
+def phase_b4(ops_by_name: dict) -> dict:
+    """B4, the int8 matmul, at Yi-9B's MLP: up (4096 -> 11008) and down
+    (11008 -> 4096) weights drawn and quantized on the card, bf16
+    activations of 2,048 rows (a prefill) and 4 rows (a decode tick)."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.quant_matmul import (quant_matmul,
+                                                  quant_matmul_cuda,
+                                                  quant_matmul_ref,
+                                                  quantize_act)
+    from repro_torch.quant.ptq import quantize_params_int8
+
+    yi = get_config("yi-9b")
+    D, F = yi.d_model, yi.d_ff
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 10)
+    ip = quantize_params_int8({"up": randn(gen, D, F, scale=D ** -0.5),
+                               "down": randn(gen, F, D, scale=F ** -0.5)})
+    cases = {(proj, m): randn(gen, m, D if proj == "up" else F)
+             .to(torch.bfloat16) for m in B4_ROWS for proj in ("up", "down")}
+    outs, n = drive(ops_by_name, "quant_matmul", lambda: {
+        key: quant_matmul(x, ip.q[key[0]], ip.scale[key[0]])
+        for key, x in cases.items()})
+    err = 0.0
+    for key, x in cases.items():
+        want = quant_matmul(x, ip.q[key[0]], ip.scale[key[0]], use_ref=True)
+        err = max(err, max_err(outs[key], want))
+        if not torch.equal(outs[key], want):
+            raise AssertionError(f"B4 {key} != plain version bit for bit: "
+                                 f"max |err| {err:.3g}")
+    for M, K, N in ((128, 128, 128), (64, 200, 96), (256, 512, 384),
+                    (32, 96, 640)):
+        for dtype in (torch.float32, torch.bfloat16):
+            x = randn(gen, M, K).to(dtype)
+            t = quantize_params_int8({"w": randn(gen, K, N)})
+            got = quant_matmul(x, t.q["w"], t.scale["w"])
+            want = quant_matmul(x, t.q["w"], t.scale["w"], use_ref=True)
+            err = max(err, max_err(got, want))
+    if err > B4_TOL:
+        raise AssertionError(f"B4 != plain version: max |err| {err:.3g}")
+    log(f"phase 10 B4 = plain version bit for bit at Yi-9B's MLP "
+        f"({D} <-> {F}) x {B4_ROWS} rows, and within {err:.3g} (bar "
+        f"{B4_TOL}) at the reference's 4 test shapes in f32 and bf16; "
+        f"launches {n}")
+    rows = {}
+    for (proj, M), x in cases.items():
+        wq, ws = ip.q[proj], ip.scale[proj].reshape(-1).contiguous()
+        xq, xs = quantize_act(x)
+        K, N = wq.shape
+        out = torch.empty((M, N), device="cuda")
+        ms = time_ms(functools.partial(quant_matmul_cuda, xq, wq,
+                                       xs.reshape(1), ws, out))
+        plain = time_ms(functools.partial(quant_matmul_ref, xq, wq, xs, ws),
+                        reps=3)
+        # cuBLASLt's int8 GEMM plus the same epilogue, on the codes as the
+        # port stores them (K, N) row-major and as a column-major copy (the
+        # layout cuBLASLt's int8 kernels prefer); the faster one is kept
+        wq_cm = wq.t().contiguous().t()
+        try:
+            def library(w):
+                return torch._int_mm(xq, w).float() * xs * ws
+
+            lib_exact = all(torch.equal(library(w), out) for w in (wq, wq_cm))
+            lib_rm = events_ms(functools.partial(library, wq), reps=20)
+            lib_cm = events_ms(functools.partial(library, wq_cm), reps=20)
+            lib = min(lib_rm, lib_cm)
+            lib_note = (f"{lib_rm:.4f} ms row-major, {lib_cm:.4f} ms "
+                        f"column-major (= kernel bit for bit: {lib_exact})")
+        except RuntimeError as exc:
+            lib, lib_note = None, f"none ({str(exc).splitlines()[0][:90]})"
+        bnd, by = bound_ms(M * K + K * N + 4 + 4 * N + 4 * M * N,
+                           2 * M * N * K, INT8_OP_PER_S)
+        rows[(proj, M)] = (ms, plain, lib, bnd, by)
+        log(f"phase 10 B4 {proj} ({M}, {K}) @ ({K}, {N}): kernel {ms:.4f} ms "
+            f"({2 * M * N * K / ms / 1e9:.1f} TOP/s), plain {plain:.4f} ms, "
+            f"torch._int_mm + epilogue {lib_note}, bound {bnd:.4f} ms ({by})")
+    ms, plain, lib, bnd, by = rows[("up", B4_ROWS[0])]
+    return {"name": "quant_matmul", "route": "cuda",
+            "source": "src/repro_torch/csrc/quant_matmul.cu",
+            "replaces": "src/repro/kernels/quant_matmul/kernel.py:23",
+            "launches": n, "max_abs_err": err, "ms": ms, "plain_ms": plain,
+            "bound_ms": bnd, "bound_by": by, "library_ms": lib}
+
+
+def phase_b6(ops_by_name: dict) -> dict:
+    """B6, the Mamba-2 SSD chunk scan, at Zamba2-7B's widths over 4,096
+    steps, chunks 128 and 256, with and without h0; and at the reference
+    test's shapes (chunk 16)."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.mamba2 import ssd, ssd_cuda, ssd_reference
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 11)
+
+    def inputs(B, S, H, P, N):
+        """tests/test_kernels.py::test_mamba2_kernel's distributions."""
+        return (randn(gen, B, S, H, P, scale=0.5),
+                F.softplus(randn(gen, B, S, H)),
+                -torch.exp(randn(gen, H, scale=0.3)),
+                randn(gen, B, S, 1, N, scale=0.5),
+                randn(gen, B, S, 1, N, scale=0.5),
+                randn(gen, B, H, P, N, scale=0.1))
+
+    x, dt, A, Bm, Cm, h0 = inputs(1, SEQ, SSD_H, SSD_P, SSD_N)
+    runs = [(chunk, h) for chunk in (128, 256) for h in (None, h0)]
+    outs, n = drive(ops_by_name, "ssd", lambda: [
+        ssd(x, dt, A, Bm, Cm, h, chunk=chunk) for chunk, h in runs])
+    refs = {id(h): ssd_reference(x, dt, A, Bm, Cm, h0=h) for h in (None, h0)}
+    err, ymax = 0.0, 0.0
+    for (chunk, h), (y, hf) in zip(runs, outs):
+        y_r, hf_r = refs[id(h)]
+        e = (max_err(y, y_r), max_err(hf, hf_r))
+        err, ymax = max(err, *e), max(ymax, y_r.abs().max().item())
+        log(f"phase 11 B6 (1, {SEQ}, {SSD_H}, {SSD_P}), N {SSD_N}, chunk "
+            f"{chunk}, h0 {h is not None}: max |err| y {e[0]:.3g}, state "
+            f"{e[1]:.3g} (max |y| {y_r.abs().max().item():.3g})")
+    small = 0.0
+    for shape in ((2, 64, 4, 16, 16), (1, 128, 2, 32, 16)):
+        *args, hs = inputs(*shape)
+        for h in (None, hs):
+            got = ssd(*args, h, chunk=16)
+            want = ssd_reference(*args, h0=h)
+            small = max(small, *(max_err(g, r) for g, r in zip(got, want)))
+    err = max(err, small)
+    if err > B6_TOL:
+        raise AssertionError(f"B6 != plain version: max |err| {err:.3g} > "
+                             f"{B6_TOL}")
+    log(f"phase 11 B6 = plain version within {err:.3g} (bar {B6_TOL}; "
+        f"{small:.3g} at the reference's test shapes); launches {n}")
+    y = torch.empty_like(x)
+    hf = torch.empty((1, SSD_H, SSD_P, SSD_N), device="cuda")
+    args = (x, dt, A, Bm[:, :, 0].contiguous(), Cm[:, :, 0].contiguous(),
+            y, hf)
+    ms = {chunk: time_ms(functools.partial(ssd_cuda, *args, chunk=chunk),
+                         reps=5) for chunk in (128, 256)}
+    plain = events_ms(lambda: ssd_reference(x, dt, A, Bm, Cm), warm=False)
+    S, H, P, N = SEQ, SSD_H, SSD_P, SSD_N
+    # the function's least work, whatever the chunking: each step and head
+    # reads the (P, N) state into y and folds x, B into it
+    fma = 2 * N * P * H * S
+    bnd, by = bound_ms(4 * (2 * S * H * P + S * H + H + 2 * S * N
+                            + H * P * N), 2 * fma, F32_FLOP_PER_S)
+    log(f"phase 11 B6 timing: kernel {ms[128]:.4f} ms at chunk 128, "
+        f"{ms[256]:.4f} ms at chunk 256; plain (per-step, {S} steps, one "
+        f"run) {plain:.4f} ms; bound {bnd:.4f} ms ({by}, {2 * fma / 1e9:.2f} "
+        "GFLOP for the state read and update); library: none, no PyTorch "
+        "call computes the SSD scan")
+    return {"name": "ssd", "route": "cuda",
+            "source": "src/repro_torch/csrc/ssd.cu",
+            "replaces": "src/repro/kernels/mamba2/kernel.py:24",
+            "launches": n, "max_abs_err": err, "ms": ms[128],
+            "plain_ms": plain, "bound_ms": bnd, "bound_by": by,
+            "library_ms": None}
+
+
+def phase_b7(ops_by_name: dict) -> dict:
+    """B7, the RWKV-6 WKV recurrence, at RWKV6-7B's widths over 4,096
+    steps, with and without h0; and at the reference test's shapes."""
+    import torch
+
+    from repro_torch.kernels.rwkv6 import wkv6, wkv6_cuda, wkv6_reference
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 12)
+
+    def inputs(B, S, H, N):
+        """tests/test_kernels.py::test_wkv6_kernel's distributions."""
+        r, k, v = (randn(gen, B, S, H, N, scale=0.5) for _ in range(3))
+        return (r, k, v, -torch.exp(randn(gen, B, S, H, N, scale=0.5)),
+                randn(gen, H, N, scale=0.5),
+                randn(gen, B, H, N, N, scale=0.1))
+
+    r, k, v, w_log, u, h0 = inputs(1, SEQ, WKV_H, WKV_N)
+    outs, n = drive(ops_by_name, "wkv6", lambda: [
+        wkv6(r, k, v, w_log, u, h, chunk=WKV_CHUNK) for h in (None, h0)])
+    err = 0.0
+    for h, (y, hf) in zip((None, h0), outs):
+        y_r, hf_r = wkv6_reference(r, k, v, w_log, u, h0=h)
+        e = (max_err(y, y_r), max_err(hf, hf_r))
+        err = max(err, *e)
+        log(f"phase 12 B7 (1, {SEQ}, {WKV_H}, {WKV_N}), chunk {WKV_CHUNK}, "
+            f"h0 {h is not None}: max |err| y {e[0]:.3g}, state {e[1]:.3g} "
+            f"(max |y| {y_r.abs().max().item():.3g})")
+    small = 0.0
+    for shape in ((2, 64, 3, 16), (1, 128, 2, 32), (2, 32, 4, 16)):
+        *args, hs = inputs(*shape)
+        for h in (None, hs):
+            got = wkv6(*args, h, chunk=32)
+            want = wkv6_reference(*args, h0=h)
+            small = max(small, *(max_err(g, w) for g, w in zip(got, want)))
+    err = max(err, small)
+    if err > B7_TOL:
+        raise AssertionError(f"B7 != plain version: max |err| {err:.3g} > "
+                             f"{B7_TOL}")
+    log(f"phase 12 B7 = plain version within {err:.3g} (bar {B7_TOL}; "
+        f"{small:.3g} at the reference's test shapes); launches {n}")
+    y = torch.empty_like(r)
+    hf = torch.empty((1, WKV_H, WKV_N, WKV_N), device="cuda")
+    ms = time_ms(functools.partial(wkv6_cuda, r, k, v, w_log, u, y, hf),
+                 reps=5)
+    plain = events_ms(lambda: wkv6_reference(r, k, v, w_log, u), warm=False)
+    S, H, N = SEQ, WKV_H, WKV_N
+    # the function's least work, whatever the chunking: each step and head
+    # reads the (N, N) state into y and folds k, v into it
+    fma = 2 * N * N * H * S
+    bnd, by = bound_ms(4 * (5 * S * H * N + H * N + H * N * N), 2 * fma,
+                       F32_FLOP_PER_S)
+    log(f"phase 12 B7 timing: kernel {ms:.4f} ms; plain (per-step, {S} "
+        f"steps, one run) {plain:.4f} ms; bound {bnd:.4f} ms ({by}, "
+        f"{2 * fma / 1e9:.2f} GFLOP for the state read and update); "
+        "library: none, no PyTorch call computes the WKV recurrence")
+    return {"name": "wkv6", "route": "cuda",
+            "source": "src/repro_torch/csrc/wkv6.cu",
+            "replaces": "src/repro/kernels/rwkv6/kernel.py:21",
+            "launches": n, "max_abs_err": err, "ms": ms, "plain_ms": plain,
+            "bound_ms": bnd, "bound_by": by, "library_ms": None}
 
 
 def main() -> int:
@@ -643,7 +994,20 @@ def main() -> int:
         "max_abs_err": max(b5_err.values()), "ms": k_ms, "plain_ms": p_ms,
         "bound_ms": bnd, "bound_by": by, "library_ms": l_ms})
 
-    # ---- 9. report ---------------------------------------------------------
+    # ---- 9-12. the wrapper-only templates at full width --------------------
+    from repro_torch.kernels.lstm_cell import ops as lstm_f_ops
+    from repro_torch.kernels.mamba2 import ops as ssd_ops
+    from repro_torch.kernels.quant_matmul import ops as qmm_ops
+    from repro_torch.kernels.rwkv6 import ops as wkv_ops
+
+    ops_by_name = {"lstm_cell_int": lstm_ops, "mac_int": mac_ops,
+                   "flash_attention": flash_ops, "lstm_cell": lstm_f_ops,
+                   "quant_matmul": qmm_ops, "ssd": ssd_ops, "wkv6": wkv_ops}
+    for phase in (phase_b3, phase_b4, phase_b6, phase_b7):
+        kernel_rows.append(phase(ops_by_name))
+        torch.cuda.empty_cache()
+
+    # ---- 13. report --------------------------------------------------------
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,

@@ -12,6 +12,12 @@ whose ``g0`` leaves carry a leading layer axis of length ``n_layers``;
 :func:`to_torch` then puts a converted tree on a device for
 ``model.transformer.apply_model`` and ``runtime.server.Server``. A wrong
 key or a wrong (stacked) shape raises with its path.
+
+:func:`int8_params_from_jax` carries the reference's int8 weights
+(``repro.quant.ptq.Int8Params``: int8 codes, f32 per-channel scales and the
+leaves kept in full precision) across as the port's
+:class:`~repro_torch.quant.ptq.Int8Params` of numpy arrays, which
+:func:`to_torch` puts on a device as they are (codes stay int8).
 """
 from __future__ import annotations
 
@@ -23,6 +29,7 @@ import torch
 from repro_torch.core.types import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.model.layers import is_pspec, tree_map
+from repro_torch.quant.ptq import Int8Params
 
 
 def _convert(tree, schema, path: str):
@@ -61,10 +68,34 @@ def params_from_jax(tree, cfg: ModelConfig):
     return _convert(tree, schema_for(cfg), "")
 
 
+def int8_params_from_jax(ip) -> Int8Params:
+    """The reference's ``Int8Params`` (its ``q``/``scale``/``skipped``
+    trees) -> the port's, as numpy arrays. A code leaf that is not int8 or
+    a scale that is not float32 raises ValueError; trees that do not match
+    raise where :func:`tree_map` finds the mismatch."""
+    q, scale, skipped = (tree_map(np.array, t)
+                         for t in (ip.q, ip.scale, ip.skipped))
+
+    def check(codes, s):
+        if codes.dtype != np.int8 or s.dtype != np.float32:
+            raise ValueError(f"int8 params: codes must be int8 and scales "
+                             f"float32, got {codes.dtype}, {s.dtype}")
+
+    tree_map(check, q, scale)
+    return Int8Params(q=q, scale=scale, skipped=skipped)
+
+
 def to_torch(tree, device: Optional[Union[str, torch.device]] = None,
              dtype: Optional[torch.dtype] = None):
     """A converted tree of numpy arrays -> tensors on ``device`` (None
-    means CUDA), cast to ``dtype`` if given."""
+    means CUDA), cast to ``dtype`` if given. An :class:`Int8Params` moves
+    leaf by leaf with its dtypes kept (``dtype`` must then be None)."""
     dev = resolve_device(device)
+    if isinstance(tree, Int8Params):
+        if dtype is not None:
+            raise ValueError("to_torch: int8 codes keep their dtype; pass "
+                             "no dtype with an Int8Params")
+        return Int8Params(*(to_torch(t, dev) for t in (
+            tree.q, tree.scale, tree.skipped)))
     return tree_map(lambda a: torch.as_tensor(a, device=dev, dtype=dtype),
                     tree)

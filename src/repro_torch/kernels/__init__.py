@@ -7,5 +7,22 @@ the plain version on a CPU tensor, counts its launches) and ``ref.py`` (the
 plain PyTorch version, which also runs on CUDA). ``lstm_cell_int`` is the
 RTL emulator's fused int32 LSTM window; ``mac_int`` the int32 MAC + requant
 of the linear, conv1d and per-step LSTM templates; ``flash_attention`` the
-LM's online-softmax attention forward, run by every causal prefill layer.
+LM's online-softmax attention forward, run by every causal prefill layer;
+``lstm_cell`` the float gate-fused LSTM window; ``quant_matmul`` the int8
+matmul with its per-channel rescale; ``mamba2`` the Mamba-2 SSD chunk scan
+(``csrc/ssd.cu``); ``rwkv6`` the RWKV-6 WKV recurrence (``csrc/wkv6.cu``).
+The last four are reached through their public wrappers only, as in the
+reference.
 """
+
+# the template library: the reference's ``repro.kernels.TEMPLATES`` plus
+# ``mac_int``, which the reference keeps in ``rtl/oplib.py``
+TEMPLATES = (
+    "flash_attention",
+    "lstm_cell",        # f32 fused LSTM window
+    "lstm_cell_int",    # int32 fused LSTM window (RTL emulator hot path)
+    "mac_int",          # int32 MAC + requant (RTL emulator)
+    "mamba2",
+    "quant_matmul",
+    "rwkv6",
+)

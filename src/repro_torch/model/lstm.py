@@ -2,8 +2,10 @@
 
 Port of the schema half of ``repro/model/lstm.py`` (ref [11], Table I:
 ``hidden=20`` cell, window of 6 lags, one dense output). The cell is
-gate-fused: one (in+hidden) × 4·hidden matrix, gate order i, f, g, o. The
-float forward waits for the training slice.
+gate-fused: one (in+hidden) × 4·hidden matrix, gate order i, f, g, o.
+:func:`lstm_cell_step` is one float step of that cell (the oracle of the
+float LSTM-window kernel); the stacked float forward waits for the training
+slice.
 """
 from __future__ import annotations
 
@@ -28,6 +30,16 @@ def lstm_schema(cfg: ModelConfig):
         "head_w": PSpec((c.hidden, c.out_features), torch.float32),
         "head_b": PSpec((c.out_features,), torch.float32, init="zeros"),
     }
+
+
+def lstm_cell_step(w: torch.Tensor, b: torch.Tensor, x_t: torch.Tensor,
+                   h: torch.Tensor, c: torch.Tensor):
+    """x_t: (B, D_in); h/c: (B, hidden). Returns (h', c')."""
+    z = torch.cat([x_t, h], dim=-1) @ w + b                 # (B, 4*hidden)
+    i, f, g, o = torch.chunk(z, 4, dim=-1)
+    c_new = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
+    h_new = torch.sigmoid(o) * torch.tanh(c_new)
+    return h_new, c_new
 
 
 def lstm_flops(cfg: ModelConfig) -> int:

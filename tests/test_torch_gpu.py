@@ -1,8 +1,9 @@
 """PyTorch port on the card (``gpu`` marker; skips without CUDA): each CUDA
 kernel against its plain version (exact integer equality for B1/B2; B5
-within the reference's 2e-5 in f32 and 0.03 in bf16), the emulator on CUDA
-against the golden sets and its own plain path, and the LM server with B5
-against its plain attention path.
+within the reference's 2e-5 in f32 and 0.03 in bf16; B3 within 1e-5; B4
+bit for bit; B6/B7 within 1e-4 on y and the final state), the emulator on
+CUDA against the golden sets and its own plain path, and the LM server with
+B5 against its plain attention path.
 
 Imports nothing of JAX, so it also runs where JAX is not installed:
 
@@ -18,13 +19,22 @@ from repro_torch.configs import get_config
 from repro_torch.core.types import SMOKE_MESH, ParallelismConfig, ShapeConfig
 from repro_torch.kernels.flash_attention import attention_ref, flash_attention
 from repro_torch.kernels.flash_attention import ops as flash_ops
+from repro_torch.kernels.lstm_cell import lstm_window, lstm_window_ref
+from repro_torch.kernels.lstm_cell import ops as lstm_f_ops
 from repro_torch.kernels.lstm_cell_int import (CellSpec, lstm_window_int,
                                                lstm_window_int_ref)
 from repro_torch.kernels.lstm_cell_int import ops as lstm_ops
 from repro_torch.kernels.mac_int import mac_int_op, mac_int_ref
 from repro_torch.kernels.mac_int import ops as mac_ops
+from repro_torch.kernels.mamba2 import ops as ssd_ops
+from repro_torch.kernels.mamba2 import ssd, ssd_reference
+from repro_torch.kernels.quant_matmul import ops as qmm_ops
+from repro_torch.kernels.quant_matmul import quant_matmul
+from repro_torch.kernels.rwkv6 import ops as wkv_ops
+from repro_torch.kernels.rwkv6 import wkv6, wkv6_reference
 from repro_torch.model.lm import Stepper
 from repro_torch.quant.fixedpoint import FxpFormat
+from repro_torch.quant.ptq import quantize_params_int8
 from repro_torch.rtl.emulator import RTLEmulator, assert_bit_exact
 from repro_torch.runtime.server import Server, ServerConfig
 from repro_torch.verify import vectors as tvec
@@ -172,3 +182,137 @@ def test_server_flash_equals_plain_attention_on_card(cuda, arch):
         n = flash_ops.launches - before
         assert n == (cfg.n_layers * len(prompts) if impl == "flash" else 0)
     assert outs["flash"] == outs["ref"]
+
+
+# ---- B3, B4, B6, B7: the wrapper-only templates ----------------------------
+# the reference's B3 test shapes, then ragged tiles, wider cells and one
+# window; (B, S, d_in, H, block_b)
+LSTM_SHAPES = [(64, 6, 1, 20, 128), (128, 6, 1, 20, 128), (32, 12, 4, 32, 128),
+               (200, 6, 1, 20, 128), (1, 6, 1, 20, 128), (1000, 6, 20, 20, 7),
+               (129, 3, 8, 64, 128), (300, 5, 3, 100, 64),
+               (70, 3, 100, 128, 128)]      # W (0.5 MB) read from global
+
+
+@pytest.mark.parametrize("B,S,din,hid,bb", LSTM_SHAPES)
+def test_lstm_window_float_kernel_matches_plain(cuda, B, S, din, hid, bb):
+    rng = np.random.default_rng(B + S + hid)
+    x = torch.as_tensor(rng.standard_normal((B, S, din)), dtype=torch.float32,
+                        device=cuda)
+    w = torch.as_tensor(rng.standard_normal((din + hid, 4 * hid)) * 0.3,
+                        dtype=torch.float32, device=cuda)
+    b = torch.as_tensor(rng.standard_normal(4 * hid) * 0.1,
+                        dtype=torch.float32, device=cuda)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    before = lstm_f_ops.launches
+    got = lstm_window(x, w, b, block_b=bb)
+    assert lstm_f_ops.launches == before + 1
+    assert got.shape == (B, hid) and got.dtype == torch.float32
+    assert (got - lstm_window_ref(x, w, b)).abs().max().item() < 1e-5
+
+
+# the reference's B4 test shapes (M, K, N), then ragged M/K/N, a decode tick
+QMM_SHAPES = [(128, 128, 128), (64, 200, 96), (256, 512, 384), (32, 96, 640),
+              (1, 7, 5), (130, 33, 257), (4, 4096, 128), (300, 1030, 131),
+              (70, 64, 30), (33, 30, 64)]   # word loads on one side only
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("M,K,N", QMM_SHAPES)
+def test_quant_matmul_kernel_equals_plain(cuda, M, K, N, dtype):
+    """Bit for bit: the int32 sums are exact and the epilogue multiplies in
+    the plain version's order."""
+    rng = np.random.default_rng(M + K + N)
+    x = torch.as_tensor(rng.standard_normal((M, K)), dtype=dtype,
+                        device=cuda)
+    w = torch.as_tensor(rng.standard_normal((K, N)), dtype=torch.float32,
+                        device=cuda)
+    ip = quantize_params_int8({"w": w})
+    before = qmm_ops.launches
+    got = quant_matmul(x, ip.q["w"], ip.scale["w"])
+    assert qmm_ops.launches == before + 1
+    want = quant_matmul(x, ip.q["w"], ip.scale["w"], use_ref=True)
+    assert qmm_ops.launches == before + 1
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_quant_matmul_kernel_reads_a_transposed_x(cuda, dtype):
+    """A column-major x (a transposed tensor) gives column-major codes; the
+    kernel reads row-major ones, so the wrapper must hand it a copy."""
+    rng = np.random.default_rng(7)
+    xt = torch.as_tensor(rng.standard_normal((200, 65)), dtype=dtype,
+                         device=cuda)
+    w = torch.as_tensor(rng.standard_normal((200, 96)), dtype=torch.float32,
+                        device=cuda)
+    ip = quantize_params_int8({"w": w})
+    x = xt.T
+    assert not x.is_contiguous()
+    got = quant_matmul(x, ip.q["w"], ip.scale["w"])
+    want = quant_matmul(x.contiguous(), ip.q["w"], ip.scale["w"],
+                        use_ref=True)
+    assert torch.equal(got, want)
+
+
+# (B, S, H, P, N, chunk): the reference's B6 test shapes, a ragged row block
+# (chunk 96 = 64 + 32 rows), and Zamba2's P = N = 64 at chunks 128 and 256
+SSD_SHAPES = [(2, 64, 4, 16, 16, 16), (1, 128, 2, 32, 16, 16),
+              (1, 192, 3, 16, 8, 96), (1, 512, 2, 64, 64, 128),
+              (1, 512, 2, 64, 64, 256), (2, 40, 1, 5, 3, 128)]
+
+
+@pytest.mark.parametrize("with_h0", [False, True])
+@pytest.mark.parametrize("B,S,H,P,N,chunk", SSD_SHAPES)
+def test_ssd_kernel_matches_plain(cuda, B, S, H, P, N, chunk, with_h0):
+    rng = np.random.default_rng(S + H + P + N)
+
+    def t(a):
+        return torch.as_tensor(a, dtype=torch.float32, device=cuda)
+
+    x = t(rng.standard_normal((B, S, H, P)) * 0.5)
+    dt = torch.nn.functional.softplus(t(rng.standard_normal((B, S, H))))
+    A = -torch.exp(t(rng.standard_normal(H) * 0.3))
+    Bm = t(rng.standard_normal((B, S, 1, N)) * 0.5)
+    Cm = t(rng.standard_normal((B, S, 1, N)) * 0.5)
+    h0 = t(rng.standard_normal((B, H, P, N)) * 0.1) if with_h0 else None
+    before = ssd_ops.launches
+    y, hf = ssd(x, dt, A, Bm, Cm, h0, chunk=chunk)
+    assert ssd_ops.launches == before + 1
+    y_r, hf_r = ssd_reference(x, dt, A, Bm, Cm, h0=h0)
+    assert (y - y_r).abs().max().item() < 1e-4
+    assert (hf - hf_r).abs().max().item() < 1e-4
+
+
+# (B, S, H, N, chunk): the reference's B7 test shapes, RWKV6's N = 64
+WKV_SHAPES = [(2, 64, 3, 16, 32), (1, 128, 2, 32, 32), (2, 32, 4, 16, 32),
+              (1, 256, 2, 64, 128), (1, 48, 1, 7, 16)]
+
+
+@pytest.mark.parametrize("with_h0", [False, True])
+@pytest.mark.parametrize("B,S,H,N,chunk", WKV_SHAPES)
+def test_wkv6_kernel_matches_plain(cuda, B, S, H, N, chunk, with_h0):
+    rng = np.random.default_rng(S + H + N)
+
+    def t(a):
+        return torch.as_tensor(a, dtype=torch.float32, device=cuda)
+
+    r, k, v = (t(rng.standard_normal((B, S, H, N)) * 0.5) for _ in range(3))
+    w_log = -torch.exp(t(rng.standard_normal((B, S, H, N)) * 0.5))
+    u = t(rng.standard_normal((H, N)) * 0.5)
+    h0 = t(rng.standard_normal((B, H, N, N)) * 0.1) if with_h0 else None
+    before = wkv_ops.launches
+    y, hf = wkv6(r, k, v, w_log, u, h0, chunk=chunk)
+    assert wkv_ops.launches == before + 1
+    y_r, hf_r = wkv6_reference(r, k, v, w_log, u, h0=h0)
+    assert (y - y_r).abs().max().item() < 1e-4
+    assert (hf - hf_r).abs().max().item() < 1e-4
+
+
+def test_ssd_and_wkv6_refuse_widths_the_kernels_lack(cuda):
+    x = torch.zeros((1, 16, 1, 65), device=cuda)
+    dt, A = torch.ones((1, 16, 1), device=cuda), -torch.ones(1, device=cuda)
+    Bm = torch.zeros((1, 16, 1, 8), device=cuda)
+    with pytest.raises(ValueError, match="P, N <= 64"):
+        ssd(x, dt, A, Bm, Bm, chunk=16)
+    r = torch.zeros((1, 16, 1, 65), device=cuda)
+    with pytest.raises(ValueError, match="N <= 64"):
+        wkv6(r, r, r, -torch.ones_like(r), torch.zeros((1, 65), device=cuda))

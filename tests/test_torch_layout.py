@@ -38,7 +38,11 @@ def test_importing_the_port_loads_neither_jax_nor_repro():
     code = ("import sys, repro_torch.rtl, repro_torch.verify, "
             "repro_torch.convert, repro_torch.configs, "
             "repro_torch.runtime.server, repro_torch.launch.serve, "
-            "repro_torch.kernels.flash_attention; "
+            "repro_torch.kernels.flash_attention, "
+            "repro_torch.kernels.lstm_cell, repro_torch.kernels.quant_matmul, "
+            "repro_torch.kernels.mamba2, repro_torch.kernels.rwkv6, "
+            "repro_torch.quant.ptq, repro_torch.model.ssm, "
+            "repro_torch.model.rwkv; "
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'repro.')) or m == 'repro'); "
             "assert not bad, bad")
@@ -47,15 +51,53 @@ def test_importing_the_port_loads_neither_jax_nor_repro():
                    timeout=120)
 
 
+def _loaded_source(package: str) -> str:
+    """The ``csrc/<name>.cu`` a kernel package's launcher loads."""
+    text = (PORT / "kernels" / package / "kernel.py").read_text()
+    found = re.findall(r'build\.load\("(\w+)"\)', text)
+    assert len(found) == 1, (package, found)
+    return found[0]
+
+
 def test_every_kernel_has_source_launcher_wrapper_and_plain_version():
-    from repro_torch.kernels import build
+    from repro_torch.kernels import TEMPLATES, build
 
     names = build.kernel_names()
-    assert names == ["flash_attention", "lstm_cell_int", "mac_int"]
-    for name in names:
+    assert names == ["flash_attention", "lstm_cell", "lstm_cell_int",
+                     "mac_int", "quant_matmul", "ssd", "wkv6"]
+    for package in TEMPLATES:
         for part in ("kernel.py", "ops.py", "ref.py"):
-            assert (PORT / "kernels" / name / part).is_file(), (name, part)
+            assert (PORT / "kernels" / package / part).is_file(), (package,
+                                                                    part)
+    assert sorted(_loaded_source(p) for p in TEMPLATES) == names
     assert build.BUILD_DIR == ROOT / "build" / "repro_torch"
+
+
+def test_every_reference_template_is_ported():
+    """Each entry of the reference's ``repro.kernels.TEMPLATES`` (read from
+    its source, so nothing of JAX is imported) has a port package with its
+    launcher, wrapper, plain version and a CUDA source the launcher loads;
+    the port's TEMPLATES lists them and ``mac_int`` (the reference keeps
+    that kernel in ``rtl/oplib.py``), and nothing else."""
+    import ast
+
+    from repro_torch.kernels import TEMPLATES
+
+    tree = ast.parse((ROOT / "src" / "repro" / "kernels" / "__init__.py")
+                     .read_text())
+    ref = next(ast.literal_eval(node.value) for node in tree.body
+               if isinstance(node, ast.Assign)
+               and getattr(node.targets[0], "id", "") == "TEMPLATES")
+    assert len(ref) == 6
+    assert sorted(TEMPLATES) == sorted((*ref, "mac_int"))
+    on_disk = sorted(p.parent.name for p in
+                     (PORT / "kernels").glob("*/kernel.py"))
+    assert on_disk == sorted(TEMPLATES)
+    for package in ref:
+        for part in ("kernel.py", "ops.py", "ref.py"):
+            assert (PORT / "kernels" / package / part).is_file(), (package,
+                                                                    part)
+        assert (PORT / "csrc" / f"{_loaded_source(package)}.cu").is_file()
 
 
 def test_library_key_follows_source_flags_and_compiler(monkeypatch):
