@@ -11,7 +11,12 @@ kernels B1 and B2:
 2. hold B1 and B2 against their plain PyTorch versions on the card, exact
    integer equality, at the test shapes and at the serving shapes; hold B5
    against its plain version at the reference's test shapes and at every
-   Yi-9B prefill shape (2e-5 in f32, 0.03 for bf16 against f32);
+   Yi-9B prefill shape (2e-5 in f32, 0.03 for bf16 against f32, and bf16
+   also within ``BF16_REL_RMS_BAR`` of each 128-row block's rms), its
+   ``sm90`` variant (wgmma, TMA) at head dims 64/80/112/128 and S around
+   its 128-row tiles, and its ``simt`` variant in bf16 at the shapes
+   above; show that planted faults (a stale K/V stage, a lost last key
+   tile) at a Yi-9B layer of 2,048 tokens fail the block bar;
 3. replay both checked-in golden vector sets in the three emulator modes;
 4. serve ragged requests through ``RTLEmulator.run_many`` in ``fused`` mode,
    one design at a time (kernel launch counts are set to 0 just before each
@@ -28,16 +33,19 @@ every prefill layer:
 
 6. serve 8 requests (prompts of 16 ... 4,000 tokens, 16 new tokens each)
    through ``Server`` with ``attn_impl="flash"`` on 4 slots of 4,096
-   positions; B5's launch count is set to 0 just before and read just
-   after, and must be 48 per admitted request; prints tokens/s, the TTFT
-   and latency summaries and the prefill ms at each length;
+   positions; B5's launch counts are set to 0 just before and read just
+   after, and must be 48 per admitted request, all of them ``sm90``;
+   prints tokens/s, the TTFT and latency summaries and the prefill ms at
+   each length;
 7. prefill the same prompts with ``attn_impl="ref"`` (plain einsum
    attention) and hold the last-position logits to the flash path's: in
    bf16 at full depth within the bound stated below, and in f32 at full
    width and 4 layers within 1e-3 relative with identical greedy tokens;
-8. time B5, its plain version and ``scaled_dot_product_attention`` at
-   Yi-9B prefill layers of 1,024, 2,048 and 4,000 tokens, and profile one
-   2,048-token prefill and one 4-slot decode tick over 8 Yi-9B layers.
+8. time B5 (the variant its wrapper launches there, and the ``simt``
+   variant at 2,048 for the record), its plain version and
+   ``scaled_dot_product_attention`` at Yi-9B prefill layers of 1,024, 2,048
+   and 4,000 tokens, and profile one 2,048-token prefill and one 4-slot
+   decode tick over 8 Yi-9B layers.
 
 The four templates the reference reaches only through their public
 wrappers, each driven through its wrapper at the widths of a model the
@@ -92,6 +100,10 @@ INT8_OP_PER_S = 1979e12               # dense int8 tensor-core peak
 PROMPT_LENS = (16, 17, 128, 333, 1024, 2048, 3000, 4000)
 SLOTS, MAX_LEN, MAX_NEW = 4, 4096, 16
 B5_F32_TOL, B5_BF16_TOL = 2e-5, 0.03   # the reference's bars for B5
+# B5's sm90 variant: every head dim of the zoo up to 128, S around the
+# 128-row tiles and a Yi-9B prefill length; (2, S, 3, hd), bf16
+SM90_HDS = (64, 80, 112, 128)
+SM90_SEQS = (1, 17, 127, 128, 129, 255, 2048)
 # flash vs plain attention through the whole model, last-position logits.
 # Both paths round every attention output to bf16, after rounding the
 # softmax weights to bf16 at different points (before vs after the
@@ -133,6 +145,18 @@ def max_abs_err(got, want) -> int:
     if err != 0:
         raise AssertionError(f"kernel != plain version, max |err| {err}")
     return err
+
+
+def kernel_name(mangled: str) -> str:
+    """A kernel's name without its parameters, demangled by ``c++filt``
+    where the host has it."""
+    try:
+        name = subprocess.run(["c++filt", mangled], capture_output=True,
+                              text=True, timeout=60).stdout.strip()
+    except OSError:
+        return mangled[:60]
+    name = name.replace("(anonymous namespace)::", "").split("(")[0]
+    return name.removeprefix("void ") or mangled[:60]
 
 
 def time_ms(fn, reps: int = 20) -> float:
@@ -538,6 +562,8 @@ def main() -> int:
                                                      flash_attention,
                                                      flash_attention_cuda)
     from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.flash_attention.ref import (BF16_REL_RMS_BAR,
+                                                         rel_rms_by_block)
     from repro_torch.kernels.lstm_cell_int import (CellSpec, lstm_window_int,
                                                    lstm_window_int_cuda,
                                                    lstm_window_int_ref)
@@ -569,9 +595,16 @@ def main() -> int:
     log(f"phase 1 build: {len(libs)} kernels from src/repro_torch/csrc in "
         f"{time.perf_counter() - t0:.2f} s")
     for name, path in sorted(libs.items()):
+        # one line per kernel: its name, registers and spills
+        entry, spill = "?", ""
         for line in open(f"{path}.log").read().splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"  ptxas {name}: {line.strip()}")
+            if "Compiling entry function" in line:
+                entry = kernel_name(line.split("'")[1])
+            elif "spill" in line:
+                spill = line.strip()
+            elif "registers" in line:
+                log(f"  ptxas {name} {entry}: {line.split(':', 1)[1].strip()};"
+                    f" {spill}")
 
     # ---- 2. kernels against their plain versions ---------------------------
     errs = {"lstm_cell_int": 0, "mac_int": 0}
@@ -647,7 +680,17 @@ def main() -> int:
                  for c in (True, False)]
                 + [((1, n, yi.n_heads, yi.hd), True) for n in PROMPT_LENS])
     b5_err = {"float32": 0.0, "bfloat16": 0.0}
+    # bf16 against f32, the largest rms(err) / rms(want) of a 128-row block
+    b5_rel = {"sm90": 0.0, "simt": 0.0}
+
+    def hold_bf16(got, want, name):
+        b5_err["bfloat16"] = max(b5_err["bfloat16"],
+                                 (got.float() - want).abs().max().item())
+        b5_rel[name] = max(b5_rel[name], rel_rms_by_block(got, want))
+
     b5_rng = np.random.default_rng(SEED + 5)     # phases 3-5 keep ``rng``
+    flash_ops.launches_by_variant = dict.fromkeys(
+        flash_ops.launches_by_variant, 0)
     for shape, causal in b5_cases:
         q, k, v = (torch.as_tensor(b5_rng.standard_normal(shape) * 0.5,
                                    dtype=torch.float32, device="cuda")
@@ -659,20 +702,64 @@ def main() -> int:
                                 (got - want).abs().max().item())
         qb, kb, vb = (t.to(torch.bfloat16) for t in (q, k, v))
         want = attention_ref(qb.float(), kb.float(), vb.float(), causal)
-        got = flash_attention(qb, kb, vb, causal)
+        hold_bf16(flash_attention(qb, kb, vb, causal), want,
+                  flash_ops.variant(qb, kb, vb))
+        # the simt variant's bf16 instances, which the routing reaches
+        # only off this path (hd > 128, hd % 8, strides TMA cannot read)
+        got = torch.empty_like(qb)
+        flash_attention_cuda(qb, kb, vb, got, causal=causal, variant="simt")
+        hold_bf16(got, want, "simt")
         torch.cuda.synchronize()
-        b5_err["bfloat16"] = max(b5_err["bfloat16"],
-                                 (got.float() - want).abs().max().item())
         del q, k, v, qb, kb, vb, want, got
-    if b5_err["float32"] > B5_F32_TOL or b5_err["bfloat16"] > B5_BF16_TOL:
+    ref_launches = dict(flash_ops.launches_by_variant)
+    flash_ops.launches_by_variant = dict.fromkeys(
+        flash_ops.launches_by_variant, 0)
+    sm90_cases = [((2, n, 3, hd), c) for hd in SM90_HDS for n in SM90_SEQS
+                  for c in (True, False)]
+    for shape, causal in sm90_cases:
+        qb, kb, vb = (torch.as_tensor(b5_rng.standard_normal(shape) * 0.5,
+                                      dtype=torch.float32, device="cuda")
+                      .to(torch.bfloat16) for _ in range(3))
+        want = attention_ref(qb.float(), kb.float(), vb.float(), causal)
+        hold_bf16(flash_attention(qb, kb, vb, causal), want, "sm90")
+        torch.cuda.synchronize()
+    if flash_ops.launches_by_variant != {"sm90": len(sm90_cases), "simt": 0}:
+        raise AssertionError(f"B5 sm90 shapes launched "
+                             f"{flash_ops.launches_by_variant}")
+    if b5_err["float32"] > B5_F32_TOL or b5_err["bfloat16"] > B5_BF16_TOL \
+            or max(b5_rel.values()) > BF16_REL_RMS_BAR:
         raise AssertionError(f"B5 != plain version: max |err| {b5_err}, "
                              f"bars {B5_F32_TOL} (f32), {B5_BF16_TOL} "
-                             "(bf16 vs f32)")
+                             f"(bf16 vs f32); block rel rms {b5_rel}, bar "
+                             f"{BF16_REL_RMS_BAR}")
+    # planted faults of the sm90 K/V ring at a Yi-9B layer of 2,048 tokens:
+    # keys 256-383 read from the stage keys 0-127 left, and the last key
+    # tile lost; each must fail the block bar
+    qb, kb, vb = (torch.as_tensor(b5_rng.standard_normal(
+        (1, 2048, yi.n_heads, yi.hd)) * 0.5, dtype=torch.float32,
+        device="cuda").to(torch.bfloat16) for _ in range(3))
+    want = attention_ref(qb.float(), kb.float(), vb.float(), True)
+    ks, vs = kb.clone(), vb.clone()
+    ks[:, 256:384], vs[:, 256:384] = kb[:, :128], vb[:, :128]
+    faults = {"stale_stage": attention_ref(qb, ks, vs, True),
+              "lost_last_tile": attention_ref(qb, kb[:, :1920], vb[:, :1920],
+                                              True)}
+    faults = {n: ((f.float() - want).abs().max().item(),
+                  rel_rms_by_block(f, want)) for n, f in faults.items()}
+    if min(rel for _, rel in faults.values()) <= BF16_REL_RMS_BAR:
+        raise AssertionError(f"B5 block bar passes a planted fault: {faults}")
+    del qb, kb, vb, ks, vs, want
     log(f"phase 2c B5 = plain version at the reference's 4 test shapes x "
-        f"causal/not and at the {len(PROMPT_LENS)} Yi-9B prefill shapes "
-        f"(1, S, 32, 128): max |err| f32 {b5_err['float32']:.3g} (bar "
-        f"{B5_F32_TOL}), bf16 vs f32 {b5_err['bfloat16']:.3g} (bar "
-        f"{B5_BF16_TOL})")
+        f"causal/not, at the {len(PROMPT_LENS)} Yi-9B prefill shapes "
+        f"(1, S, 32, 128) (routed {ref_launches}; simt bf16 also launched "
+        f"directly at each) and at {len(sm90_cases)} sm90 shapes (2, S, 3, "
+        f"hd), hd {SM90_HDS}, S {SM90_SEQS}, causal/not, each on sm90: "
+        f"max |err| f32 {b5_err['float32']:.3g} (bar {B5_F32_TOL}), bf16 vs "
+        f"f32 {b5_err['bfloat16']:.3g} (bar {B5_BF16_TOL}); bf16 block rel "
+        f"rms sm90 {b5_rel['sm90']:.5f}, simt {b5_rel['simt']:.5f} (bar "
+        f"{BF16_REL_RMS_BAR}); planted faults at (1, 2048, 32, 128) causal "
+        "(max |err|, block rel rms): " + ", ".join(
+            f"{n} ({a:.4f}, {r:.4f})" for n, (a, r) in faults.items()))
 
     # ---- 3. golden replay --------------------------------------------------
     for arch, graph in (("elastic-lstm", lstm_g), ("elastic-conv1d", conv_g)):
@@ -834,6 +921,8 @@ def main() -> int:
     tracer = Tracer()
     prev_tracer = set_tracer(tracer)
     flash_ops.launches = 0
+    flash_ops.launches_by_variant = dict.fromkeys(
+        flash_ops.launches_by_variant, 0)
     t0 = time.perf_counter()
     for prompt in prompts:
         srv.submit(prompt, max_new_tokens=MAX_NEW)
@@ -841,6 +930,7 @@ def main() -> int:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     yi_launches = flash_ops.launches
+    yi_variants = dict(flash_ops.launches_by_variant)
     set_tracer(prev_tracer)
     stats = done.stats
     if not done.drained or stats.admitted != len(prompts) or \
@@ -852,17 +942,20 @@ def main() -> int:
                 0 <= t < yi.padded_vocab for t in req.out_tokens):
             raise AssertionError(f"yi-9b: request {req.rid} out_tokens "
                                  f"{req.out_tokens}")
-    if yi_launches != yi.n_layers * stats.admitted:
-        raise AssertionError(f"yi-9b: B5 launched {yi_launches} times for "
-                             f"{stats.admitted} requests, expected "
-                             f"{yi.n_layers} per request")
+    if yi_launches != yi.n_layers * stats.admitted or yi_variants != {
+            "sm90": yi_launches, "simt": 0}:
+        raise AssertionError(f"yi-9b: B5 launched {yi_launches} times "
+                             f"({yi_variants}) for {stats.admitted} "
+                             f"requests, expected {yi.n_layers} per request,"
+                             " all sm90")
     n_tok = sum(len(r.out_tokens) for r in done)
     prefill_ms = {sp.attrs["prompt_len"]: sp.duration * 1e3
                   for sp in find_spans(tracer.spans, "server.prefill")}
     log(f"phase 6 served yi-9b: {len(done)} requests, {n_tok} tokens in "
         f"{wall:.3f} s = {n_tok / wall:.2f} tokens/s ({SLOTS} slots, "
         f"max_len {MAX_LEN}, {stats.ticks} ticks); B5 launches "
-        f"{yi_launches} = {yi.n_layers} per request")
+        f"{yi_launches} = {yi.n_layers} per request, by variant "
+        f"{yi_variants}")
     log("phase 6 ttft_s " + json.dumps(stats.ttft_s))
     log("phase 6 latency_s " + json.dumps(stats.latency_s))
     log("phase 6 prefill ms by prompt length (host clock, ends in the "
@@ -936,21 +1029,28 @@ def main() -> int:
         q, k, v = (torch.randn(shape, device="cuda", dtype=torch.bfloat16)
                    * 0.5 for _ in range(3))
         out = torch.empty_like(q)
-        k_ms = time_ms(functools.partial(flash_attention_cuda, q, k, v, out,
-                                         causal=True))
+        flops = 4 * (n * (n + 1) // 2) * yi.hd * yi.n_heads
+        name = flash_ops.variant(q, k, v)         # what the wrapper launches
+        times = {name: time_ms(functools.partial(
+            flash_attention_cuda, q, k, v, out, causal=True, variant=name))}
+        if n == 2048:
+            times["simt"] = time_ms(functools.partial(
+                flash_attention_cuda, q, k, v, out, causal=True,
+                variant="simt"))
         p_ms = time_ms(functools.partial(attention_ref, q, k, v, True),
                        reps=5)
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
         l_ms = time_ms(functools.partial(
             F.scaled_dot_product_attention, qt, kt, vt, is_causal=True))
-        flops = 4 * (n * (n + 1) // 2) * yi.hd * yi.n_heads
         bnd, by = bound_ms(4 * q.numel() * q.element_size(), flops,
                            BF16_FLOP_PER_S)
-        b5_rows[n] = (k_ms, p_ms, l_ms, bnd, by)
-        log(f"phase 8 B5 (1, {n}, 32, 128) bf16 causal: kernel {k_ms:.4f} "
-            f"ms ({flops / k_ms / 1e9:.1f} TFLOP/s), plain {p_ms:.4f} ms, "
-            f"scaled_dot_product_attention {l_ms:.4f} ms, bound {bnd:.4f} ms "
-            f"({by})")
+        b5_rows[n] = (times[name], p_ms, l_ms, bnd, by)
+        log(f"phase 8 B5 (1, {n}, 32, 128) bf16 causal: " + ", ".join(
+            f"kernel {var} {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s)"
+            for var, ms in times.items())
+            + f", plain {p_ms:.4f} ms, scaled_dot_product_attention "
+            f"{l_ms:.4f} ms ({flops / l_ms / 1e9:.1f} TFLOP/s), bound "
+            f"{bnd:.4f} ms ({by})")
     yi8 = yi.with_(n_layers=8)
     params2 = Stepper(yi8, ShapeConfig("p", "prefill", 2048, 1), SMOKE_MESH,
                       par).init(seed=SEED, dtype_override=torch.bfloat16)

@@ -16,8 +16,31 @@ from repro_torch.kernels.flash_attention.ref import attention_ref
 
 #: kernel launches made by :func:`flash_attention` (CPU calls do not count)
 launches = 0
+#: ... and by the variant :func:`variant` chose
+launches_by_variant = {"sm90": 0, "simt": 0}
 
 MAX_HEAD_DIM = 256
+SM90_MAX_HEAD_DIM = 128
+
+
+def variant(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
+    """The kernel a CUDA call with these (checked) operands launches,
+    decided from dtype, head dim, strides and alignment alone.
+
+    ``"sm90"`` (tensor cores, TMA-fed): bf16, hd <= 128 and a multiple of 8,
+    and for each of q, k, v a 16-byte-aligned base and (b, s, h) strides
+    that are positive multiples of 16 bytes, as TMA requires. ``"simt"``
+    (CUDA cores) takes everything else: f32, hd > 128, other strides.
+    """
+    hd = q.shape[-1]
+    if (q.dtype != torch.bfloat16 or hd > SM90_MAX_HEAD_DIM or hd % 8):
+        return "simt"
+    for t in (q, k, v):
+        size = t.element_size()
+        if t.data_ptr() % 16 or any(s <= 0 or s * size % 16
+                                    for s in t.stride()[:3]):
+            return "simt"
+    return "sm90"
 
 
 def _check(q, k, v) -> None:
@@ -50,9 +73,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """q/k/v: (B, S, H, hd) (K/V already GQA-repeated). Returns
     (B, Sq, H, hd) in q's dtype.
 
-    On a CUDA tensor this launches the kernel, for every S and every
-    hd <= 256 (the kernel masks ragged tiles itself); on a CPU tensor it
-    runs the plain version.
+    On a CUDA tensor this launches the kernel :func:`variant` names, for
+    every S and every hd <= 256 (the kernels mask ragged tiles themselves),
+    and raises if it fails; on a CPU tensor it runs the plain version.
     """
     global launches
     _check(q, k, v)
@@ -60,8 +83,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return attention_ref(q, k, v, causal)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: no kernel for device {q.device}")
+    name = variant(q, k, v)
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     with torch.cuda.device(q.device):
-        flash_attention_cuda(q, k, v, out, causal=causal)
+        flash_attention_cuda(q, k, v, out, causal=causal, variant=name)
     launches += 1
+    launches_by_variant[name] += 1
     return out

@@ -1,9 +1,10 @@
 """PyTorch port on the card (``gpu`` marker; skips without CUDA): each CUDA
 kernel against its plain version (exact integer equality for B1/B2; B5
-within the reference's 2e-5 in f32 and 0.03 in bf16; B3 within 1e-5; B4
-bit for bit; B6/B7 within 1e-4 on y and the final state), the emulator on
-CUDA against the golden sets and its own plain path, and the LM server with
-B5 against its plain attention path.
+within the reference's 2e-5 in f32 and 0.03 in bf16, bf16 also within
+``BF16_REL_RMS_BAR`` of each 128-row block's rms, on the variant its
+routing names and on ``simt`` at every bf16 shape; B3 within 1e-5; B4 bit for bit; B6/B7 within 1e-4 on y and
+the final state), the emulator on CUDA against the golden sets and its own
+plain path, and the LM server with B5 against its plain attention path.
 
 Imports nothing of JAX, so it also runs where JAX is not installed:
 
@@ -17,8 +18,12 @@ import torch
 
 from repro_torch.configs import get_config
 from repro_torch.core.types import SMOKE_MESH, ParallelismConfig, ShapeConfig
-from repro_torch.kernels.flash_attention import attention_ref, flash_attention
+from repro_torch.kernels.flash_attention import (attention_ref,
+                                                 flash_attention,
+                                                 flash_attention_cuda)
 from repro_torch.kernels.flash_attention import ops as flash_ops
+from repro_torch.kernels.flash_attention.ref import (BF16_REL_RMS_BAR,
+                                                     rel_rms_by_block)
 from repro_torch.kernels.lstm_cell import lstm_window, lstm_window_ref
 from repro_torch.kernels.lstm_cell import ops as lstm_f_ops
 from repro_torch.kernels.lstm_cell_int import (CellSpec, lstm_window_int,
@@ -144,6 +149,28 @@ def test_flash_kernel_matches_plain(cuda, shape, causal):
     assert got.dtype == torch.bfloat16
     want = attention_ref(qb.float(), kb.float(), vb.float(), causal)
     assert (got.float() - want).abs().max().item() < 0.03
+    assert rel_rms_by_block(got, want) < BF16_REL_RMS_BAR
+
+
+def _bf16(rng, shape, device):
+    return torch.as_tensor(rng.standard_normal(shape) * 0.5,
+                           dtype=torch.float32, device=device).to(
+                               torch.bfloat16)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("shape", FLASH_SHAPES)
+def test_flash_simt_bf16_matches_plain(cuda, shape, causal):
+    """The simt variant's bf16 instances, which the routing now reaches
+    only for hd > 128, hd % 8 != 0 or strides TMA cannot read, launched
+    directly at every shape."""
+    rng = np.random.default_rng(sum(shape))
+    q, k, v = (_bf16(rng, shape, cuda) for _ in range(3))
+    got = torch.empty_like(q)
+    flash_attention_cuda(q, k, v, got, causal=causal, variant="simt")
+    want = attention_ref(q.float(), k.float(), v.float(), causal)
+    assert (got.float() - want).abs().max().item() < 0.03
+    assert rel_rms_by_block(got, want) < BF16_REL_RMS_BAR
 
 
 def test_flash_kernel_takes_strided_views(cuda):
@@ -156,6 +183,72 @@ def test_flash_kernel_takes_strided_views(cuda):
     got = flash_attention(q, k, v, True)
     want = attention_ref(q.contiguous(), k.contiguous(), v.contiguous())
     assert (got - want).abs().max().item() < 2e-5
+
+
+# the sm90 variant: every head dim of the zoo up to 128, S around the
+# 128-row tiles, and a Yi-9B prefill length
+SM90_HDS = (64, 80, 112, 128)
+SM90_SEQS = (1, 17, 127, 128, 129, 255, 2048)
+
+
+def _flash_on_variant(q, k, v, causal, name):
+    """B5 through its wrapper: ``name``'s counter, and only it, moves by
+    one, and the bf16 output is within the reference's 0.03 of the f32
+    plain version on the same (bf16) inputs and within
+    ``BF16_REL_RMS_BAR`` of it in each 128-row block."""
+    before = dict(flash_ops.launches_by_variant)
+    got = flash_attention(q, k, v, causal)
+    after = flash_ops.launches_by_variant
+    assert {n: after[n] - before[n] for n in after} == {
+        n: int(n == name) for n in after}
+    assert got.dtype == torch.bfloat16 and got.shape == q.shape
+    want = attention_ref(q.float(), k.float(), v.float(), causal)
+    err = (got.float() - want).abs().max().item()
+    assert err < 0.03, err
+    err = rel_rms_by_block(got, want)
+    assert err < BF16_REL_RMS_BAR, err
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("S", SM90_SEQS)
+@pytest.mark.parametrize("hd", SM90_HDS)
+def test_flash_sm90_matches_plain(cuda, hd, S, causal):
+    rng = np.random.default_rng(hd + S)
+    q, k, v = (_bf16(rng, (2, S, 3, hd), cuda) for _ in range(3))
+    _flash_on_variant(q, k, v, causal, "sm90")
+
+
+@pytest.mark.parametrize("Sq,Sk", [(17, 300), (200, 64), (1, 129),
+                                   (300, 2048)])
+@pytest.mark.parametrize("hd", [64, 128])
+def test_flash_sm90_cross_lengths(cuda, hd, Sq, Sk):
+    """Not causal, Sq != Sk: Q and K/V have tensor maps of their own."""
+    rng = np.random.default_rng(hd + Sq + Sk)
+    q = _bf16(rng, (2, Sq, 3, hd), cuda)
+    k, v = (_bf16(rng, (2, Sk, 3, hd), cuda) for _ in range(2))
+    _flash_on_variant(q, k, v, False, "sm90")
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_sm90_takes_strided_views(cuda, causal):
+    """bf16 (B, H, S, hd) buffers seen through (B, S, H, hd) views."""
+    rng = np.random.default_rng(11)
+    q, k, v = (_bf16(rng, (2, 3, 200, 64), cuda).transpose(1, 2)
+               for _ in range(3))
+    assert not q.is_contiguous()
+    _flash_on_variant(q, k, v, causal, "sm90")
+
+
+def test_flash_bf16_goes_to_simt_where_tma_cannot(cuda):
+    """hd 160, hd 100 (not a multiple of 8), and a row stride of 136
+    bytes, stay on the CUDA cores."""
+    rng = np.random.default_rng(12)
+    q, k, v = (_bf16(rng, (1, 130, 2, 100), cuda) for _ in range(3))
+    _flash_on_variant(q, k, v, True, "simt")
+    q, k, v = (_bf16(rng, (1, 130, 2, 160), cuda) for _ in range(3))
+    _flash_on_variant(q, k, v, True, "simt")
+    q, k, v = (_bf16(rng, (1, 130, 2, 68), cuda)[..., :64] for _ in range(3))
+    _flash_on_variant(q, k, v, True, "simt")
 
 
 @pytest.mark.parametrize("arch", ["yi-9b", "stablelm-3b"])
