@@ -58,9 +58,17 @@ where one exists, the PyTorch call that computes the same function:
 9. B3, the float LSTM window, at ``elastic-lstm`` over 65,536 windows
    (1e-5; yardstick cuDNN's LSTM);
 10. B4, the int8 matmul, at Yi-9B's MLP, 4096 <-> 11008, with weights
-    quantized on the card by ``quantize_params_int8`` and 2,048 or 4 rows
-    of bf16 activations (bit for bit; yardstick ``torch._int_mm`` plus the
-    same epilogue);
+    quantized on the card by ``quantize_params_int8`` (stored K-major)
+    and 2,048 or 4 rows of bf16 activations: the wrapper must route the
+    prefills to the ``sm90`` variant and the decode ticks to ``gemv``;
+    both are also launched directly there and at the reference's test
+    shapes (on the zero-padded K-major copy the wrapper makes where K %
+    16 != 0), all bit for bit; each variant, the whole wrapper call (also
+    on row-major codes, which it copies K-major first), the plain version
+    and the yardstick ``torch._int_mm`` plus the same epilogue (on K-major
+    and row-major codes) are timed, reading one of three copies of the
+    weights in turn so each call finds them outside L2, and gemv against
+    sm90 at 8 to 64 rows;
 11. B6, the Mamba-2 SSD scan, at Zamba2-7B's 112 heads of P = N = 64 over
     4,096 steps, chunks 128 and 256, with and without h0 (1e-4 on y and
     the state, against the per-step oracle);
@@ -75,6 +83,7 @@ last line of output is ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import functools
+import itertools
 import json
 import os
 import subprocess
@@ -119,6 +128,7 @@ F32_LOGIT_REL_TOL = 1e-3              # f32, full width, 4 layers (max abs)
 # (tests/test_kernels.py:88, :35, :165-166, :147-148)
 B3_WINDOWS = 65536                     # B1's serving batch of windows
 B4_ROWS = (2048, 4)                    # a prefill, a 4-slot decode tick
+B4_CROSS_ROWS = (8, 16, 17, 32, 64)    # around gemv's 16-row threshold
 SEQ = 4096                             # B6/B7 sequence length
 # Zamba2-7B's SSD (src/repro/configs/zamba2_7b.py: d_model 3584, expand 2,
 # headdim 64, d_state 64, one group): 112 heads of P = 64, N = 64
@@ -324,10 +334,20 @@ def phase_b3(ops_by_name: dict) -> dict:
             "bound_ms": bnd, "bound_by": by, "library_ms": lib}
 
 
+def rotating(fn, *arg_lists):
+    """``fn`` over the argument tuples in turn, one call each: weights that
+    a call reads come back to L2 only after the others' (each copy 45 MB
+    at Yi-9B's MLP, L2 50 MB), as each layer's weights do in a model."""
+    it = itertools.cycle(arg_lists)
+    return lambda: fn(*next(it))
+
+
 def phase_b4(ops_by_name: dict) -> dict:
     """B4, the int8 matmul, at Yi-9B's MLP: up (4096 -> 11008) and down
-    (11008 -> 4096) weights drawn and quantized on the card, bf16
-    activations of 2,048 rows (a prefill) and 4 rows (a decode tick)."""
+    (11008 -> 4096) weights drawn and quantized on the card (stored
+    K-major), bf16 activations of 2,048 rows (a prefill) and 4 rows (a
+    decode tick). The wrapper routes the prefills to ``sm90`` and the
+    ticks to ``gemv``; every variant is also launched directly."""
     import torch
 
     from repro_torch.configs import get_config
@@ -335,6 +355,7 @@ def phase_b4(ops_by_name: dict) -> dict:
                                                   quant_matmul_cuda,
                                                   quant_matmul_ref,
                                                   quantize_act)
+    from repro_torch.kernels.quant_matmul import ops as qmm_ops
     from repro_torch.quant.ptq import quantize_params_int8
 
     yi = get_config("yi-9b")
@@ -342,11 +363,37 @@ def phase_b4(ops_by_name: dict) -> dict:
     gen = torch.Generator(device="cuda").manual_seed(SEED + 10)
     ip = quantize_params_int8({"up": randn(gen, D, F, scale=D ** -0.5),
                                "down": randn(gen, F, D, scale=F ** -0.5)})
+    for proj in ("up", "down"):
+        K = ip.q[proj].shape[0]
+        if ip.q[proj].stride() != (1, K):
+            raise AssertionError(f"B4 {proj} codes are not K-major: "
+                                 f"strides {ip.q[proj].stride()}")
     cases = {(proj, m): randn(gen, m, D if proj == "up" else F)
              .to(torch.bfloat16) for m in B4_ROWS for proj in ("up", "down")}
+    for key in qmm_ops.launches_by_variant:
+        qmm_ops.launches_by_variant[key] = 0
     outs, n = drive(ops_by_name, "quant_matmul", lambda: {
         key: quant_matmul(x, ip.q[key[0]], ip.scale[key[0]])
         for key, x in cases.items()})
+    by_variant = dict(qmm_ops.launches_by_variant)
+    if by_variant != {"sm90": 2, "gemv": 2}:
+        raise AssertionError(f"B4 launches by variant {by_variant}, want 2 "
+                             "sm90 (2,048 rows) and 2 gemv (4 rows)")
+
+    def variants_equal_plain(xq, xs, wq, ws, what):
+        """Both variants launched directly, on the codes the wrapper hands
+        them (a zero-padded K-major copy where TMA cannot read these),
+        equal the plain version on the codes as given bit for bit."""
+        want = quant_matmul_ref(xq, wq, xs, ws)
+        cx, cw = qmm_ops.tma_codes(xq, wq)
+        for name in ("sm90", "gemv"):
+            out = torch.full_like(want, float("nan"))
+            quant_matmul_cuda(cx, cw, xs.reshape(1), ws, out, variant=name)
+            if not torch.equal(out, want):
+                raise AssertionError(f"B4 {name} {what} != plain version: "
+                                     f"max |err| {max_err(out, want):.3g}")
+        return "copied" if cw is not wq else "as stored"
+
     err = 0.0
     for key, x in cases.items():
         want = quant_matmul(x, ip.q[key[0]], ip.scale[key[0]], use_ref=True)
@@ -354,6 +401,10 @@ def phase_b4(ops_by_name: dict) -> dict:
         if not torch.equal(outs[key], want):
             raise AssertionError(f"B4 {key} != plain version bit for bit: "
                                  f"max |err| {err:.3g}")
+        xq, xs = quantize_act(x)
+        variants_equal_plain(xq, xs, ip.q[key[0]],
+                             ip.scale[key[0]].reshape(-1), key)
+    held = []
     for M, K, N in ((128, 128, 128), (64, 200, 96), (256, 512, 384),
                     (32, 96, 640)):
         for dtype in (torch.float32, torch.bfloat16):
@@ -362,50 +413,98 @@ def phase_b4(ops_by_name: dict) -> dict:
             got = quant_matmul(x, t.q["w"], t.scale["w"])
             want = quant_matmul(x, t.q["w"], t.scale["w"], use_ref=True)
             err = max(err, max_err(got, want))
+            xq, xs = quantize_act(x)
+            codes = variants_equal_plain(xq, xs, t.q["w"],
+                                         t.scale["w"].reshape(-1), (M, K, N))
+        held.append(f"({M}, {K}, {N}) codes {codes}")
     if err > B4_TOL:
         raise AssertionError(f"B4 != plain version: max |err| {err:.3g}")
     log(f"phase 10 B4 = plain version bit for bit at Yi-9B's MLP "
-        f"({D} <-> {F}) x {B4_ROWS} rows, and within {err:.3g} (bar "
-        f"{B4_TOL}) at the reference's 4 test shapes in f32 and bf16; "
-        f"launches {n}")
+        f"({D} <-> {F}) x {B4_ROWS} rows (launches by variant "
+        f"{json.dumps(by_variant)}; sm90 and gemv each launched directly "
+        f"there too), and within {err:.3g} (bar {B4_TOL}) through the "
+        f"wrapper at the reference's 4 test shapes in f32 and bf16, sm90 "
+        f"and gemv bit for bit there: {', '.join(held)}; launches {n}")
+
+    # timings: each call reads one of 3 copies of the weights in turn
+    copies = {proj: [ip.q[proj]] + [ip.q[proj].clone() for _ in range(2)]
+              for proj in ("up", "down")}
+    rows_major = {proj: [w.contiguous() for w in ws]
+                  for proj, ws in copies.items()}
     rows = {}
     for (proj, M), x in cases.items():
-        wq, ws = ip.q[proj], ip.scale[proj].reshape(-1).contiguous()
+        ws = ip.scale[proj].reshape(-1).contiguous()
         xq, xs = quantize_act(x)
-        K, N = wq.shape
+        K, N = ip.q[proj].shape
         out = torch.empty((M, N), device="cuda")
-        ms = time_ms(functools.partial(quant_matmul_cuda, xq, wq,
-                                       xs.reshape(1), ws, out))
-        plain = time_ms(functools.partial(quant_matmul_ref, xq, wq, xs, ws),
-                        reps=3)
-        # cuBLASLt's int8 GEMM plus the same epilogue, on the codes as the
-        # port stores them (K, N) row-major and as a column-major copy (the
-        # layout cuBLASLt's int8 kernels prefer); the faster one is kept
-        wq_cm = wq.t().contiguous().t()
-        try:
-            def library(w):
-                return torch._int_mm(xq, w).float() * xs * ws
 
-            lib_exact = all(torch.equal(library(w), out) for w in (wq, wq_cm))
-            lib_rm = events_ms(functools.partial(library, wq), reps=20)
-            lib_cm = events_ms(functools.partial(library, wq_cm), reps=20)
-            lib = min(lib_rm, lib_cm)
-            lib_note = (f"{lib_rm:.4f} ms row-major, {lib_cm:.4f} ms "
-                        f"column-major (= kernel bit for bit: {lib_exact})")
-        except RuntimeError as exc:
-            lib, lib_note = None, f"none ({str(exc).splitlines()[0][:90]})"
+        def kernel(name, w, xq=xq, xs=xs, ws=ws, out=out):
+            quant_matmul_cuda(xq, w, xs.reshape(1), ws, out, variant=name)
+
+        ms = {name: time_ms(rotating(functools.partial(kernel, name),
+                                     *[(w,) for w in copies[proj]]))
+              for name in ("sm90", "gemv")}
+        plain = time_ms(rotating(
+            functools.partial(quant_matmul_ref, xq, x_scale=xs, w_scale=ws),
+            *[(w,) for w in copies[proj]]), reps=3)
+        wrapper = {layout: time_ms(rotating(
+            functools.partial(quant_matmul, x, w_scale=ip.scale[proj]),
+            *[(w,) for w in ws_list]))
+            for layout, ws_list in (("K-major", copies[proj]),
+                                    ("row-major", rows_major[proj]))}
+        # cuBLASLt's int8 GEMM plus the same epilogue on the codes as the
+        # port stores them (K-major, the layout cuBLASLt prefers) and on a
+        # row-major copy; torch._int_mm takes only M > 16
+        lib = {}
+        for layout, ws_list in (("column-major", copies[proj]),
+                                ("row-major", rows_major[proj])):
+            try:
+                def library(w, xq=xq, xs=xs, ws=ws):
+                    return torch._int_mm(xq, w).float() * xs * ws
+
+                lib[layout] = time_ms(rotating(library,
+                                               *[(w,) for w in ws_list]))
+            except RuntimeError as exc:
+                lib[layout] = None
+                lib_why = str(exc).splitlines()[0][:90]
+        lib_note = ", ".join(
+            f"{v:.4f} ms {k}" for k, v in lib.items() if v is not None) \
+            or f"none ({lib_why})"
         bnd, by = bound_ms(M * K + K * N + 4 + 4 * N + 4 * M * N,
                            2 * M * N * K, INT8_OP_PER_S)
-        rows[(proj, M)] = (ms, plain, lib, bnd, by)
-        log(f"phase 10 B4 {proj} ({M}, {K}) @ ({K}, {N}): kernel {ms:.4f} ms "
-            f"({2 * M * N * K / ms / 1e9:.1f} TOP/s), plain {plain:.4f} ms, "
-            f"torch._int_mm + epilogue {lib_note}, bound {bnd:.4f} ms ({by})")
+        rows[(proj, M)] = (ms, plain, lib["column-major"], bnd, by)
+        routed = qmm_ops.variant(xq, ip.q[proj])
+        log(f"phase 10 B4 {proj} ({M}, {K}) @ ({K}, {N}): " + ", ".join(
+            f"{name}{' (routed)' if name == routed else ''} {t:.4f} ms "
+            f"({2 * M * N * K / t / 1e9:.1f} TOP/s)"
+            for name, t in ms.items()) + "; wrapper call with quantize_act "
+            f"{wrapper['K-major']:.4f} ms (on row-major codes, copied K-major "
+            f"first: {wrapper['row-major']:.4f} ms); plain "
+            f"{plain:.4f} ms; torch._int_mm + epilogue {lib_note}; bound "
+            f"{bnd:.4f} ms ({by})")
+    # the gemv/sm90 crossing, for the 16-row threshold
+    cross = []
+    for M in B4_CROSS_ROWS:
+        for proj in ("up", "down"):
+            K, N = ip.q[proj].shape
+            xq, xs = quantize_act(randn(gen, M, K).to(torch.bfloat16))
+            ws = ip.scale[proj].reshape(-1).contiguous()
+            out = torch.empty((M, N), device="cuda")
+            t = {name: time_ms(rotating(
+                lambda w, name=name, xq=xq, xs=xs, ws=ws, out=out:
+                quant_matmul_cuda(xq, w, xs.reshape(1), ws, out,
+                                  variant=name),
+                *[(w,) for w in copies[proj]])) for name in ("gemv", "sm90")}
+            cross.append(f"{proj} M={M} gemv {t['gemv']:.4f} sm90 "
+                         f"{t['sm90']:.4f}")
+    log("phase 10 B4 gemv vs sm90 by rows (ms): " + "; ".join(cross))
     ms, plain, lib, bnd, by = rows[("up", B4_ROWS[0])]
     return {"name": "quant_matmul", "route": "cuda",
             "source": "src/repro_torch/csrc/quant_matmul.cu",
             "replaces": "src/repro/kernels/quant_matmul/kernel.py:23",
-            "launches": n, "max_abs_err": err, "ms": ms, "plain_ms": plain,
-            "bound_ms": bnd, "bound_by": by, "library_ms": lib}
+            "launches": n, "max_abs_err": err, "ms": ms["sm90"],
+            "plain_ms": plain, "bound_ms": bnd, "bound_by": by,
+            "library_ms": lib}
 
 
 def phase_b6(ops_by_name: dict) -> dict:

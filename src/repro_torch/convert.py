@@ -16,8 +16,9 @@ key or a wrong (stacked) shape raises with its path.
 :func:`int8_params_from_jax` carries the reference's int8 weights
 (``repro.quant.ptq.Int8Params``: int8 codes, f32 per-channel scales and the
 leaves kept in full precision) across as the port's
-:class:`~repro_torch.quant.ptq.Int8Params` of numpy arrays, which
-:func:`to_torch` puts on a device as they are (codes stay int8).
+:class:`~repro_torch.quant.ptq.Int8Params` of numpy arrays, the codes
+stored K-major as ``quant/ptq.py`` stores them, which :func:`to_torch`
+puts on a device as they are (codes stay int8, strides are kept).
 """
 from __future__ import annotations
 
@@ -70,9 +71,10 @@ def params_from_jax(tree, cfg: ModelConfig):
 
 def int8_params_from_jax(ip) -> Int8Params:
     """The reference's ``Int8Params`` (its ``q``/``scale``/``skipped``
-    trees) -> the port's, as numpy arrays. A code leaf that is not int8 or
-    a scale that is not float32 raises ValueError; trees that do not match
-    raise where :func:`tree_map` finds the mismatch."""
+    trees) -> the port's, as numpy arrays, each code leaf (..., K, N)
+    stored K-major (strides (..., 1, K) in elements). A code leaf that is
+    not int8 or a scale that is not float32 raises ValueError; trees that
+    do not match raise where :func:`tree_map` finds the mismatch."""
     q, scale, skipped = (tree_map(np.array, t)
                          for t in (ip.q, ip.scale, ip.skipped))
 
@@ -82,6 +84,9 @@ def int8_params_from_jax(ip) -> Int8Params:
                              f"float32, got {codes.dtype}, {s.dtype}")
 
     tree_map(check, q, scale)
+    # stored K-major, as quant/ptq.py stores its own codes
+    q = tree_map(lambda a: np.ascontiguousarray(a.swapaxes(-1, -2))
+                 .swapaxes(-1, -2) if a.ndim >= 2 else a, q)
     return Int8Params(q=q, scale=scale, skipped=skipped)
 
 

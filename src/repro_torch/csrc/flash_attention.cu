@@ -64,6 +64,7 @@
 
 #include "error_string.cuh"
 #include "hopper.cuh"
+#include "tensor_map.cuh"
 
 namespace {
 
@@ -304,7 +305,6 @@ constexpr int NT = 384;          // producer warpgroup + 2 consumer warpgroups
 constexpr int BOX = 64;          // columns per TMA box: one 128-byte row
 constexpr float NEG = -1e30f;    // the reference's NEG_INF
 constexpr float LOG2E = 1.4426950408889634f;
-constexpr int kTmapError = 100000;  // + the CUresult of a failed encoding
 
 // Shared memory, in bytes from a 1,024-byte-aligned base: Q, then the K
 // stages, then the V stages, each tile HD/64 boxes of (128 rows x 128 B)
@@ -515,34 +515,12 @@ __global__ void __launch_bounds__(NT, 1)
   }
 }
 
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
-                                 cuuint32_t, void*, const cuuint64_t*,
-                                 const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave,
-                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled (CUDA 12.0 ABI), from the driver the runtime has
-// loaded, so the library needs no -lcuda; null if the driver lacks it
-EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
-               ? reinterpret_cast<EncodeTiled>(p)
-               : nullptr;
-  }();
-  return fn;
-}
-
 // A 4-D map over (hd, S, H, B) of a (B, S, H, hd) bf16 tensor with element
 // strides `st`: boxes of 64 columns x 128 rows, 128-byte swizzle, zeros
 // outside the tensor. Returns 0 or an error code.
 int make_map(CUtensorMap* map, const void* ptr, int B, int S, int H, int hd,
              Strides st) {
-  const EncodeTiled encode = encode_tiled();
+  const tma::EncodeTiled encode = tma::encode_tiled();
   if (encode == nullptr) return static_cast<int>(cudaErrorSymbolNotFound);
   const cuuint64_t dims[4] = {static_cast<cuuint64_t>(hd),
                               static_cast<cuuint64_t>(S),
@@ -558,7 +536,7 @@ int make_map(CUtensorMap* map, const void* ptr, int B, int S, int H, int hd,
       strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
       CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
       CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : kTmapError + static_cast<int>(r);
+  return r == CUDA_SUCCESS ? 0 : tma::kError + static_cast<int>(r);
 }
 
 template <int HD>

@@ -1,7 +1,7 @@
 // PTX wrappers for Hopper (sm_90a): mbarriers, TMA tensor loads, wgmma
-// shared-memory descriptors and the bf16 wgmma shapes the kernels use,
-// their fences, and setmaxnreg. Device code only; each wrapper is one or
-// two PTX instructions, named after them.
+// shared-memory descriptors and the bf16 and int8 wgmma shapes the kernels
+// use, their fences, named barriers and setmaxnreg. Device code only; each
+// wrapper is one or two PTX instructions, named after them.
 #pragma once
 
 #include <cuda.h>
@@ -68,6 +68,18 @@ __device__ __forceinline__ void prefetch_tmap(const CUtensorMap* map) {
                : "memory");
 }
 
+// one box of a 2-D tensor map into shared memory at `dst`; completion is
+// counted in bytes on the mbarrier `bar`. Coordinates innermost first.
+__device__ __forceinline__ void tma_load_2d(uint32_t dst,
+                                            const CUtensorMap* map,
+                                            uint32_t bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::"
+      "bytes [%0], [%1, {%3, %4}], [%2];" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
+      : "memory");
+}
+
 // one box of a 4-D tensor map into shared memory at `dst`; completion is
 // counted in bytes on the mbarrier `bar`. Coordinates innermost first.
 __device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map,
@@ -116,6 +128,12 @@ template <int N>
 __device__ __forceinline__ void fence_operand(float (&d)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+template <int N>
+__device__ __forceinline__ void fence_operand(int (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(d[i])::"memory");
 }
 
 #define REPRO_F8(d, i)                                                   \
@@ -182,8 +200,51 @@ __device__ __forceinline__ void wgmma_m64n64k16_rs_tb(float (&d)[32],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+#define REPRO_R8(d, i)                                                   \
+  "+r"(d[i]), "+r"(d[i + 1]), "+r"(d[i + 2]), "+r"(d[i + 3]),            \
+      "+r"(d[i + 4]), "+r"(d[i + 5]), "+r"(d[i + 6]), "+r"(d[i + 7])
+#define REPRO_R32(d, i) \
+  REPRO_R8(d, i), REPRO_R8(d, i + 8), REPRO_R8(d, i + 16), REPRO_R8(d, i + 24)
+
+// d (64 x 256, s32) += A (64 x 32) . B (32 x 256), A and B int8 in shared
+// memory, both K-major (the integer forms have no transpose and no operand
+// scale). The sums are exact; d += only where scale_d != 0, else d =.
+__device__ __forceinline__ void wgmma_m64n256k32_s8_ss(int (&d)[128],
+                                                       uint64_t da,
+                                                       uint64_t db,
+                                                       int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "
+      "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "
+      "%58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, "
+      "%86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, %98, %99, "
+      "%100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, "
+      "%111, %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, "
+      "%122, %123, %124, %125, %126, %127}, %128, %129, p;\n"
+      "}\n"
+      : REPRO_R32(d, 0), REPRO_R32(d, 32), REPRO_R32(d, 64), REPRO_R32(d, 96)
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+#undef REPRO_R32
+#undef REPRO_R8
 #undef REPRO_F32
 #undef REPRO_F8
+
+// ---- named barriers -------------------------------------------------------
+
+// waits until `threads` threads (whole warps) have reached barrier `id`
+// (1-15; __syncthreads is barrier 0)
+__device__ __forceinline__ void bar_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(threads) : "memory");
+}
 
 // ---- registers ------------------------------------------------------------
 

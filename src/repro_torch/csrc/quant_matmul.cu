@@ -8,183 +8,454 @@
 //
 // What it computes, as the TPU kernel does: an exact int32 accumulator
 // over K (|sum| <= 127 * 127 * K stays far inside int32 for any K a model
-// has), then the epilogue in the reference's order, each multiply rounded
-// to f32 (kernel.py:39-40), so the result is bit-for-bit the plain
-// version's. Ragged M, N and K are masked here instead of the wrapper's
-// zero padding: a padded code is 0, so the sums are the same.
+// has: 177.6 M at K = 11008), then the epilogue in the reference's order,
+// each multiply rounded to f32 (kernel.py:39-40), so every variant is bit
+// for bit the plain version. Ragged M and N need no padding: a code past
+// the edge is read as 0, so the sums are the same. K must be a multiple
+// of 16 (TMA's rows are 16-byte multiples); the wrapper zero-pads any
+// other K, which leaves the sums the same too.
 //
 // What bounds it on an H100: at Yi-9B's MLP with a 2,048-token prefill,
 // (2048 x 4096) . (4096 x 11008), the work is 185 G int8 operations
-// against 59 MB, so it is bound by the int8 tensor-core rate (1,979 TOP/s:
-// 0.093 ms), well above HBM's 0.018 ms. A 4-row decode tick is bound by
-// reading the 45 MB of weights (0.013 ms).
+// against 144 MB (90 MB of it the f32 output), so it is bound by the int8
+// tensor-core rate (1,979 TOP/s: 0.093 ms), above HBM's 0.043 ms. A 4-row
+// decode tick is bound by reading the 45 MB of weights once (0.013 ms).
 //
-// Design (simple and right; wgmma, TMA and a pipelined ring of tiles are
-// later work): one block of 256 threads per 128 x 128 output tile, looping
-// over K in steps of 64. Each step stages the xq tile row-major and the wq
-// tile transposed (k contiguous per output column, a 4 x 4 byte transpose
-// in registers with __byte_perm) in shared memory; eight warps, 2 x 4, each
-// own a 64 x 32 sub-tile and issue mma.sync.m16n8k32 s8 x s8 -> s32 on the
-// tensor cores, whose fragments are single 32-bit shared-memory loads. Row
-// strides are padded to 80 bytes, so the fragment loads fall in distinct
-// banks. Word-wide global loads are used where K (for xq) or N (for wq) is
-// a multiple of 4, byte loads otherwise.
+// The weights are stored K-major: logical (K, N), strides (1, ldw), each
+// output channel's K codes contiguous (quant/ptq.py and convert.py store
+// them so). The int8 forms of wgmma take both operands K-major and have no
+// transpose, and TMA reads rows of contiguous bytes, so that is the layout
+// the tensor cores are fed from; kernels/quant_matmul/ops.py::tma_codes
+// copies codes stored any other way (never a model's) to it once. Two
+// variants; kernels/quant_matmul/ops.py::variant picks one by M:
+//
+// "sm90" (K-major codes, K % 16 == 0, 16-byte bases and pitches, M > 16):
+// a block of 384 threads takes a 128 x 256 output tile. Warpgroup 0 is
+// the producer: one thread keeps a 4-stage ring full with TMA loads of the
+// xq tile (128 rows x 128 codes, 16 KB) and the weight tile (256 channels
+// x 128 codes, 32 KB), both with the 128-byte swizzle, guarded by "full"
+// (bytes landed) and "empty" (both consumers done) mbarriers; TMA fills
+// zeros past M, N and K, so the main loop has no masks. Warpgroups 1 and 2
+// own 64 rows each and issue four wgmma.m64n256k32.s32.s8.s8 per stage
+// from shared memory (128 int32 accumulators a thread), keeping one stage
+// of wgmma in flight while the next is issued. The epilogue rescales from
+// registers, in column pairs, masked past M and N; each consumer thread
+// loads one of the tile's 256 channel scales before the main loop and
+// parks it in shared memory for the epilogue. setmaxnreg gives the
+// producer 40 registers and the consumers 232. One tile per block: at
+// (2048, 4096) . (4096, 11008) the grid is 16 x 43 = 688 tiles, 5.2 waves
+// of 132 SMs; a persistent scheduler and overlapping a tile's epilogue
+// with the next tile's loads are later work.
+//
+// "gemv" (the same layout, M <= 16: a decode tick): bound by streaming the
+// weights once. A block of 4 warps stages up to 16 rows of xq codes in
+// shared memory (K in passes of 48 KB / rows) and gives each warp 4 output
+// channels; the lanes stream each channel's contiguous codes with 16-byte
+// loads that bypass L1, two or four vectors a channel in flight, multiply
+// with __dp4a (exact int32) and reduce across the warp with shuffles. No
+// split K and no atomics: Yi-9B's up projection gives 2,752 warps, its
+// down projection 1,024, so every SM streams weights. Larger M runs in
+// groups of 16 rows (grid.y), for completeness; the wrapper sends those
+// to sm90.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "error_string.cuh"
+#include "hopper.cuh"
+#include "tensor_map.cuh"
 
 namespace {
 
-constexpr int BM = 128, BN = 128, BK = 64;
-constexpr int NT = 256;          // 8 warps: 2 along M x 4 along N
-constexpr int LDS = BK + 16;     // shared row stride in bytes (20 words)
-
-__device__ __forceinline__ uint32_t ld_s32(const int8_t* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4],
-                                       const uint32_t (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-__global__ void __launch_bounds__(NT)
-    qmm_kernel(const int8_t* __restrict__ xq, const int8_t* __restrict__ wq,
-               const float* __restrict__ x_scale,
-               const float* __restrict__ w_scale, float* __restrict__ out,
-               int M, int N, int K, int vec_a, int vec_b) {
-  __shared__ __align__(16) int8_t As[BM * LDS];    // [m][k]
-  __shared__ __align__(16) int8_t Bs[BN * LDS];    // [n][k], transposed
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int wm = warp / 4, wn = warp % 4;          // 64 x 32 warp tiles
-  const int g = lane / 4, tq = lane % 4;           // mma fragment coords
-
-  int acc[4][4][4];
-#pragma unroll
-  for (int mi = 0; mi < 4; ++mi)
-#pragma unroll
-    for (int ni = 0; ni < 4; ++ni)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[mi][ni][e] = 0;
-
-  for (int k0 = 0; k0 < K; k0 += BK) {
-    // xq tile: BM rows x BK/4 words, zeros past M and K
-    for (int i = tid; i < BM * (BK / 4); i += NT) {
-      const int r = i / (BK / 4), kw = i % (BK / 4);
-      const int m = m0 + r, k = k0 + kw * 4;
-      uint32_t word = 0;
-      if (m < M) {
-        const int8_t* src = xq + static_cast<long long>(m) * K + k;
-        if (vec_a) {
-          if (k < K) word = ld_s32(src);
-        } else {
-#pragma unroll
-          for (int e = 0; e < 4; ++e)
-            if (k + e < K)
-              word |= static_cast<uint32_t>(static_cast<uint8_t>(src[e]))
-                      << (8 * e);
-        }
-      }
-      *reinterpret_cast<uint32_t*>(As + r * LDS + kw * 4) = word;
-    }
-    // wq tile transposed, one 4 (k) x 4 (n) block per thread and pass:
-    // w[r] holds wq[k + r][n .. n + 3]; column c of it becomes the word
-    // Bs[n + c][k .. k + 3]
-    for (int i = tid; i < (BK / 4) * (BN / 4); i += NT) {
-      const int ng = (i / 32) % 4 * 8 + i % 8;          // 8 lanes along n
-      const int kg = (i / 128) * 4 + (i / 8) % 4;       // 4 lanes along k
-      const int k = k0 + kg * 4, n = n0 + ng * 4;
-      uint32_t w[4] = {0u, 0u, 0u, 0u};
-#pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        if (k + r >= K) continue;
-        const int8_t* src = wq + static_cast<long long>(k + r) * N + n;
-        if (vec_b) {
-          if (n < N) w[r] = ld_s32(src);
-        } else {
-#pragma unroll
-          for (int c = 0; c < 4; ++c)
-            if (n + c < N)
-              w[r] |= static_cast<uint32_t>(static_cast<uint8_t>(src[c]))
-                      << (8 * c);
-        }
-      }
-      const uint32_t t0 = __byte_perm(w[0], w[1], 0x5140);
-      const uint32_t t1 = __byte_perm(w[2], w[3], 0x5140);
-      const uint32_t t2 = __byte_perm(w[0], w[1], 0x7362);
-      const uint32_t t3 = __byte_perm(w[2], w[3], 0x7362);
-      int8_t* dst = Bs + (ng * 4) * LDS + kg * 4;
-      *reinterpret_cast<uint32_t*>(dst) = __byte_perm(t0, t1, 0x5410);
-      *reinterpret_cast<uint32_t*>(dst + LDS) = __byte_perm(t0, t1, 0x7632);
-      *reinterpret_cast<uint32_t*>(dst + 2 * LDS) =
-          __byte_perm(t2, t3, 0x5410);
-      *reinterpret_cast<uint32_t*>(dst + 3 * LDS) =
-          __byte_perm(t2, t3, 0x7632);
-    }
-    __syncthreads();
-
-#pragma unroll
-    for (int kk = 0; kk < BK; kk += 32) {
-      uint32_t a[4][4], b[4][2];
-#pragma unroll
-      for (int mi = 0; mi < 4; ++mi) {
-        const int8_t* p = As + (wm * 64 + mi * 16 + g) * LDS + kk + tq * 4;
-        a[mi][0] = ld_s32(p);
-        a[mi][1] = ld_s32(p + 8 * LDS);
-        a[mi][2] = ld_s32(p + 16);
-        a[mi][3] = ld_s32(p + 8 * LDS + 16);
-      }
-#pragma unroll
-      for (int ni = 0; ni < 4; ++ni) {
-        const int8_t* p = Bs + (wn * 32 + ni * 8 + g) * LDS + kk + tq * 4;
-        b[ni][0] = ld_s32(p);
-        b[ni][1] = ld_s32(p + 16);
-      }
-#pragma unroll
-      for (int mi = 0; mi < 4; ++mi)
-#pragma unroll
-        for (int ni = 0; ni < 4; ++ni) mma_s8(acc[mi][ni], a[mi], b[ni]);
-    }
-    __syncthreads();               // the tiles' readers are done
-  }
-
-  const float xs = *x_scale;
-#pragma unroll
-  for (int mi = 0; mi < 4; ++mi)
-#pragma unroll
-    for (int ni = 0; ni < 4; ++ni)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int m = m0 + wm * 64 + mi * 16 + g + (e >= 2 ? 8 : 0);
-        const int n = n0 + wn * 32 + ni * 8 + tq * 2 + (e & 1);
-        if (m < M && n < N)
-          out[static_cast<long long>(m) * N + n] = __fmul_rn(
-              __fmul_rn(__int2float_rn(acc[mi][ni][e]), xs), w_scale[n]);
-      }
+// the reference's epilogue, each multiply rounded to f32 in its order
+__device__ __forceinline__ float rescale(int acc, float xs, float ws) {
+  return __fmul_rn(__fmul_rn(__int2float_rn(acc), xs), ws);
 }
 
 }  // namespace
 
-// xq (M, K) int8, wq (K, N) int8, x_scale (1,) f32, w_scale (N,) f32,
-// out (M, N) f32; all contiguous.
+// ---- the sm90 variant ----------------------------------------------------
+namespace sm90 {
+
+constexpr int BM = 128;          // rows per block: 2 consumers x 64
+constexpr int BN = 256;          // output channels per block
+constexpr int BK = 128;          // codes of K per stage: one 128-byte row
+constexpr int STAGES = 4;        // depth of the ring
+constexpr int NT = 384;          // producer warpgroup + 2 consumer warpgroups
+constexpr int kA = BM * BK;      // xq tile, 16 KB
+constexpr int kB = BN * BK;      // weight tile, 32 KB
+constexpr int kStage = kA + kB;
+// Shared memory, in bytes from a 1,024-byte-aligned base: the stages, each
+// an xq tile then a weight tile; the tile's BN channel scales; then the
+// mbarriers full[], empty[].
+constexpr int kScales = STAGES * kStage;
+constexpr int kBars = kScales + 4 * BN;
+constexpr int kSmem = kBars + 8 * 2 * STAGES + 1024;
+
+__global__ void __launch_bounds__(NT, 1)
+    qmm_sm90(const __grid_constant__ CUtensorMap ta,
+             const __grid_constant__ CUtensorMap tb,
+             const float* __restrict__ x_scale,
+             const float* __restrict__ w_scale, float* __restrict__ out,
+             int M, int N, int K) {
+  extern __shared__ __align__(1024) unsigned char smem_sm90[];
+  const uint32_t base = (hopper::smem_u32(smem_sm90) + 1023) & ~1023u;
+  auto full = [&](int s) { return base + kBars + 8 * s; };
+  auto empty = [&](int s) { return base + kBars + 8 * (STAGES + s); };
+  // M tiles run fastest, so the blocks in flight share a few weight tiles
+  // (and all of xq) through L2
+  const int m0 = blockIdx.x * BM;
+  const int n0 = blockIdx.y * BN;
+  const int n_kt = (K + BK - 1) / BK;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      hopper::mbar_init(full(s), 1);
+      hopper::mbar_init(empty(s), 2 * 128);    // every consumer thread
+    }
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {
+    // ---- producer warpgroup: one thread keeps the ring full ----
+    hopper::setmaxnreg_dec<40>();
+    if (threadIdx.x == 0) {
+      hopper::prefetch_tmap(&ta);
+      hopper::prefetch_tmap(&tb);
+      for (int kt = 0; kt < n_kt; ++kt) {
+        const int s = kt % STAGES;
+        const int use = kt / STAGES;
+        if (use > 0) hopper::mbar_wait(empty(s), (use - 1) & 1);
+        hopper::mbar_arrive_expect_tx(full(s), kStage);
+        const uint32_t tile = base + s * kStage;
+        hopper::tma_load_2d(tile, &ta, full(s), kt * BK, m0);
+        hopper::tma_load_2d(tile + kA, &tb, full(s), kt * BK, n0);
+      }
+    }
+  } else {
+    // ---- consumer warpgroups: 64 rows x 256 channels each ----
+    hopper::setmaxnreg_inc<232>();
+    const int w = threadIdx.x / 128 - 1;
+    const int t = threadIdx.x % 128;
+    // this thread's channel scale, loaded while the ring fills
+    const int ct = threadIdx.x - 128;
+    const float w_own = n0 + ct < N ? w_scale[n0 + ct] : 0.f;
+    const float xs = *x_scale;
+    int acc[128];                    // the tile's first product sets it
+
+    for (int kt = 0; kt < n_kt; ++kt) {
+      const int s = kt % STAGES;
+      const uint32_t a_tile = base + s * kStage + w * 64 * BK;
+      const uint32_t b_tile = base + s * kStage + kA;
+      hopper::mbar_wait(full(s), (kt / STAGES) & 1);
+      hopper::fence_operand(acc);
+      hopper::wgmma_fence();
+      // four k-steps of 32 codes (32 bytes) inside the 128-byte rows
+#pragma unroll
+      for (int kk = 0; kk < BK / 32; ++kk)
+        hopper::wgmma_m64n256k32_s8_ss(
+            acc, hopper::desc_sw128(a_tile + 32 * kk, 16, 1024),
+            hopper::desc_sw128(b_tile + 32 * kk, 16, 1024), kt > 0 || kk > 0);
+      hopper::wgmma_commit();
+      // the previous stage's products are done: hand its buffers back
+      hopper::wgmma_wait<1>();
+      hopper::fence_operand(acc);
+      if (kt > 0) hopper::mbar_arrive(empty((kt - 1) % STAGES));
+    }
+    hopper::wgmma_wait<0>();
+    hopper::fence_operand(acc);
+
+    // the tile's scales to shared memory, so the unrolled epilogue reads
+    // them without a round trip to L2 behind each column's mask
+    float* ws_tile = reinterpret_cast<float*>(smem_sm90 + (base -
+        hopper::smem_u32(smem_sm90)) + kScales);
+    ws_tile[ct] = w_own;
+    hopper::bar_sync(1, 256);        // both consumer warpgroups
+
+    // out = rescale(acc) at rows r and r + 8, columns c and c + 1 of each
+    // 8-wide tile j: acc[4j + 2h + e] is (row r + 8h, column 8j + c + e)
+    const int lane = t % 32;
+    const int r = m0 + 64 * w + 16 * (t / 32) + lane / 4;
+    const int c = 2 * (lane % 4);
+    const bool pairs = N % 2 == 0;   // 8-byte aligned column pairs
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j) {
+      const int n = n0 + 8 * j + c;
+      if (n >= N) continue;
+      const bool two = n + 1 < N;
+      const float w0 = ws_tile[8 * j + c];
+      const float w1 = ws_tile[8 * j + c + 1];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int m = r + 8 * h;
+        if (m >= M) continue;
+        float* dst = out + static_cast<long long>(m) * N + n;
+        const float v0 = rescale(acc[4 * j + 2 * h], xs, w0);
+        if (!two) {
+          dst[0] = v0;
+          continue;
+        }
+        const float v1 = rescale(acc[4 * j + 2 * h + 1], xs, w1);
+        if (pairs) {
+          *reinterpret_cast<float2*>(dst) = make_float2(v0, v1);
+        } else {
+          dst[0] = v0;
+          dst[1] = v1;
+        }
+      }
+    }
+  }
+}
+
+// A 2-D map over `rows` rows of `inner` int8 codes, `pitch` bytes apart:
+// boxes of 128 codes x `box_rows` rows, 128-byte swizzle, zeros outside.
+// Returns 0 or an error code.
+int make_map(CUtensorMap* map, const void* ptr, int inner, int rows,
+             long long pitch, int box_rows) {
+  const tma::EncodeTiled encode = tma::encode_tiled();
+  if (encode == nullptr) return static_cast<int>(cudaErrorSymbolNotFound);
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(inner),
+                              static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(pitch)};
+  const cuuint32_t box[2] = {BK, static_cast<cuuint32_t>(box_rows)};
+  const cuuint32_t unit[2] = {1, 1};
+  const CUresult r = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<void*>(ptr), dims,
+      strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : tma::kError + static_cast<int>(r);
+}
+
+int run(const void* xq, const void* wq, const void* x_scale,
+        const void* w_scale, void* out, int M, int N, int K, long long ldw,
+        cudaStream_t stream) {
+  // ops.py::variant owns the routing; here only what TMA needs of the
+  // pitches (the encoder itself refuses unaligned bases)
+  if (K <= 0 || K % 16 != 0 || ldw % 16 != 0 || ldw < K ||
+      (N + BN - 1) / BN > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap ta, tb;
+  int err = make_map(&ta, xq, K, M, K, BM);
+  if (err == 0) err = make_map(&tb, wq, K, N, ldw, BN);
+  if (err != 0) return err;
+  static bool opted_in = false;      // once, before any graph capture
+  if (!opted_in) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        qmm_sm90, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    opted_in = true;
+  }
+  const dim3 grid((M + BM - 1) / BM, (N + BN - 1) / BN);
+  qmm_sm90<<<grid, NT, kSmem, stream>>>(
+      ta, tb, static_cast<const float*>(x_scale),
+      static_cast<const float*>(w_scale), static_cast<float*>(out), M, N, K);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace sm90
+
+// ---- the gemv variant ----------------------------------------------------
+namespace gemv {
+
+constexpr int WARPS = 4;
+constexpr int NT = 32 * WARPS;
+constexpr int CPW = 4;             // output channels per warp
+constexpr int MAX_ROWS = 16;       // rows of xq per block
+constexpr int kStaged = 48 * 1024; // bytes of xq codes staged per pass
+
+// 16 bytes of weights that are read once: not kept in L1, where the staged
+// rows' neighbours live; L2 fetches 256-byte lines ahead of the stream
+__device__ __forceinline__ int4 ld_stream(const int8_t* p) {
+  int4 v;
+  asm volatile(
+      "ld.global.nc.L1::no_allocate.L2::256B.v4.s32 {%0, %1, %2, %3}, [%4];"
+      : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+      : "l"(p));
+  return v;
+}
+
+__device__ __forceinline__ int dot16(int4 a, int4 b, int c) {
+  c = __dp4a(a.x, b.x, c);
+  c = __dp4a(a.y, b.y, c);
+  c = __dp4a(a.z, b.z, c);
+  return __dp4a(a.w, b.w, c);
+}
+
+// ROWS rows of xq per block (the rows past M staged as zeros), K in passes
+// of KC codes, the staged rows KC bytes apart; UNROLL 16-byte vectors of
+// each channel in flight
+template <int ROWS, int UNROLL>
+__global__ void __launch_bounds__(NT)
+    qmm_gemv(const int8_t* __restrict__ xq, const int8_t* __restrict__ wq,
+             const float* __restrict__ x_scale,
+             const float* __restrict__ w_scale, float* __restrict__ out,
+             int M, int N, int K, long long ldw, int KC) {
+  extern __shared__ __align__(16) int8_t xs_tile[];   // [ROWS][KC]
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int m0 = blockIdx.y * ROWS;
+  const int rows = min(ROWS, M - m0);
+  const int n0 = (blockIdx.x * WARPS + warp) * CPW;
+  const int8_t* wrow[CPW];
+  bool live[CPW];
+#pragma unroll
+  for (int j = 0; j < CPW; ++j) {
+    live[j] = n0 + j < N;
+    wrow[j] = wq + static_cast<long long>(live[j] ? n0 + j : 0) * ldw;
+  }
+  int acc[CPW][ROWS];
+#pragma unroll
+  for (int j = 0; j < CPW; ++j)
+#pragma unroll
+    for (int m = 0; m < ROWS; ++m) acc[j][m] = 0;
+
+  for (int k0 = 0; k0 < K; k0 += KC) {
+    const int nv = min(KC, K - k0) / 16;     // 16-byte vectors per row
+    __syncthreads();                         // the last pass's readers
+    for (int i = threadIdx.x; i < ROWS * nv; i += NT) {
+      const int m = i / nv, v = i - m * nv;
+      int4 val = make_int4(0, 0, 0, 0);
+      if (m < rows)
+        val = *reinterpret_cast<const int4*>(
+            xq + static_cast<long long>(m0 + m) * K + k0 + 16 * v);
+      *reinterpret_cast<int4*>(xs_tile + m * KC + 16 * v) = val;
+    }
+    __syncthreads();
+    for (int v = lane; v < nv; v += 32 * UNROLL) {
+      int4 wv[UNROLL][CPW];
+#pragma unroll
+      for (int u = 0; u < UNROLL; ++u)
+#pragma unroll
+        for (int j = 0; j < CPW; ++j)
+          wv[u][j] = v + 32 * u < nv && live[j]
+                         ? ld_stream(wrow[j] + k0 + 16 * (v + 32 * u))
+                         : make_int4(0, 0, 0, 0);
+#pragma unroll
+      for (int u = 0; u < UNROLL; ++u) {
+        if (v + 32 * u >= nv) break;
+#pragma unroll
+        for (int m = 0; m < ROWS; ++m) {
+          const int4 xv = *reinterpret_cast<const int4*>(
+              xs_tile + m * KC + 16 * (v + 32 * u));
+#pragma unroll
+          for (int j = 0; j < CPW; ++j)
+            acc[j][m] = dot16(wv[u][j], xv, acc[j][m]);
+        }
+      }
+    }
+  }
+
+  const float xs = *x_scale;
+#pragma unroll
+  for (int j = 0; j < CPW; ++j)
+#pragma unroll
+    for (int m = 0; m < ROWS; ++m) {
+      int a = acc[j][m];
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1)
+        a += __shfl_xor_sync(0xffffffffu, a, off);
+      if (lane == (j * ROWS + m) % 32 && live[j] && m < rows)
+        out[static_cast<long long>(m0 + m) * N + n0 + j] =
+            rescale(a, xs, w_scale[n0 + j]);
+    }
+}
+
+template <int ROWS>
+cudaError_t launch(const void* xq, const void* wq, const void* x_scale,
+                   const void* w_scale, void* out, int M, int N, int K,
+                   long long ldw, cudaStream_t stream) {
+  const int KC = K < kStaged / ROWS ? K : kStaged / ROWS;  // 16 | KC
+  const dim3 grid((N + WARPS * CPW - 1) / (WARPS * CPW),
+                  (M + ROWS - 1) / ROWS);
+  if (grid.y > 65535) return cudaErrorInvalidValue;
+  // Four vectors a channel in flight where the grid fits in one wave of
+  // the blocks the SMs hold at that depth (its registers allow fewer), two
+  // elsewhere: a second, partial wave costs more than the deeper stream
+  // saves. At 4 rows Yi-9B's down projection (256 blocks) takes four, its
+  // up projection (688 blocks) two.
+  // The blocks all SMs hold at that depth depend on the device and the
+  // staged bytes alone: worked out at the first launch of a pair and kept
+  // for the last few pairs (one table per ROWS), so a decode tick pays no
+  // occupancy query.
+  struct Wave {
+    int dev = -1, kc = 0;
+    long long blocks = 0;
+  };
+  static Wave seen[4];
+  static int next = 0;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  long long wave = -1;
+  for (const Wave& w : seen)
+    if (w.dev == dev && w.kc == KC) wave = w.blocks;
+  if (wave < 0) {
+    int sms = 0, per_sm = 0;
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm, qmm_gemv<ROWS, 4>, NT, ROWS * KC);
+    if (err != cudaSuccess) return err;
+    wave = static_cast<long long>(per_sm) * sms;
+    seen[next] = Wave{dev, KC, wave};
+    next = (next + 1) % 4;
+  }
+#define REPRO_GEMV(U)                                                      \
+  qmm_gemv<ROWS, U><<<grid, NT, ROWS * KC, stream>>>(                      \
+      static_cast<const int8_t*>(xq), static_cast<const int8_t*>(wq),      \
+      static_cast<const float*>(x_scale),                                  \
+      static_cast<const float*>(w_scale), static_cast<float*>(out), M, N, \
+      K, ldw, KC)
+  if (static_cast<long long>(grid.x) * grid.y <= wave)
+    REPRO_GEMV(4);
+  else
+    REPRO_GEMV(2);
+#undef REPRO_GEMV
+  return cudaGetLastError();
+}
+
+int run(const void* xq, const void* wq, const void* x_scale,
+        const void* w_scale, void* out, int M, int N, int K, long long ldw,
+        cudaStream_t stream) {
+  // 16-byte vector loads of both operands
+  if (K % 16 != 0 || ldw % 16 != 0 || ldw < K ||
+      reinterpret_cast<uintptr_t>(xq) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(wq) % 16 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err;
+  if (M <= 1)
+    err = launch<1>(xq, wq, x_scale, w_scale, out, M, N, K, ldw, stream);
+  else if (M <= 2)
+    err = launch<2>(xq, wq, x_scale, w_scale, out, M, N, K, ldw, stream);
+  else if (M <= 4)
+    err = launch<4>(xq, wq, x_scale, w_scale, out, M, N, K, ldw, stream);
+  else if (M <= 8)
+    err = launch<8>(xq, wq, x_scale, w_scale, out, M, N, K, ldw, stream);
+  else
+    err = launch<MAX_ROWS>(xq, wq, x_scale, w_scale, out, M, N, K, ldw,
+                           stream);
+  return static_cast<int>(err);
+}
+
+}  // namespace gemv
+
+// xq (M, K) int8 row-major, x_scale (1,) f32, w_scale (N,) f32, out (M, N)
+// f32 row-major, all contiguous; wq (K, N) int8 K-major, strides (1, ldw).
+// variant 1 = sm90, 2 = gemv. Returns a cudaError_t, or tma::kError + the
+// CUresult of a failed tensor-map encoding.
 extern "C" int quant_matmul_launch(const void* xq, const void* wq,
                                    const void* x_scale, const void* w_scale,
                                    void* out, int M, int N, int K,
-                                   void* stream) {
-  if (M <= 0 || N <= 0 || K < 0 || (M + BM - 1) / BM > 65535)
+                                   long long ldw, int variant, void* stream) {
+  if (M <= 0 || N <= 0 || K < 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  const int vec_a = K % 4 == 0 && reinterpret_cast<uintptr_t>(xq) % 4 == 0;
-  const int vec_b = N % 4 == 0 && reinterpret_cast<uintptr_t>(wq) % 4 == 0;
-  const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
-  qmm_kernel<<<grid, NT, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int8_t*>(xq), static_cast<const int8_t*>(wq),
-      static_cast<const float*>(x_scale), static_cast<const float*>(w_scale),
-      static_cast<float*>(out), M, N, K, vec_a, vec_b);
-  return static_cast<int>(cudaGetLastError());
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (variant) {
+    case 1:
+      return sm90::run(xq, wq, x_scale, w_scale, out, M, N, K, ldw, st);
+    case 2:
+      return gemv::run(xq, wq, x_scale, w_scale, out, M, N, K, ldw, st);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

@@ -106,9 +106,18 @@ def load(name: str) -> ctypes.CDLL:
     return lib
 
 
+#: a C entry point returns this plus the CUresult of a failed
+#: ``cuTensorMapEncodeTiled`` (``csrc/tensor_map.cuh``'s ``tma::kError``)
+TMAP_ERROR = 100000
+
+
 def check(lib: ctypes.CDLL, err: int, what: str) -> None:
-    """Raise if a C entry point reported a CUDA error (its return value is
-    ``cudaGetLastError()`` right after the launch)."""
+    """Raise if a C entry point reported an error: its return value is
+    ``cudaGetLastError()`` right after the launch, or :data:`TMAP_ERROR`
+    plus the CUresult of a tensor map it could not encode."""
+    if err >= TMAP_ERROR:
+        raise RuntimeError(f"{what}: cuTensorMapEncodeTiled failed with "
+                           f"CUresult {err - TMAP_ERROR}")
     if err != 0:
         msg = lib.repro_cuda_error_string(err).decode()
         raise RuntimeError(f"{what}: CUDA error {err} ({msg})")

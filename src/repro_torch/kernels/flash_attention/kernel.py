@@ -15,9 +15,6 @@ DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 #: variant codes of the C entry point: "sm90" (wgmma + TMA, bf16, hd <= 128)
 #: and "simt" (CUDA cores, every dtype and hd <= 256)
 VARIANTS = {"simt": 0, "sm90": 1}
-#: the entry point returns this plus the CUresult of a failed
-#: ``cuTensorMapEncodeTiled`` (the sm90 variant's TMA descriptors)
-TMAP_ERROR = 100000
 
 
 @functools.lru_cache(maxsize=None)
@@ -44,8 +41,4 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, H, Sq,
         k.shape[1], hd, *strides, hd ** -0.5, int(causal), DTYPES[q.dtype],
         VARIANTS[variant], stream)
-    if err >= TMAP_ERROR:
-        raise RuntimeError(f"flash_attention {variant} launch: "
-                           "cuTensorMapEncodeTiled failed with CUresult "
-                           f"{err - TMAP_ERROR}")
     build.check(lib, err, f"flash_attention {variant} launch")

@@ -3,7 +3,10 @@
 Weights are quantized symmetric per output channel to int8 codes + f32
 scales; ``kernels/quant_matmul`` is the template that consumes this layout
 (int8 × int8 → int32 MAC, rescale on the way out) and
-:func:`int8_matmul_ref` is its oracle. Trees are nested dicts / lists /
+:func:`int8_matmul_ref` is its oracle. The codes keep the reference's
+logical shape (..., K, N) and are stored K-major (:func:`k_major`);
+:func:`dequantize_params` and :func:`int8_matmul_ref` read them by value
+and return row-major tensors, as from row-major codes. Trees are nested dicts / lists /
 tuples of tensors, walked in ``jax.tree.flatten``'s order (sorted dict
 keys) as :func:`repro_torch.model.layers.tree_map` does.
 """
@@ -25,12 +28,20 @@ class Int8Params:
     skipped: Any  # leaves kept in full precision (ndim < 2)
 
 
+def k_major(q: torch.Tensor) -> torch.Tensor:
+    """The same values with the last two dimensions stored K-major: a
+    (..., K, N) leaf gets strides (..., 1, K), each output channel's K
+    codes contiguous, which is what B4's tensor-core and decode kernels
+    read. A one-off copy at quantization."""
+    return q.transpose(-1, -2).contiguous().transpose(-1, -2)
+
+
 def _quant_leaf(w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     wf = w.float()
     amax = wf.abs().amax(dim=tuple(range(w.ndim - 1)), keepdim=True)
     scale = torch.clamp_min(amax, 1e-8) / 127.0
     q = torch.clamp(torch.round(wf / scale), -127, 127)
-    return q.to(torch.int8), scale.float()
+    return k_major(q.to(torch.int8)), scale.float()
 
 
 def quantize_params_int8(params) -> Int8Params:
@@ -54,10 +65,12 @@ def quantize_params_int8(params) -> Int8Params:
 
 
 def dequantize_params(ip: Int8Params, dtype: torch.dtype = torch.bfloat16):
+    """codes * scales in ``dtype``, each leaf row-major (contiguous) whatever
+    the layout of its codes."""
     def deq(q, s, skip):
         if q is None:
             return skip
-        return (q.float() * s).to(dtype)
+        return (q.float() * s).to(dtype).contiguous()
 
     return tree_map(deq, ip.q, ip.scale, ip.skipped,
                     is_leaf=lambda x: x is None)

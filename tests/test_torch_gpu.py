@@ -2,8 +2,9 @@
 kernel against its plain version (exact integer equality for B1/B2; B5
 within the reference's 2e-5 in f32 and 0.03 in bf16, bf16 also within
 ``BF16_REL_RMS_BAR`` of each 128-row block's rms, on the variant its
-routing names and on ``simt`` at every bf16 shape; B3 within 1e-5; B4 bit for bit; B6/B7 within 1e-4 on y and
-the final state), the emulator on CUDA against the golden sets and its own
+routing names and on ``simt`` at every bf16 shape; B3 within 1e-5; B4 bit
+for bit, each of its two variants launched directly and through the
+wrapper; B6/B7 within 1e-4 on y and the final state), the emulator on CUDA against the golden sets and its own
 plain path, and the LM server with B5 against its plain attention path.
 
 Imports nothing of JAX, so it also runs where JAX is not installed:
@@ -33,13 +34,15 @@ from repro_torch.kernels.mac_int import mac_int_op, mac_int_ref
 from repro_torch.kernels.mac_int import ops as mac_ops
 from repro_torch.kernels.mamba2 import ops as ssd_ops
 from repro_torch.kernels.mamba2 import ssd, ssd_reference
+from repro_torch.convert import to_torch
 from repro_torch.kernels.quant_matmul import ops as qmm_ops
-from repro_torch.kernels.quant_matmul import quant_matmul
+from repro_torch.kernels.quant_matmul import (quant_matmul, quant_matmul_cuda,
+                                              quant_matmul_ref, quantize_act)
 from repro_torch.kernels.rwkv6 import ops as wkv_ops
 from repro_torch.kernels.rwkv6 import wkv6, wkv6_reference
 from repro_torch.model.lm import Stepper
 from repro_torch.quant.fixedpoint import FxpFormat
-from repro_torch.quant.ptq import quantize_params_int8
+from repro_torch.quant.ptq import Int8Params, quantize_params_int8
 from repro_torch.rtl.emulator import RTLEmulator, assert_bit_exact
 from repro_torch.runtime.server import Server, ServerConfig
 from repro_torch.verify import vectors as tvec
@@ -306,7 +309,7 @@ def test_lstm_window_float_kernel_matches_plain(cuda, B, S, din, hid, bb):
 # the reference's B4 test shapes (M, K, N), then ragged M/K/N, a decode tick
 QMM_SHAPES = [(128, 128, 128), (64, 200, 96), (256, 512, 384), (32, 96, 640),
               (1, 7, 5), (130, 33, 257), (4, 4096, 128), (300, 1030, 131),
-              (70, 64, 30), (33, 30, 64)]   # word loads on one side only
+              (70, 64, 30), (33, 30, 64)]   # K % 16 != 0: padded copies
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -326,12 +329,18 @@ def test_quant_matmul_kernel_equals_plain(cuda, M, K, N, dtype):
     want = quant_matmul(x, ip.q["w"], ip.scale["w"], use_ref=True)
     assert qmm_ops.launches == before + 1
     assert torch.equal(got, want)
+    # row-major codes: the wrapper copies them K-major for the same variant
+    name = qmm_ops.variant(quantize_act(x)[0], ip.q["w"])
+    before = qmm_ops.launches_by_variant[name]
+    assert torch.equal(quant_matmul(x, ip.q["w"].contiguous(),
+                                    ip.scale["w"]), want)
+    assert qmm_ops.launches_by_variant[name] == before + 1
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_quant_matmul_kernel_reads_a_transposed_x(cuda, dtype):
     """A column-major x (a transposed tensor) gives column-major codes; the
-    kernel reads row-major ones, so the wrapper must hand it a copy."""
+    kernels read row-major ones, so the wrapper must hand them a copy."""
     rng = np.random.default_rng(7)
     xt = torch.as_tensor(rng.standard_normal((200, 65)), dtype=dtype,
                          device=cuda)
@@ -344,6 +353,102 @@ def test_quant_matmul_kernel_reads_a_transposed_x(cuda, dtype):
     want = quant_matmul(x.contiguous(), ip.q["w"], ip.scale["w"],
                         use_ref=True)
     assert torch.equal(got, want)
+    before = qmm_ops.launches_by_variant["sm90"]
+    assert torch.equal(quant_matmul(x, ip.q["w"].contiguous(),
+                                    ip.scale["w"]), want)
+    assert qmm_ops.launches_by_variant["sm90"] == before + 1
+
+
+# B4's two variants launched directly: M around the 16-row gemv
+# threshold and the 64/128-row wgmma tiles, N around the 256-channel
+# tile, K below, at and past the 4-stage ring of 128-code steps (4,112
+# ends on a ragged step of 16)
+QMM_VARIANT_M = (1, 4, 16, 17, 64, 65, 127, 128, 129, 300, 2048)
+QMM_VARIANT_N = (8, 130, 256, 257, 4096)
+QMM_VARIANT_K = (16, 144, 4096, 4112)
+
+
+def _qmm_codes(M, K, N, dtype, device, seed):
+    """Codes as the wrapper makes them: xq row-major from ``dtype``
+    activations, wq K-major from ``quantize_params_int8``."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    x = torch.randn(M, K, generator=gen, device=device).to(dtype)
+    ip = quantize_params_int8({"w": torch.randn(K, N, generator=gen,
+                                                device=device)})
+    xq, xs = quantize_act(x)
+    return xq, xs.reshape(1), ip.q["w"], ip.scale["w"].reshape(-1)
+
+
+def _qmm_variant_equals_plain(name, xq, xs, wq, ws):
+    out = torch.full((xq.shape[0], wq.shape[1]), float("nan"),
+                     device=xq.device)
+    quant_matmul_cuda(xq, wq, xs, ws, out, variant=name)
+    want = quant_matmul_ref(xq, wq, xs, ws)
+    assert torch.equal(out, want), (out - want).abs().max().item()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name", ["sm90", "gemv"])
+@pytest.mark.parametrize("K", QMM_VARIANT_K)
+@pytest.mark.parametrize("N", QMM_VARIANT_N)
+@pytest.mark.parametrize("M", QMM_VARIANT_M)
+def test_quant_matmul_variant_equals_plain(cuda, M, N, K, name, dtype):
+    """Bit for bit, each variant at every shape, whichever the wrapper
+    would route it to."""
+    _qmm_variant_equals_plain(name, *_qmm_codes(M, K, N, dtype, cuda,
+                                                M * 7 + N * 3 + K))
+
+
+@pytest.mark.parametrize("name", ["sm90", "gemv"])
+@pytest.mark.parametrize("M", [4, 2048])
+@pytest.mark.parametrize("proj", ["up", "down"])
+def test_quant_matmul_variant_equals_plain_at_yi9b(cuda, proj, M, name):
+    """Yi-9B's MLP (d_model 4096, d_ff 11008): a decode tick and a
+    prefill through each projection."""
+    K, N = (4096, 11008) if proj == "up" else (11008, 4096)
+    _qmm_variant_equals_plain(name, *_qmm_codes(M, K, N, torch.bfloat16,
+                                                cuda, M + K))
+
+
+@pytest.mark.parametrize("M,K,want", [(4, 4096, "gemv"), (16, 144, "gemv"),
+                                      (17, 144, "sm90"), (2048, 4096, "sm90"),
+                                      (300, 200, "sm90"), (4, 30, "gemv")])
+def test_quant_matmul_wrapper_launches_the_routed_variant(cuda, M, K, want):
+    gen = torch.Generator(device=cuda).manual_seed(M + K)
+    x = torch.randn(M, K, generator=gen, device=cuda, dtype=torch.bfloat16)
+    ip = quantize_params_int8({"w": torch.randn(K, 257, generator=gen,
+                                                device=cuda)})
+    assert qmm_ops.variant(quantize_act(x)[0], ip.q["w"]) == want
+    before = dict(qmm_ops.launches_by_variant)
+    got = quant_matmul(x, ip.q["w"], ip.scale["w"])
+    after = qmm_ops.launches_by_variant
+    assert {k: after[k] - before[k] for k in after} == {
+        k: int(k == want) for k in after}
+    assert torch.equal(got, quant_matmul(x, ip.q["w"], ip.scale["w"],
+                                         use_ref=True))
+
+
+def test_carried_int8_codes_stay_k_major_on_the_card(cuda):
+    """to_torch keeps the K-major strides of carried codes (stacked too),
+    so the carried weights reach sm90 and gemv without a copy."""
+    rng = np.random.default_rng(11)
+    codes = rng.integers(-127, 128, (3, 64, 48)).astype(np.int8)
+    k_major = np.ascontiguousarray(codes.swapaxes(-1, -2)).swapaxes(-1, -2)
+    ip = to_torch(Int8Params(
+        q={"w": k_major[0], "stack": k_major},
+        scale={"w": np.full((1, 48), 0.01, np.float32),
+               "stack": np.full((1, 1, 48), 0.02, np.float32)},
+        skipped={"w": None, "stack": None}), device=cuda)
+    assert ip.q["w"].is_cuda and ip.q["w"].stride() == (1, 64)
+    assert ip.q["stack"].stride() == (64 * 48, 1, 64)
+    assert torch.equal(ip.q["stack"].cpu(), torch.from_numpy(codes))
+    x = torch.as_tensor(rng.standard_normal((4, 64)), dtype=torch.float32,
+                        device=cuda)
+    for wq, ws in ((ip.q["w"], ip.scale["w"]),
+                   (ip.q["stack"][1], ip.scale["stack"][0])):
+        assert qmm_ops.variant(quantize_act(x)[0], wq) == "gemv"
+        assert torch.equal(quant_matmul(x, wq, ws),
+                           quant_matmul(x, wq, ws, use_ref=True))
 
 
 # (B, S, H, P, N, chunk): the reference's B6 test shapes, a ragged row block

@@ -142,3 +142,70 @@ def test_convert_refuses_a_malformed_int8_tree():
     with pytest.raises(ValueError, match="no dtype"):
         to_torch(int8_params_from_jax(jip), device="cpu",
                  dtype=torch.float32)
+
+
+# ---- K-major storage of the codes (B4's tensor-core and decode kernels) -----
+def _k_major_strides(t):
+    """The strides of a (..., K, N) leaf stored K-major, in elements."""
+    *lead, K, N = t.shape
+    outer = [int(np.prod(t.shape[i + 1:])) for i in range(len(lead))]
+    return tuple(outer) + (1, K)
+
+
+def _elem_strides(a):
+    return tuple(s // a.itemsize for s in a.strides)
+
+
+def test_quantized_codes_are_stored_k_major_with_the_reference_values():
+    tree = _tree(5)
+    ip = quantize_params_int8(_to(torch.from_numpy, tree))
+    jip = j_quantize_params_int8(_to(jnp.asarray, tree))
+    _same(ip.q, jip.q)                           # values: the reference's
+    for path, (K, N) in ((("mlp", 0, "w_up"), (64, 96)),
+                         (("mlp", 1, "w_down"), (96, 64))):
+        codes = ip.q[path[0]][path[1]][path[2]]
+        assert codes.shape == (K, N) and codes.stride() == (1, K)
+    # a stacked leaf: each (K, N) slice K-major, the slices one after another
+    assert ip.q["experts"].shape == (4, 16, 8)
+    assert ip.q["experts"].stride() == (128, 1, 16)
+    assert ip.q["experts"][2].stride() == (1, 16)
+
+
+def test_convert_stores_the_reference_codes_k_major():
+    tree = _tree(6)
+    jip = j_quantize_params_int8(_to(jnp.asarray, tree))
+    ip = int8_params_from_jax(jip)
+    _same(ip.q, jip.q)
+    for codes in tree_leaves(ip.q):
+        assert _elem_strides(codes) == _k_major_strides(codes)
+    # to_torch keeps the layout (``meta`` goes through the same copy to a
+    # device that CUDA does; the card test repeats it on the card)
+    for device in ("cpu", "meta"):
+        tip = to_torch(ip, device=device)
+        for codes in tree_leaves(tip.q):
+            assert codes.dtype == torch.int8
+            assert codes.stride() == _k_major_strides(codes)
+    tip = to_torch(ip, device="cpu")
+    _same(tip.q, jip.q)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_dequantize_and_the_oracle_read_the_codes_by_value(dtype):
+    """K-major and row-major copies of the same codes dequantize and
+    multiply to the same bits, and dequantize to row-major tensors."""
+    tree = _tree(7)
+    ip = quantize_params_int8(_to(torch.from_numpy, tree))
+    row_major = Int8Params(
+        q=_to(lambda t: t if t is None else t.contiguous(), ip.q),
+        scale=ip.scale, skipped=ip.skipped)
+    assert row_major.q["mlp"][0]["w_up"].stride() == (96, 1)
+    for g, w in zip(tree_leaves(dequantize_params(ip, dtype)),
+                    tree_leaves(dequantize_params(row_major, dtype))):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+        assert g.is_contiguous() and w.is_contiguous()
+    x = torch.from_numpy(np.random.default_rng(8).standard_normal(
+        (5, 64)).astype(np.float32))
+    got = int8_matmul_ref(x, ip.q["mlp"][0]["w_up"], ip.scale["mlp"][0]["w_up"])
+    want = int8_matmul_ref(x, row_major.q["mlp"][0]["w_up"],
+                           ip.scale["mlp"][0]["w_up"])
+    assert torch.equal(got, want)

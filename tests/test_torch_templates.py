@@ -32,6 +32,7 @@ from repro_torch.kernels.mamba2 import ssd
 from repro_torch.kernels.quant_matmul import ops as qmm_ops
 from repro_torch.kernels.quant_matmul import (quant_matmul, quant_matmul_ref,
                                               quantize_act)
+from repro_torch.kernels.quant_matmul.kernel import tma_readable
 from repro_torch.kernels.rwkv6 import ops as wkv_ops
 from repro_torch.kernels.rwkv6 import wkv6
 from repro_torch.model.lstm import lstm_cell_step
@@ -142,6 +143,23 @@ def test_quant_matmul_use_ref_and_plain_version_agree_exactly():
                                          block_m=8, block_n=16, block_k=32))
 
 
+@pytest.mark.parametrize("mkn", [(4, 64, 48), (20, 144, 264), (3, 200, 96),
+                                 (70, 30, 64)])
+def test_quant_matmul_on_k_major_codes_matches_reference_wrapper(mkn):
+    """The codes as ``quant/ptq.py`` stores them (K-major), at K % 16 == 0
+    (what sm90 and gemv read) and not (what the wrapper pads first): the
+    JAX wrapper's result within its bar, and the row-major copy's bit for
+    bit."""
+    tx, jx, w = _qmm_case(mkn, torch.float32)
+    ip = quantize_params_int8({"w": torch.from_numpy(w)})
+    wq = ip.q["w"]
+    assert wq.stride() == (1, mkn[1])
+    got = quant_matmul(tx, wq, ip.scale["w"])
+    jip = j_quantize_params_int8({"w": jnp.asarray(w)})
+    assert _err(got, j_quant_matmul(jx, jip.q["w"], jip.scale["w"])) < QMM_TOL
+    assert torch.equal(got, quant_matmul(tx, wq.contiguous(), ip.scale["w"]))
+
+
 def test_quantize_act_rounds_half_to_even_like_the_reference():
     # amax 127 -> scale exactly 1.0, so x / scale keeps the .5 ties
     x = np.array([[127.0, 0.5, 1.5, 2.5, -0.5, -1.5, -2.5, 126.5]],
@@ -151,6 +169,159 @@ def test_quantize_act_rounds_half_to_even_like_the_reference():
     assert s.item() == float(js) == 1.0
     np.testing.assert_array_equal(q.numpy(), np.asarray(jq))
     assert q.tolist() == [[127, 0, 2, 2, 0, -2, -2, 126]]
+
+
+# ---- B4's routing between its two kernels, and the copy both read -------
+def _codes(M, K, N, *, k_major=True):
+    """xq (M, K) row-major and wq (K, N) int8 codes, K-major or row-major."""
+    xq = torch.ones(M, K, dtype=torch.int8)
+    wq = torch.ones(N, K, dtype=torch.int8).T if k_major else \
+        torch.ones(K, N, dtype=torch.int8)
+    return xq, wq
+
+
+def _shifted(t, offset):
+    """A copy of ``t`` whose storage starts ``offset`` bytes past a 16-byte
+    boundary, with the same strides."""
+    buf = torch.zeros(t.untyped_storage().nbytes() + 32, dtype=torch.int8)
+    start = (-buf.data_ptr()) % 16 + offset
+    out = buf[start:start + t.untyped_storage().nbytes()].as_strided(
+        t.shape, t.stride())
+    out.copy_(t)
+    return out
+
+
+def _random_codes(xq, wq, seed):
+    """The same layouts as ``xq`` and ``wq``, filled with random codes."""
+    gen = torch.Generator().manual_seed(seed)
+    for t in (xq, wq):
+        t.copy_(torch.randint(-127, 128, t.shape, generator=gen,
+                              dtype=torch.int8))
+    return xq, wq
+
+
+def _copies_exactly(xq, wq):
+    """``ops.tma_codes`` hands the kernels codes they can read, whose
+    product is bit for bit that of ``xq`` and ``wq``."""
+    xs, ws = torch.tensor([0.0123]), torch.linspace(0.5, 2.0, wq.shape[1])
+    cx, cw = qmm_ops.tma_codes(xq, wq)
+    assert tma_readable(cx, cw)
+    assert cx.shape[0] == xq.shape[0] and cw.shape[1] == wq.shape[1]
+    assert cx.shape[1] == cw.shape[0] and cx.shape[1] % 16 == 0
+    assert torch.equal(quant_matmul_ref(cx, cw, xs, ws),
+                       quant_matmul_ref(xq, wq, xs, ws))
+    return cx, cw
+
+
+@pytest.mark.parametrize("M,want", [(1, "gemv"), (4, "gemv"), (16, "gemv"),
+                                    (17, "sm90"), (64, "sm90"),
+                                    (2048, "sm90")])
+def test_variant_by_rows_on_k_major_codes(M, want):
+    xq, wq = _codes(M, 4096, 128)
+    assert wq.stride() == (1, 4096)
+    assert qmm_ops.variant(xq, wq) == want
+    assert M <= qmm_ops.GEMV_MAX_ROWS or want == "sm90"
+    assert qmm_ops.tma_codes(xq, wq) == (xq, wq)      # no copy
+
+
+@pytest.mark.parametrize("M", [4, 2048])
+def test_variant_needs_k_major_codes(M):
+    """Row-major codes get a one-off K-major copy of the weights; the
+    activations, which the kernels can read, are not copied."""
+    xq, wq = _random_codes(*_codes(M, 4096, 128, k_major=False), M)
+    assert wq.stride() == (128, 1) and not tma_readable(xq, wq)
+    cx, cw = _copies_exactly(xq, wq)
+    assert cx is xq and cw.stride() == (1, 4096)
+    # a column-major copy of row-major codes is K-major
+    assert tma_readable(xq, wq.T.contiguous().T)
+    assert qmm_ops.variant(cx, cw) == qmm_ops.variant(xq, wq)
+
+
+@pytest.mark.parametrize("K", [7, 30, 33, 200, 1030, 4104])
+def test_variant_needs_k_a_multiple_of_16(K):
+    """The reference test shapes' K: TMA rows must be 16-byte multiples,
+    so both sides are zero-padded to the next one."""
+    for M in (4, 300):
+        xq, wq = _random_codes(*_codes(M, K, 96), K + M)
+        assert not tma_readable(xq, wq)
+        cx, cw = _copies_exactly(xq, wq)
+        assert cx.shape[1] == K - K % 16 + 16
+        assert not cx[:, K:].any() and not cw[K:].any()
+    xq, wq = _codes(300, K - K % 16 + 16, 96)
+    assert tma_readable(xq, wq)
+
+
+def test_variant_needs_16_byte_bases_and_pitches():
+    xq, wq = _random_codes(*_codes(300, 256, 96), 3)
+    assert tma_readable(xq, wq)
+    assert tma_readable(_shifted(xq, 0), _shifted(wq, 0))
+    for off in (1, 4, 8):
+        assert not tma_readable(_shifted(xq, off), wq)
+        assert not tma_readable(xq, _shifted(wq, off))
+        cx, cw = _copies_exactly(_shifted(xq, off), wq)
+        assert cw is wq                  # only the unaligned side is copied
+        cx, cw = _copies_exactly(xq, _shifted(wq, off))
+        assert cx is xq
+    # a K slice of wider K-major codes keeps its pitch: TMA reads it where
+    # the pitch and the slice's start are 16-byte multiples
+    wide = torch.ones(96, 512, dtype=torch.int8).T           # (512, 96)
+    assert tma_readable(xq, wide[:256])
+    assert tma_readable(xq, wide[16:272])
+    assert not tma_readable(xq, wide[8:264])                 # base + 8
+    odd = torch.ones(96, 520, dtype=torch.int8).T[:256]      # pitch 520
+    assert odd.stride() == (1, 520)
+    assert not tma_readable(xq, odd)
+    assert qmm_ops.tma_codes(xq, odd)[1].stride() == (1, 256)
+    # activation codes that are not row-major
+    assert not tma_readable(xq.T.contiguous().T, wq)
+    assert _copies_exactly(xq.T.contiguous().T, wq)[0].is_contiguous()
+
+
+def test_variant_takes_one_output_channel():
+    xq, wq = _codes(4, 64, 1)
+    assert qmm_ops.variant(xq, wq) == "gemv"
+    assert tma_readable(xq, wq)
+    # (K, 1) row-major is K-major too
+    assert tma_readable(xq, torch.ones(64, 1, dtype=torch.int8))
+
+
+@pytest.mark.parametrize("M,K,N", [(1, 7, 5), (33, 30, 64), (130, 33, 257),
+                                   (4, 4096, 128), (300, 1030, 131)])
+@pytest.mark.parametrize("layout", ["k_major", "row_major"])
+def test_tma_codes_keep_the_product_bit_for_bit(M, K, N, layout):
+    """The copy the wrapper makes for codes the kernels cannot read (the
+    card tests' B4 shapes, ragged K among them) changes no bit of the
+    result; readable codes are handed on as they are."""
+    xq, wq = _random_codes(*_codes(M, K, N, k_major=layout == "k_major"),
+                           M * K + N)
+    cx, cw = _copies_exactly(xq, wq)
+    if tma_readable(xq, wq):
+        assert cx is xq and cw is wq
+
+
+def test_quant_matmul_cuda_refuses_a_layout_its_variant_cannot_read():
+    """Raised before any library is loaded, so it runs here."""
+    x_scale, w_scale = torch.ones(1), torch.ones(96)
+    out = torch.empty(300, 96)
+    xq, wq = _codes(300, 256, 96, k_major=False)
+    for name in ("sm90", "gemv"):
+        with pytest.raises(ValueError, match=f"quant_matmul {name}"):
+            qmm_ops.quant_matmul_cuda(xq, wq, x_scale, w_scale, out,
+                                      variant=name)
+    xq, wq = _codes(300, 256, 96)
+    with pytest.raises(ValueError, match="no variant 'mma'"):
+        qmm_ops.quant_matmul_cuda(xq, wq, x_scale, w_scale, out,
+                                  variant="mma")
+
+
+def test_quant_matmul_counts_no_variant_on_the_cpu():
+    tx, _, w = _qmm_case((20, 64, 32), torch.float32)
+    ip = quantize_params_int8({"w": torch.from_numpy(w)})
+    xq, _ = quantize_act(tx)
+    assert qmm_ops.variant(xq, ip.q["w"]) == "sm90"
+    before = (qmm_ops.launches, dict(qmm_ops.launches_by_variant))
+    quant_matmul(tx, ip.q["w"], ip.scale["w"])
+    assert (qmm_ops.launches, qmm_ops.launches_by_variant) == before
 
 
 # ---- B6 ---------------------------------------------------------------------
