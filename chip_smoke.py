@@ -9,7 +9,10 @@ kernels B1 and B2:
 1. build every kernel from ``src/repro_torch/csrc/`` (``nvcc``, sm_90a, one
    process per source, all at once);
 2. hold B1 and B2 against their plain PyTorch versions on the card, exact
-   integer equality, at the test shapes and at the serving shapes; hold B5
+   integer equality, at the test shapes and at the serving shapes (B1
+   through its wrapper and with each of its ``mma`` and ``simt`` variants
+   launched directly, in Table I's formats, in 12-bit activations, which
+   route to ``simt``, and with every code at the end of its format); hold B5
    against its plain version at the reference's test shapes and at every
    Yi-9B prefill shape (2e-5 in f32, 0.03 for bf16 against f32, and bf16
    also within ``BF16_REL_RMS_BAR`` of each 128-row block's rms), its
@@ -21,11 +24,15 @@ kernels B1 and B2:
 4. serve ragged requests through ``RTLEmulator.run_many`` in ``fused`` mode,
    one design at a time (kernel launch counts are set to 0 just before each
    design's ``run_many`` and read just after it, and must equal one launch
-   per node the kernel serves), each answer held against its solo run, the
-   plain path and the float oracle;
-5. time B1 and B2 and their plain versions at the serving shape (CUDA
-   events around CUDA-graph replays), the emulator's windows/s, and the
-   device busy share of one emulator run (``torch.profiler``).
+   per node the kernel serves; B1's must all be ``mma`` for
+   ``elastic-lstm`` and all ``simt`` for its 12-bit twin), each answer held
+   against its solo run, the plain path and the float oracle;
+5. time B1 (both variants, and ``mma`` again with zero weights, where no
+   ROM gather can conflict on a bank) and B2 and their plain versions at
+   the serving shape (CUDA events around CUDA-graph replays) beside B1's
+   three bounds (bytes, int32 multiply-adds, elementwise work), the
+   emulator's windows/s, and the device busy share of one emulator run
+   and B1's part of it (``torch.profiler``).
 
 The dense-LM server on full-width ``yi-9b`` (all 48 layers, seeded random
 bf16 weights drawn on the card), with kernel B5 (flash attention) for
@@ -82,10 +89,12 @@ last line of output is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import collections
 import functools
 import itertools
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -102,6 +111,20 @@ CONV_REQUESTS = (1, 5, 33, 1000, 8192)
 # 2 flops x 1.98 GHz), i.e. 132 x 64 x 1.98e9 IMAD/s.
 HBM_BYTES_PER_S = 3.35e12
 INT32_MAC_PER_S = 132 * 64 * 1.98e9
+# Any mix of int32 instructions: an SM issues at most 4 warp-instructions a
+# clock (one per scheduler), 128 lanes, whichever pipes they go to (the
+# integer ALU pipe takes 64 lanes a clock, IMAD on the FMA pipe 64 more),
+# so no mix of int32 ops runs faster than 132 x 128 x 1.98e9 a second.
+INT32_ISSUE_PER_S = 132 * 128 * 1.98e9
+# B1's elementwise work per (window, step, unit): the int32 operations the
+# cell's function needs (csrc/lstm_cell_int.cu's unit_update and gate
+# requants), none of a kernel's own data movement: four gate
+# pre-activations, each a bias add and a requant (shift, mask, parity, add,
+# compare, add, min, max: 8), 36; five ROM addresses, 5; c = requant(sf*c
+# + (si*tg) << align), 12; requant(c) to A, 8; h = requant(so * tanh(.)),
+# 9: 70. Over INT32_ISSUE_PER_S that is a floor where each of them takes an
+# instruction; a fused form (IADD3, LEA) could merge two.
+B1_EW_OPS = 70
 BF16_FLOP_PER_S = 989e12              # dense tensor-core peak
 F32_FLOP_PER_S = 67e12                # f32 FMA on the CUDA cores, 2 flops
 INT8_OP_PER_S = 1979e12               # dense int8 tensor-core peak
@@ -232,6 +255,31 @@ def drive(ops_by_name: dict, name: str, fn):
                                 if key != name):
         raise AssertionError(f"{name}: launches {counts}")
     return out, counts[name]
+
+
+def sass_iteration(lib_path, function_key: str, anchor: str = "IMMA"):
+    """Opcode counts of one unrolled loop iteration of a compiled kernel:
+    the instructions from one ``anchor`` to the next in the function whose
+    mangled name holds ``function_key`` (``cuobjdump -sass``, beside
+    ``nvcc``); None where the tool or the function is missing."""
+    from repro_torch.kernels import build
+
+    tool = os.path.join(os.path.dirname(build.nvcc_path()), "cuobjdump")
+    try:
+        sass = subprocess.run([tool, "-sass", str(lib_path)],
+                              capture_output=True, text=True, check=True,
+                              timeout=120).stdout
+    except (OSError, subprocess.SubprocessError):
+        return None
+    for func in sass.split("Function : ")[1:]:
+        if function_key not in func.splitlines()[0]:
+            continue
+        ops = re.findall(
+            r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)", func)
+        marks = [i for i, op in enumerate(ops) if op == anchor]
+        if len(marks) >= 2:
+            return collections.Counter(ops[marks[0]:marks[1]])
+    return None
 
 
 def profile_ms(fn):
@@ -665,7 +713,8 @@ def main() -> int:
                                                          rel_rms_by_block)
     from repro_torch.kernels.lstm_cell_int import (CellSpec, lstm_window_int,
                                                    lstm_window_int_cuda,
-                                                   lstm_window_int_ref)
+                                                   lstm_window_int_ref,
+                                                   mma_takes)
     from repro_torch.kernels.lstm_cell_int import ops as lstm_ops
     from repro_torch.kernels.mac_int import (mac_int_cuda, mac_int_op,
                                              mac_int_ref)
@@ -687,6 +736,8 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     rng = np.random.default_rng(SEED)
     A, W, C = FxpFormat(8, 4), FxpFormat(8, 6), FxpFormat(16, 8)
+    # B1's simt variant takes what mma cannot: 12-bit activation codes
+    B1_WIDE_ACT, B1_WIDE_STATE = FxpFormat(12, 6), FxpFormat(12, 8)
 
     # ---- 1. build ----------------------------------------------------------
     t0 = time.perf_counter()
@@ -707,18 +758,53 @@ def main() -> int:
 
     # ---- 2. kernels against their plain versions ---------------------------
     errs = {"lstm_cell_int": 0, "mac_int": 0}
-    for B, S, din, hid in ((1, 6, 1, 20), (7, 6, 3, 16), (64, 4, 2, 8),
-                           (200, 6, 1, 20)):
-        spec = CellSpec(seq_len=S, d_in=din, hidden=hid, act_fmt=A,
-                        state_fmt=C, w_fmt=W, sig_lo=A.lo, tanh_lo=A.lo)
-        args = (rand_codes(rng, A, (B, S, din)),
-                rand_codes(rng, W, (din + hid, 4 * hid)),
-                rand_codes(rng, FxpFormat(11, 0), (4 * hid,)),
-                rand_codes(rng, A, (2 ** A.total_bits,)),
-                rand_codes(rng, A, (2 ** A.total_bits,)))
+    lstm_ops.launches_by_variant = dict.fromkeys(
+        lstm_ops.launches_by_variant, 0)
+
+    def b1_variants_equal_plain(args, spec):
+        """B1 through its wrapper (the routed variant) and each variant
+        launched directly, all against the plain version."""
+        want = lstm_window_int_ref(*args, spec=spec)
         errs["lstm_cell_int"] = max(errs["lstm_cell_int"], max_abs_err(
-            lstm_window_int(*args, spec=spec),
-            lstm_window_int_ref(*args, spec=spec)))
+            lstm_window_int(*args, spec=spec), want))
+        for name in ("mma", "simt"):
+            if name == "mma" and not mma_takes(spec):
+                continue
+            got = torch.full_like(want, -7)
+            lstm_window_int_cuda(*args, got, spec=spec, variant=name)
+            errs["lstm_cell_int"] = max(errs["lstm_cell_int"],
+                                        max_abs_err(got, want))
+        return want
+
+    # the test shapes and hidden widths that are not multiples of 4 (mma's
+    # int32 store path, padded units in its last n8 tile), in Table I's
+    # formats and in 12-bit activations (routed to simt)
+    for act in (A, B1_WIDE_ACT):
+        for B, S, din, hid in ((1, 6, 1, 20), (7, 6, 3, 16), (64, 4, 2, 8),
+                               (200, 6, 1, 20), (33, 6, 2, 5), (17, 6, 1, 13),
+                               (65, 5, 3, 30)):
+            spec = CellSpec(seq_len=S, d_in=din, hidden=hid, act_fmt=act,
+                            state_fmt=C, w_fmt=W, sig_lo=act.lo,
+                            tanh_lo=act.lo)
+            b1_variants_equal_plain(
+                (rand_codes(rng, act, (B, S, din)),
+                 rand_codes(rng, W, (din + hid, 4 * hid)),
+                 rand_codes(rng, FxpFormat(11, 0), (4 * hid,)),
+                 rand_codes(rng, act, (2 ** act.total_bits,)),
+                 rand_codes(rng, act, (2 ** act.total_bits,))), spec)
+    # codes at the ends of their formats, biases at int32's: at K = 128 the
+    # sums reach 2^21, the top of the mma kernel's exactness envelope
+    for (din, hid), x_end, w_end, rom_end in itertools.product(
+            ((1, 20), (64, 64)), (A.lo, A.hi), (W.lo, W.hi), (A.lo, A.hi)):
+        spec = CellSpec(seq_len=6, d_in=din, hidden=hid, act_fmt=A,
+                        state_fmt=C, w_fmt=W, sig_lo=A.lo, tanh_lo=A.lo)
+        full = functools.partial(torch.full, dtype=torch.int32,
+                                 device="cuda")
+        bias = torch.where(torch.arange(4 * hid, device="cuda") % 2 == 0,
+                           full((), 2 ** 31 - 1), full((), -2 ** 31))
+        b1_variants_equal_plain(
+            (full((33, 6, din), x_end), full((din + hid, 4 * hid), w_end),
+             bias, full((256,), rom_end), full((256,), rom_end)), spec)
     for shift in (-2, 0, 2, 6):
         for rows, K, N in ((7, 20, 1), (49, 9, 3), (21, 9, 3), (7, 9, 1),
                            (7, 21, 80), (300, 33, 17)):
@@ -728,7 +814,10 @@ def main() -> int:
             errs["mac_int"] = max(errs["mac_int"], max_abs_err(
                 mac_int_op(*args, shift=shift, lo=out.lo, hi=out.hi),
                 mac_int_ref(*args, shift=shift, lo=out.lo, hi=out.hi)))
-    log("phase 2a kernels = plain versions at the test shapes (exact)")
+    log(f"phase 2a kernels = plain versions at the test shapes (exact); B1 "
+        f"in {A} and {B1_WIDE_ACT} activations and at extreme codes, each "
+        f"variant also launched directly; B1 routed "
+        f"{json.dumps(lstm_ops.launches_by_variant)}")
 
     lstm_g, _, _ = canonical_graph("elastic-lstm")
     conv_g, _, _ = canonical_graph("elastic-conv1d")
@@ -740,9 +829,7 @@ def main() -> int:
                  p_cell["w"], p_cell["b"],
                  lstm_em.prepared(cell.sigmoid_lut)["table"],
                  lstm_em.prepared(cell.tanh_lut)["table"])
-    seq = lstm_window_int(*cell_args, spec=p_cell["spec"])
-    errs["lstm_cell_int"] = max(errs["lstm_cell_int"], max_abs_err(
-        seq, lstm_window_int_ref(*cell_args, spec=p_cell["spec"])))
+    seq = b1_variants_equal_plain(cell_args, p_cell["spec"])
     # every MAC call shape of the main path at the serving batch
     p_head = lstm_em.prepared(head.name)
     mac_cases = {
@@ -771,7 +858,8 @@ def main() -> int:
             mac_int_op(*args, shift=shift, lo=fmt.lo, hi=fmt.hi),
             mac_int_ref(*args, shift=shift, lo=fmt.lo, hi=fmt.hi)))
     log(f"phase 2b kernels = plain versions at the serving shapes, "
-        f"B={B_SERVE} windows (exact): {sorted(mac_cases)}")
+        f"B={B_SERVE} windows (exact): B1 mma and simt at elastic-lstm's "
+        f"cell; mac_int {sorted(mac_cases)}")
 
     yi = get_config("yi-9b")
     b5_cases = ([(s, c) for s in ((2, 256, 4, 64), (1, 512, 2, 128),
@@ -877,28 +965,48 @@ def main() -> int:
                               (s, *graph.edges["x"].shape)) / fmt.scale)
                 .astype(np.float32) for s in sizes]
 
+    # elastic-lstm in 12-bit activations: its cells route to B1's simt
+    wide_g, _, _ = canonical_graph("elastic-lstm", act_fmt=B1_WIDE_ACT,
+                                   state_fmt=B1_WIDE_STATE)
     served = {"elastic-lstm": (lstm_g, lstm_em, requests(lstm_g,
                                                          LSTM_REQUESTS)),
               "elastic-conv1d": (conv_g, conv_em, requests(conv_g,
-                                                           CONV_REQUESTS))}
+                                                           CONV_REQUESTS)),
+              "elastic-lstm-q12": (wide_g, RTLEmulator(wide_g, mode="fused"),
+                                   requests(wide_g, LSTM_REQUESTS[:6]))}
+    b1_route = {"elastic-lstm": "mma", "elastic-conv1d": None,
+                "elastic-lstm-q12": "simt"}
     path_launches = {}
     for arch, (graph, em, reqs) in served.items():
         # one dispatch: B1 once per lstm_cell, B2 once per linear/conv1d
-        expected = {"lstm_cell_int": sum(n.op == "lstm_cell"
-                                         for n in graph.nodes),
+        cells = [n for n in graph.nodes if n.op == "lstm_cell"]
+        expected = {"lstm_cell_int": len(cells),
                     "mac_int": sum(n.op in ("linear", "conv1d")
                                    for n in graph.nodes)}
+        routes = [lstm_ops.variant(em.prepared(n.name)["spec"])
+                  for n in cells]
+        if any(r != b1_route[arch] for r in routes):
+            raise AssertionError(f"{arch}: B1 routes {routes}")
+        want_routes = dict.fromkeys(lstm_ops.launches_by_variant, 0)
+        if cells:
+            want_routes[b1_route[arch]] = len(cells)
         lstm_ops.launches = 0
+        lstm_ops.launches_by_variant = dict.fromkeys(
+            lstm_ops.launches_by_variant, 0)
         mac_ops.launches = 0
         answers = em.run_many(reqs)
         torch.cuda.synchronize()
         launches = {"lstm_cell_int": lstm_ops.launches,
                     "mac_int": mac_ops.launches}
-        if launches != expected:
-            raise AssertionError(f"{arch}: kernel launches {launches}, "
-                                 f"expected {expected}")
+        if launches != expected or \
+                lstm_ops.launches_by_variant != want_routes:
+            raise AssertionError(
+                f"{arch}: kernel launches {launches}, B1 by variant "
+                f"{lstm_ops.launches_by_variant}, expected {expected}, "
+                f"{want_routes}")
         path_launches[arch] = launches
-        log(f"phase 4 {arch} launches: {json.dumps(launches)}")
+        log(f"phase 4 {arch} launches: {json.dumps(launches)}; B1 by "
+            f"variant {json.dumps(lstm_ops.launches_by_variant)}")
         plain = RTLEmulator(graph, mode="jnp").run_many(reqs)
         out_shape = graph.edges[graph.outputs[0]].shape
         for req, ans, ref in zip(reqs, answers, plain):
@@ -927,21 +1035,62 @@ def main() -> int:
     kernel_rows = []
     B, S, din, H = B_SERVE, spec.seq_len, spec.d_in, spec.hidden
     depth = cell_args[3].numel() + cell_args[4].numel()
-    ms = time_ms(functools.partial(lstm_window_int_cuda, *cell_args, out,
-                                   spec=spec))
+    b1_ms = {name: time_ms(functools.partial(
+        lstm_window_int_cuda, *cell_args, out, spec=spec, variant=name))
+        for name in ("mma", "simt")}
+    # the same mma launches with zero weights and biases: every gate code,
+    # and so every ROM address, is then one value across a warp, so the
+    # gathers cannot conflict on a bank; the difference is what conflicts
+    # cost at the real weights
+    zero_args = (cell_args[0], torch.zeros_like(cell_args[1]),
+                 torch.zeros_like(cell_args[2]), *cell_args[3:])
+    mma_zero = time_ms(functools.partial(
+        lstm_window_int_cuda, *zero_args, out, spec=spec, variant="mma"))
     plain = time_ms(functools.partial(lstm_window_int_ref, *cell_args,
                                       spec=spec), reps=3)
-    bnd, by = bound_ms(4 * (B * S * din + (din + H) * 4 * H + 4 * H + depth
-                            + B * S * H), B * S * (din + H) * 4 * H)
+    # three bounds: the bytes (each input read once, the sequence written
+    # once), the gate product as int32 multiply-adds (what simt issues; mma
+    # puts it on the tensor cores), and the elementwise work both do
+    io_bytes = 4 * (B * S * din + (din + H) * 4 * H + 4 * H + depth
+                    + B * S * H)
+    bnd_bytes = bound_ms(io_bytes, 0)[0]
+    bnd_imad = bound_ms(0, B * S * (din + H) * 4 * H)[0]
+    bnd_ew = bound_ms(0, B * S * H * B1_EW_OPS, INT32_ISSUE_PER_S)[0]
+    routed = lstm_ops.variant(spec)
+    applicable = {"mma": (bnd_bytes, bnd_ew),
+                  "simt": (bnd_bytes, bnd_imad, bnd_ew)}[routed]
+    bnd = max(applicable)
     kernel_rows.append({
         "name": "lstm_cell_int", "route": "cuda",
         "source": "src/repro_torch/csrc/lstm_cell_int.cu",
         "replaces": "src/repro/kernels/lstm_cell_int/kernel.py:52",
         "launches": launches["lstm_cell_int"],
-        "max_abs_err": errs["lstm_cell_int"], "ms": ms, "plain_ms": plain,
-        "bound_ms": bnd, "bound_by": by, "library_ms": None})
-    log(f"phase 5 lstm_cell_int B={B} S={S} d_in={din} H={H}: kernel "
-        f"{ms:.4f} ms, plain {plain:.4f} ms, bound {bnd:.4f} ms ({by})")
+        "max_abs_err": errs["lstm_cell_int"], "ms": b1_ms[routed],
+        "plain_ms": plain, "bound_ms": bnd,
+        "bound_by": "bytes" if bnd == bnd_bytes else "operations",
+        "library_ms": None})
+    log(f"phase 5 lstm_cell_int B={B} S={S} d_in={din} H={H}: kernel mma "
+        f"{b1_ms['mma']:.4f} ms (zero weights, no bank conflicts: "
+        f"{mma_zero:.4f} ms), simt {b1_ms['simt']:.4f} ms, plain "
+        f"{plain:.4f} ms; bounds: bytes {bnd_bytes:.4f} ms ({io_bytes} B), "
+        f"IMAD {bnd_imad:.4f} ms, elementwise {bnd_ew:.4f} ms "
+        f"({B1_EW_OPS} int32 ops per window, step and unit at 128 a clock "
+        f"an SM); routed "
+        f"{routed}, bound {bnd:.4f} ms")
+    # what the compiler made of one (window, step, unit) of Table I's mma
+    # instance: its unrolled n8-tile loop holds one IMMA an iteration, and
+    # an iteration is one lane's (window, unit) of a step
+    ops = sass_iteration(build.library_path("lstm_cell_int"),
+                         "lstm_mma_kernelILi10ELi1E")
+    if ops is None:
+        log("phase 5 lstm_cell_int mma SASS: not measured (no cuobjdump)")
+    else:
+        n_instr = sum(ops.values())
+        log(f"phase 5 lstm_cell_int mma<10, 1> SASS: {n_instr} "
+            "instructions a lane per (window, step, unit), "
+            f"{bound_ms(0, B * S * H * n_instr, INT32_ISSUE_PER_S)[0]:.4f} "
+            "ms to issue at 128 a clock an SM: " + ", ".join(
+                f"{op} {n}" for op, n in ops.most_common()))
     mac_rows = {}
     for name, (args, shift, fmt) in mac_cases.items():
         xh, w, b = args
@@ -992,9 +1141,11 @@ def main() -> int:
                 "(the profiler saw no GPU activity)")
             continue
         top = sorted(device.items(), key=lambda kv: -kv[1])[:6]
+        b1_dev = sum(t for name, t in device.items() if "lstm_" in name)
         log(f"phase 5 profile {arch} fused, one {B_SERVE}-window run: "
             f"device busy {busy:.4f} ms = {100 * busy / run_ms['fused']:.1f}% "
             f"of the unprofiled run ({wall:.3f} ms with the profiler on); "
+            f"B1 {b1_dev:.4f} ms = {100 * b1_dev / busy:.1f}% of busy; "
             + "; ".join(f"{name[:60]} {ms:.4f} ms" for name, ms in top))
 
     # ---- 6. serve Yi-9B (the LM main path) ---------------------------------

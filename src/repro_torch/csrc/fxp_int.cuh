@@ -36,23 +36,46 @@ __device__ __forceinline__ int32_t shift_left(int32_t v, int s) {
   return static_cast<int32_t>(static_cast<uint32_t>(v) << s);
 }
 
-// fxp_requant_int (quant/fixedpoint.py) with the shift already formed:
-// shift > 0 is a round-half-even arithmetic right shift, shift < 0 an exact
-// left shift, then a saturate to [lo, hi]. |shift| < 32 (the wrappers
-// check it).
+__device__ __forceinline__ int32_t saturate(int32_t q, int32_t lo,
+                                            int32_t hi) {
+  return q < lo ? lo : (q > hi ? hi : q);
+}
+
+// The round-half-even arithmetic right shift by s in [0, 32), its
+// constants formed once (make_rshift). With q0 = v >> s and rem the low s
+// bits of v, round half even adds one iff rem > half, or rem == half and q0
+// is odd, i.e. iff rem + (q0 & 1) > half; rem + 1 <= 2^s cannot wrap in
+// uint32_t. For s = 0 the threshold 1 is never passed (rem = 0). B1 forms
+// its shifts once a thread and passes them in: with the shift as an int,
+// nvcc kept a branch and the mask per call in B1's unrolled loop (203
+// instructions a (window, step, unit) against 123, 18% slower on an H100).
+struct RShift {
+  int s;
+  uint32_t mask, thresh;
+};
+
+__host__ __device__ inline RShift make_rshift(int s) {
+  return {s, (1u << s) - 1u, s > 0 ? 1u << (s - 1) : 1u};
+}
+
+// fxp_requant_int (quant/fixedpoint.py) for a right shift: round half
+// even, then saturate to [lo, hi]. The one rounding rule of the port.
+__device__ __forceinline__ int32_t requant(int32_t v, RShift sh, int32_t lo,
+                                           int32_t hi) {
+  const int32_t q0 = v >> sh.s;
+  const uint32_t rem = static_cast<uint32_t>(v) & sh.mask;
+  return saturate(
+      q0 + ((rem + (static_cast<uint32_t>(q0) & 1u)) > sh.thresh ? 1 : 0), lo,
+      hi);
+}
+
+// fxp_requant_int with the shift already formed: shift >= 0 as above,
+// shift < 0 an exact left shift, then the saturate. |shift| < 32 (the
+// wrappers check it).
 __device__ __forceinline__ int32_t requant(int32_t v, int shift, int32_t lo,
                                            int32_t hi) {
-  int32_t q = v;
-  if (shift > 0) {
-    const int32_t q0 = v >> shift;
-    const int32_t rem = wrap_sub(v, shift_left(q0, shift));
-    const int32_t half = static_cast<int32_t>(1u << (shift - 1));
-    const bool inc = rem > half || (rem == half && (q0 & 1));
-    q = wrap_add(q0, inc ? 1 : 0);
-  } else if (shift < 0) {
-    q = shift_left(v, -shift);
-  }
-  return q < lo ? lo : (q > hi ? hi : q);
+  if (shift >= 0) return requant(v, make_rshift(shift), lo, hi);
+  return saturate(shift_left(v, -shift), lo, hi);
 }
 
 }  // namespace repro

@@ -4,11 +4,24 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels.lstm_cell_int.kernel import (CellSpec,
-                                                      lstm_window_int_cuda)
+                                                      lstm_window_int_cuda,
+                                                      mma_takes)
 from repro_torch.kernels.lstm_cell_int.ref import lstm_window_int_ref
 
 #: kernel launches made by :func:`lstm_window_int` (CPU calls do not count)
 launches = 0
+#: ... and by the variant :func:`variant` chose
+launches_by_variant = {"mma": 0, "simt": 0}
+
+
+def variant(spec: CellSpec) -> str:
+    """The kernel a CUDA call with this cell launches, decided from the
+    spec alone: ``"mma"`` (the gate product on the int8 tensor cores) where
+    its codes fit int8 and the sum cannot wrap
+    (:func:`~repro_torch.kernels.lstm_cell_int.kernel.mma_takes`; Table I
+    and every 8-bit cell of the repo's designs), ``"simt"`` (int32 on the
+    CUDA cores, exact for any codes) for the rest."""
+    return "mma" if mma_takes(spec) else "simt"
 
 
 def _check(x, w, b, sig_table, tanh_table, spec: CellSpec) -> None:
@@ -47,8 +60,10 @@ def lstm_window_int(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
                     *, spec: CellSpec) -> torch.Tensor:
     """(B,S,d_in) int codes × fused int gate weights -> (B, S, hidden) int32.
 
-    One kernel launch per window batch on a CUDA tensor; the plain version
-    on a CPU tensor.
+    x holds ``spec.act_fmt`` codes and w ``spec.w_fmt`` codes (the
+    emulator's are so by construction). One kernel launch per window batch
+    on a CUDA tensor, the one :func:`variant` names; the plain version on a
+    CPU tensor.
     """
     global launches
     _check(x, w, b, sig_table, tanh_table, spec)
@@ -58,7 +73,10 @@ def lstm_window_int(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
         raise ValueError(f"lstm_window_int: no kernel for device {x.device}")
     out = torch.empty((x.shape[0], spec.seq_len, spec.hidden),
                       dtype=torch.int32, device=x.device)
+    name = variant(spec)
     with torch.cuda.device(x.device):
-        lstm_window_int_cuda(x, w, b, sig_table, tanh_table, out, spec=spec)
+        lstm_window_int_cuda(x, w, b, sig_table, tanh_table, out, spec=spec,
+                             variant=name)
     launches += 1
+    launches_by_variant[name] += 1
     return out

@@ -1,5 +1,6 @@
 """PyTorch port on the card (``gpu`` marker; skips without CUDA): each CUDA
-kernel against its plain version (exact integer equality for B1/B2; B5
+kernel against its plain version (exact integer equality for B1/B2, B1's
+``mma`` and ``simt`` variants each through the wrapper and directly; B5
 within the reference's 2e-5 in f32 and 0.03 in bf16, bf16 also within
 ``BF16_REL_RMS_BAR`` of each 128-row block's rms, on the variant its
 routing names and on ``simt`` at every bf16 shape; B3 within 1e-5; B4 bit
@@ -18,7 +19,8 @@ import pytest
 import torch
 
 from repro_torch.configs import get_config
-from repro_torch.core.types import SMOKE_MESH, ParallelismConfig, ShapeConfig
+from repro_torch.core.types import (SMOKE_MESH, LSTMConfig,
+                                    ParallelismConfig, ShapeConfig)
 from repro_torch.kernels.flash_attention import (attention_ref,
                                                  flash_attention,
                                                  flash_attention_cuda)
@@ -28,6 +30,7 @@ from repro_torch.kernels.flash_attention.ref import (BF16_REL_RMS_BAR,
 from repro_torch.kernels.lstm_cell import lstm_window, lstm_window_ref
 from repro_torch.kernels.lstm_cell import ops as lstm_f_ops
 from repro_torch.kernels.lstm_cell_int import (CellSpec, lstm_window_int,
+                                               lstm_window_int_cuda,
                                                lstm_window_int_ref)
 from repro_torch.kernels.lstm_cell_int import ops as lstm_ops
 from repro_torch.kernels.mac_int import mac_int_op, mac_int_ref
@@ -44,6 +47,7 @@ from repro_torch.model.lm import Stepper
 from repro_torch.quant.fixedpoint import FxpFormat
 from repro_torch.quant.ptq import Int8Params, quantize_params_int8
 from repro_torch.rtl.emulator import RTLEmulator, assert_bit_exact
+from repro_torch.rtl.ir import lower_model
 from repro_torch.runtime.server import Server, ServerConfig
 from repro_torch.verify import vectors as tvec
 
@@ -65,22 +69,128 @@ def _codes(rng, fmt, shape, device):
                            dtype=torch.int32, device=device)
 
 
+# B1's formats by the variant the wrapper routes them to: Table I's 8-bit
+# codes go to ``mma``, 12-bit activation codes to ``simt``
+B1_FORMATS = {"mma": (A, W, C), "simt": (FxpFormat(12, 6), W, C)}
+
+
+def _b1_case(rng, B, S, din, hid, act, w_fmt, state, device):
+    spec = CellSpec(seq_len=S, d_in=din, hidden=hid, act_fmt=act,
+                    state_fmt=state, w_fmt=w_fmt, sig_lo=act.lo,
+                    tanh_lo=act.lo)
+    args = (_codes(rng, act, (B, S, din), device),
+            _codes(rng, w_fmt, (din + hid, 4 * hid), device),
+            _codes(rng, FxpFormat(11, 0), (4 * hid,), device),
+            _codes(rng, act, (2 ** act.total_bits,), device),
+            _codes(rng, act, (2 ** act.total_bits,), device))
+    return spec, args
+
+
+@pytest.mark.parametrize("variant", ["mma", "simt"])
 @pytest.mark.parametrize("B,S,din,hid", [(1, 6, 1, 20), (7, 6, 3, 16),
                                          (64, 4, 2, 8), (200, 6, 1, 20),
-                                         (1000, 6, 20, 20), (129, 3, 8, 64)])
-def test_lstm_window_kernel_matches_plain(cuda, B, S, din, hid):
+                                         (1000, 6, 20, 20), (129, 3, 8, 64),
+                                         (33, 6, 2, 5), (17, 6, 1, 13),
+                                         (65, 5, 3, 30)])
+def test_lstm_window_kernel_matches_plain(cuda, B, S, din, hid, variant):
+    """Through the wrapper, which routes each format to its variant."""
     rng = np.random.default_rng(B + S)
-    spec = CellSpec(seq_len=S, d_in=din, hidden=hid, act_fmt=A,
-                    state_fmt=C, w_fmt=W, sig_lo=A.lo, tanh_lo=A.lo)
-    args = (_codes(rng, A, (B, S, din), cuda),
-            _codes(rng, W, (din + hid, 4 * hid), cuda),
-            _codes(rng, FxpFormat(11, 0), (4 * hid,), cuda),
-            _codes(rng, A, (2 ** A.total_bits,), cuda),
-            _codes(rng, A, (2 ** A.total_bits,), cuda))
+    spec, args = _b1_case(rng, B, S, din, hid, *B1_FORMATS[variant], cuda)
+    assert lstm_ops.variant(spec) == variant
     before = lstm_ops.launches
+    by_variant = dict(lstm_ops.launches_by_variant)
     got = lstm_window_int(*args, spec=spec)
     assert lstm_ops.launches == before + 1
+    by_variant[variant] += 1
+    assert lstm_ops.launches_by_variant == by_variant
     assert torch.equal(got, lstm_window_int_ref(*args, spec=spec))
+
+
+@pytest.mark.parametrize("variant", ["mma", "simt"])
+@pytest.mark.parametrize("hid", [5, 8, 13, 16, 20, 30, 32, 64])
+@pytest.mark.parametrize("B", [1, 15, 17, 65537])
+def test_lstm_window_variants_launched_directly(cuda, B, hid, variant):
+    """Each variant on Table I's formats: ragged 16-window tiles and
+    128-thread blocks, every hidden width of the mma kernel's instances,
+    and widths that are not multiples of 4 (mma's int32 store path and
+    padded units past hidden in its last n8 tile)."""
+    rng = np.random.default_rng(B * 100 + hid)
+    spec, args = _b1_case(rng, B, 6, 3, hid, A, W, C, cuda)
+    out = torch.full((B, 6, hid), -7, dtype=torch.int32, device=cuda)
+    lstm_window_int_cuda(*args, out, spec=spec, variant=variant)
+    assert torch.equal(out, lstm_window_int_ref(*args, spec=spec))
+
+
+@pytest.mark.parametrize("variant", ["mma", "simt"])
+@pytest.mark.parametrize("din,hid", [(1, 20), (64, 64)])
+@pytest.mark.parametrize("rom_fill", ["lo", "hi"])
+@pytest.mark.parametrize("w_fill", ["lo", "hi"])
+@pytest.mark.parametrize("x_fill", ["lo", "hi"])
+def test_lstm_window_extreme_codes(cuda, x_fill, w_fill, rom_fill, din,
+                                   hid, variant):
+    """Every x, W and ROM code at its format's end, biases at int32's: at
+    K = 128, |x . w| summed reaches 2^21, the top of the mma kernel's
+    exactness envelope, and adding the bias wraps."""
+    spec = CellSpec(seq_len=6, d_in=din, hidden=hid, act_fmt=A, state_fmt=C,
+                    w_fmt=W, sig_lo=A.lo, tanh_lo=A.lo)
+
+    def fill(fmt, which, shape):
+        return torch.full(shape, fmt.lo if which == "lo" else fmt.hi,
+                          dtype=torch.int32, device=cuda)
+
+    b = torch.where(torch.arange(4 * hid, device=cuda) % 2 == 0,
+                    torch.tensor(2 ** 31 - 1, dtype=torch.int32, device=cuda),
+                    torch.tensor(-2 ** 31, dtype=torch.int32, device=cuda))
+    args = (fill(A, x_fill, (33, 6, din)), fill(W, w_fill, (din + hid,
+                                                            4 * hid)),
+            b, fill(A, rom_fill, (256,)), fill(A, rom_fill, (256,)))
+    out = torch.empty((33, 6, hid), dtype=torch.int32, device=cuda)
+    lstm_window_int_cuda(*args, out, spec=spec, variant=variant)
+    assert torch.equal(out, lstm_window_int_ref(*args, spec=spec))
+
+
+def test_lstm_mma_refuses_w_outside_its_format_on_card(cuda):
+    """A W code outside w_fmt is a ValueError from the wrapper, not a
+    kernel trap: nothing is launched and the context stays usable."""
+    rng = np.random.default_rng(5)
+    spec, args = _b1_case(rng, 40, 6, 1, 20, A, W, C, cuda)
+    bad = args[1].clone()
+    bad[0, 0] = W.hi + 1
+    before = lstm_ops.launches
+    with pytest.raises(ValueError, match="outside"):
+        lstm_window_int(args[0], bad, *args[2:], spec=spec)
+    assert lstm_ops.launches == before
+    assert torch.equal(lstm_window_int(*args, spec=spec),
+                       lstm_window_int_ref(*args, spec=spec))
+
+
+@pytest.mark.parametrize("variant", ["mma", "simt"])
+def test_lstm_two_layer_design_on_card(cuda, variant):
+    """A two-cell LSTM lowered by ``lower_model`` (8-bit codes -> mma,
+    12-bit -> simt): fused = the plain path = the float oracle on CUDA, one
+    launch per cell, all of the routed variant."""
+    act, _, _ = B1_FORMATS[variant]
+    cfg = get_config("elastic-lstm")
+    cfg = cfg.with_(n_layers=2, lstm=LSTMConfig(
+        hidden=20, n_layers=2, in_features=1, out_features=1, seq_len=6))
+    graph = lower_model(cfg, tvec.canonical_params(tvec.schema_for(cfg),
+                                                   seed=11),
+                        act_fmt=act, state_fmt=FxpFormat(12, 8)
+                        if variant == "simt" else C)
+    x = np.random.default_rng(2).standard_normal(
+        (4099, *graph.edges["x"].shape)).astype(np.float32) * 3
+    em = RTLEmulator(graph, mode="fused", device=cuda)
+    lstm_ops.launches_by_variant = dict.fromkeys(
+        lstm_ops.launches_by_variant, 0)
+    got = em.run(x)
+    assert lstm_ops.launches_by_variant == {
+        "mma": 0, "simt": 0, variant: 2}
+    plain = RTLEmulator(graph, mode="jnp", device=cuda).run(x)
+    assert torch.equal(got.outputs, plain.outputs)
+    for name, seq in plain.trace.items():
+        assert torch.equal(got.trace[name], seq), name
+    torch.backends.cuda.matmul.allow_tf32 = False
+    assert_bit_exact(graph, x, "fused", device=cuda)
 
 
 @pytest.mark.parametrize("shift", [-2, 0, 2, 6, 13])

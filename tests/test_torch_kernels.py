@@ -1,7 +1,7 @@
 """PyTorch port, kernels B1 (fused int LSTM window) and B2 (int MAC): the
-plain versions against the JAX reference kernels, exact integer equality.
-The CUDA kernels are held against the plain versions on the card in
-tests/test_torch_gpu.py."""
+plain versions against the JAX reference kernels, exact integer equality,
+and B1's routing between its two CUDA variants. The CUDA kernels are held
+against the plain versions on the card in tests/test_torch_gpu.py."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -14,7 +14,9 @@ from repro.kernels.lstm_cell_int import (
 from repro.quant.fixedpoint import FxpFormat as JF
 from repro.rtl.oplib import _mac_int_jnp, mac_int_pallas
 from repro_torch.kernels.lstm_cell_int import (CellSpec, lstm_window_int,
-                                               lstm_window_int_ref)
+                                               lstm_window_int_cuda,
+                                               lstm_window_int_ref, variant)
+from repro_torch.kernels.lstm_cell_int import kernel as kernel_mod
 from repro_torch.kernels.lstm_cell_int import ops as lstm_ops
 from repro_torch.kernels.mac_int import mac_int_op, mac_int_ref
 from repro_torch.kernels.mac_int import ops as mac_ops
@@ -85,6 +87,71 @@ def test_lstm_window_wrapper_checks_arguments():
         lstm_window_int(x, w.t().contiguous().t(), b, sig, tanh, spec=tspec)
     with pytest.raises(ValueError, match="ROM"):
         lstm_window_int(x, w, b, sig[:100], tanh, spec=tspec)
+
+
+def _spec(act=(8, 4), w=(8, 6), d_in=1, hidden=20):
+    A = FxpFormat(*act)
+    return CellSpec(seq_len=6, d_in=d_in, hidden=hidden, act_fmt=A,
+                    state_fmt=FxpFormat(16, 8), w_fmt=FxpFormat(*w),
+                    sig_lo=A.lo, tanh_lo=A.lo)
+
+
+@pytest.mark.parametrize("w_bits", [2, 4, 6, 8])
+@pytest.mark.parametrize("act_bits", [2, 4, 6, 8])
+def test_lstm_variant_routes_8bit_cells_to_mma(act_bits, w_bits):
+    """Table I (Q8.4 codes, Q8.6 weights, hidden 20, d_in 1) and every cell
+    whose codes fit int8, up to the mma kernel's K and hidden limits."""
+    act, w = (act_bits, act_bits // 2), (w_bits, w_bits - 1)
+    assert variant(_spec(act, w)) == "mma"
+    assert variant(_spec(act, w, d_in=64, hidden=64)) == "mma"
+    assert variant(_spec(act, w, d_in=20, hidden=8)) == "mma"
+
+
+@pytest.mark.parametrize("act,w,d_in,hidden", [
+    ((9, 4), (8, 6), 1, 20), ((12, 6), (8, 6), 1, 20),
+    ((16, 8), (8, 6), 1, 20), ((8, 4), (9, 6), 1, 20),
+    ((8, 4), (12, 8), 1, 20), ((8, 4), (8, 6), 1, 65),
+    ((8, 4), (8, 6), 65, 64), ((8, 4), (8, 6), 100, 29)])
+def test_lstm_variant_routes_the_rest_to_simt(act, w, d_in, hidden):
+    """9+-bit act or weight codes, or a cell outside the mma kernel's
+    exactness envelope (K = d_in + hidden > 128, hidden > 64)."""
+    assert variant(_spec(act, w, d_in, hidden)) == "simt"
+
+
+def test_lstm_cuda_launcher_refuses_what_its_variant_cannot_take():
+    """Refused before any library is loaded, so also without a card."""
+    arrays, _, tspec = _lstm_case(LSTM_SHAPES[0])
+    args = tuple(torch.from_numpy(a) for a in arrays)
+    out = torch.empty((1, 6, 20), dtype=torch.int32)
+    wide = _spec(act=(12, 6))
+    with pytest.raises(ValueError, match="mma kernel does not take"):
+        lstm_window_int_cuda(*args, out, spec=wide, variant="mma")
+    with pytest.raises(ValueError, match="unknown variant"):
+        lstm_window_int_cuda(*args, out, spec=tspec, variant="wgmma")
+    before = dict(lstm_ops.launches_by_variant)
+    lstm_window_int(*args, spec=tspec)            # CPU: the plain version
+    assert lstm_ops.launches_by_variant == before
+
+
+@pytest.mark.parametrize("w_fmt,code", [((8, 6), 128), ((8, 6), -129),
+                                         ((6, 4), 32), ((6, 4), -33)])
+def test_lstm_mma_launcher_refuses_w_outside_its_format(w_fmt, code):
+    """A W code outside w_fmt would not fit the mma kernel's int8
+    fragments: a ValueError before any library is loaded, also after the
+    same tensor passed once and was then written in place."""
+    arrays, _, _ = _lstm_case(LSTM_SHAPES[0])
+    spec = _spec(w=w_fmt)
+    fmt = spec.w_fmt
+    x, w, b, sig, tanh = (torch.from_numpy(a) for a in arrays)
+    w = w.clamp(fmt.lo, fmt.hi)
+    out = torch.empty((1, 6, 20), dtype=torch.int32)
+    kernel_mod.check_w_codes(w, spec)                 # in range: passes
+    w[3, 7] = code
+    with pytest.raises(ValueError, match="outside"):
+        kernel_mod.check_w_codes(w, spec)
+    with pytest.raises(ValueError, match="outside"):
+        lstm_window_int_cuda(x, w, b, sig, tanh, out, spec=spec,
+                             variant="mma")
 
 
 def _mac_case(rows, K, N, shift):
