@@ -78,9 +78,15 @@ where one exists, the PyTorch call that computes the same function:
     sm90 at 8 to 64 rows;
 11. B6, the Mamba-2 SSD scan, at Zamba2-7B's 112 heads of P = N = 64 over
     4,096 steps, chunks 128 and 256, with and without h0 (1e-4 on y and
-    the state, against the per-step oracle);
+    the state, against the per-step oracle and ``ssd_chunked`` in f64),
+    and at the decay extremes A = -20 and -1e-4 over 256 steps (against
+    both in f64); its three passes timed
+    one by one (``torch.profiler``) beside the blocks each launches, the
+    scratch, and its bound both in f32 FMAs and in split TF32;
 12. B7, the RWKV-6 WKV recurrence, at RWKV6-7B's 64 heads of N = 64 over
-    4,096 steps, with and without h0 (1e-4, per-step oracle);
+    4,096 steps, with and without h0 (1e-4, per-step oracle and
+    ``wkv6_chunked`` in f64), and at the decay extremes w_log = -30 and
+    -1e-4 (both in f64); its passes as for B6;
 13. print the kernels line and the card's name and power limit.
 
 Usage, from the repository root: ``python3 chip_smoke.py``. Needs one CUDA
@@ -127,6 +133,7 @@ INT32_ISSUE_PER_S = 132 * 128 * 1.98e9
 B1_EW_OPS = 70
 BF16_FLOP_PER_S = 989e12              # dense tensor-core peak
 F32_FLOP_PER_S = 67e12                # f32 FMA on the CUDA cores, 2 flops
+TF32_FLOP_PER_S = 495e12              # dense TF32 tensor-core peak
 INT8_OP_PER_S = 1979e12               # dense int8 tensor-core peak
 # the Yi-9B serving run
 PROMPT_LENS = (16, 17, 128, 333, 1024, 2048, 3000, 4000)
@@ -555,22 +562,48 @@ def phase_b4(ops_by_name: dict) -> dict:
             "library_ms": lib}
 
 
+def pass_times(fn, reps: int = 5) -> str:
+    """Device ms of each pass of a chunk-parallel scan (B6, B7), averaged
+    over ``reps`` calls of ``fn`` under ``torch.profiler``."""
+    from repro_torch.kernels.mamba2.kernel import PASSES
+
+    _, device = profile_ms(lambda: [fn() for _ in range(reps)])
+    by_pass = {name: sum(t for k, t in device.items()
+                         if f"{name}_kernel" in k) / reps for name in PASSES}
+    if not any(by_pass.values()):
+        return "not measured (the profiler saw no GPU activity)"
+    return ", ".join(f"{name} {t:.4f} ms" for name, t in by_pass.items())
+
+
+def held_to(got, wants: dict) -> dict:
+    """max |got - want| over (y, state), for each named want."""
+    return {name: max(max_err(g, w) for g, w in zip(got, want))
+            for name, want in wants.items()}
+
+
 def phase_b6(ops_by_name: dict) -> dict:
     """B6, the Mamba-2 SSD chunk scan, at Zamba2-7B's widths over 4,096
-    steps, chunks 128 and 256, with and without h0; and at the reference
-    test's shapes (chunk 16)."""
+    steps, chunks 128 and 256, with and without h0 (against the per-step
+    plain version, and ``ssd_chunked`` in f64: in f32 its running sums
+    drift, as the kernel's note says); at the decay extremes A = -20 and
+    -1e-4 over 256 steps (both in f64: the per-step f32 run drifts at the
+    long memory); and at the reference test's shapes (chunk 16)."""
     import torch
     import torch.nn.functional as F
 
     from repro_torch.kernels.mamba2 import ssd, ssd_cuda, ssd_reference
+    from repro_torch.kernels.mamba2.kernel import plan
+    from repro_torch.model.ssm import ssd_chunked
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 11)
 
-    def inputs(B, S, H, P, N):
-        """tests/test_kernels.py::test_mamba2_kernel's distributions."""
+    def inputs(B, S, H, P, N, A_value=None):
+        """tests/test_kernels.py::test_mamba2_kernel's distributions; A_value
+        sets every head's A."""
+        A = -torch.exp(randn(gen, H, scale=0.3))
         return (randn(gen, B, S, H, P, scale=0.5),
                 F.softplus(randn(gen, B, S, H)),
-                -torch.exp(randn(gen, H, scale=0.3)),
+                A if A_value is None else torch.full_like(A, A_value),
                 randn(gen, B, S, 1, N, scale=0.5),
                 randn(gen, B, S, 1, N, scale=0.5),
                 randn(gen, B, H, P, N, scale=0.1))
@@ -580,14 +613,42 @@ def phase_b6(ops_by_name: dict) -> dict:
     outs, n = drive(ops_by_name, "ssd", lambda: [
         ssd(x, dt, A, Bm, Cm, h, chunk=chunk) for chunk, h in runs])
     refs = {id(h): ssd_reference(x, dt, A, Bm, Cm, h0=h) for h in (None, h0)}
-    err, ymax = 0.0, 0.0
-    for (chunk, h), (y, hf) in zip(runs, outs):
-        y_r, hf_r = refs[id(h)]
-        e = (max_err(y, y_r), max_err(hf, hf_r))
-        err, ymax = max(err, *e), max(ymax, y_r.abs().max().item())
+    err = 0.0
+    for (chunk, h), got in zip(runs, outs):
+        f64 = [a.double() for a in (x, dt, A, Bm, Cm)]
+        e = held_to(got, {"plain": refs[id(h)],
+                          "ssd_chunked f64": ssd_chunked(
+                              *f64, chunk, h0=None if h is None
+                              else h.double())})
+        err = max(err, *e.values())
+        # the chunked form in f32 drifts by its own f32 running sums (the
+        # precision the kernel keeps in f64): for the record, not held
+        f32 = held_to(got, {"f32": ssd_chunked(x, dt, A, Bm, Cm, chunk,
+                                               h0=h)})["f32"]
         log(f"phase 11 B6 (1, {SEQ}, {SSD_H}, {SSD_P}), N {SSD_N}, chunk "
-            f"{chunk}, h0 {h is not None}: max |err| y {e[0]:.3g}, state "
-            f"{e[1]:.3g} (max |y| {y_r.abs().max().item():.3g})")
+            f"{chunk}, h0 {h is not None}: max |err| (y, state) plain "
+            f"{e['plain']:.3g}, ssd_chunked in f64 {e['ssd_chunked f64']:.3g}"
+            f" (in f32 {f32:.3g}; max |y| "
+            f"{refs[id(h)][0].abs().max().item():.3g})")
+    extremes = []
+    for A_value in (-20.0, -1e-4):
+        *args, hs = inputs(1, 256, SSD_H, SSD_P, SSD_N, A_value)
+        for h in (None, hs):
+            got = ssd(*args, h, chunk=128)
+            f64 = [a.double() for a in args]
+            h64 = None if h is None else h.double()
+            truth = ssd_reference(*f64, h0=h64)
+            e = held_to(got, {
+                "plain f64": truth,
+                "ssd_chunked f64": ssd_chunked(*f64, 128, h0=h64)})
+            err = max(err, *e.values())
+            # for the record, not held: the f32 yardsticks' own drift
+            drift = held_to(ssd_reference(*args, h0=h), {"f64": truth})
+            extremes.append(f"A {A_value:g} h0 {h is not None}: " + ", ".join(
+                f"{k} {v:.3g}" for k, v in e.items())
+                + f" (plain f32 itself {drift['f64']:.3g} from f64)")
+    log(f"phase 11 B6 decay extremes (1, 256, {SSD_H}, {SSD_P}), N "
+        f"{SSD_N}: " + "; ".join(extremes))
     small = 0.0
     for shape in ((2, 64, 4, 16, 16), (1, 128, 2, 32, 16)):
         *args, hs = inputs(*shape)
@@ -599,47 +660,69 @@ def phase_b6(ops_by_name: dict) -> dict:
     if err > B6_TOL:
         raise AssertionError(f"B6 != plain version: max |err| {err:.3g} > "
                              f"{B6_TOL}")
-    log(f"phase 11 B6 = plain version within {err:.3g} (bar {B6_TOL}; "
-        f"{small:.3g} at the reference's test shapes); launches {n}")
+    log(f"phase 11 B6 = plain version and ssd_chunked within {err:.3g} (bar "
+        f"{B6_TOL}; {small:.3g} at the reference's test shapes); launches "
+        f"{n}")
     y = torch.empty_like(x)
     hf = torch.empty((1, SSD_H, SSD_P, SSD_N), device="cuda")
-    args = (x, dt, A, Bm[:, :, 0].contiguous(), Cm[:, :, 0].contiguous(),
-            y, hf)
-    ms = {chunk: time_ms(functools.partial(ssd_cuda, *args, chunk=chunk),
-                         reps=5) for chunk in (128, 256)}
+    args = (x, dt, A, Bm[:, :, 0].contiguous(), Cm[:, :, 0].contiguous())
+    kernel = functools.partial(ssd_cuda, *args, None, y, hf)
+    ms = time_ms(kernel, reps=5)
+    ms_h0 = time_ms(functools.partial(ssd_cuda, *args, h0, y, hf), reps=5)
+    passes = pass_times(kernel)
+    pl = plan(1, SEQ, SSD_H, SSD_P, SSD_N)
     plain = events_ms(lambda: ssd_reference(x, dt, A, Bm, Cm), warm=False)
     S, H, P, N = SEQ, SSD_H, SSD_P, SSD_N
     # the function's least work, whatever the chunking: each step and head
-    # reads the (P, N) state into y and folds x, B into it
+    # reads the (P, N) state into y and folds x, B into it; the kernel runs
+    # its products on the tensor cores in split TF32, three TF32 products
+    # for each f32 one
     fma = 2 * N * P * H * S
-    bnd, by = bound_ms(4 * (2 * S * H * P + S * H + H + 2 * S * N
-                            + H * P * N), 2 * fma, F32_FLOP_PER_S)
-    log(f"phase 11 B6 timing: kernel {ms[128]:.4f} ms at chunk 128, "
-        f"{ms[256]:.4f} ms at chunk 256; plain (per-step, {S} steps, one "
-        f"run) {plain:.4f} ms; bound {bnd:.4f} ms ({by}, {2 * fma / 1e9:.2f} "
-        "GFLOP for the state read and update); library: none, no PyTorch "
-        "call computes the SSD scan")
+    n_bytes = 4 * (2 * S * H * P + S * H + H + 2 * S * N + H * P * N)
+    b_f32, by_f32 = bound_ms(n_bytes, 2 * fma, F32_FLOP_PER_S)
+    bnd, by = bound_ms(n_bytes, 3 * 2 * fma, TF32_FLOP_PER_S)
+    log(f"phase 11 B6 plan at (1, {S}, {H}, {P}), N {N}: kernel chunk "
+        f"{pl['chunk']}, {pl['chunks']} chunks; blocks state "
+        f"{pl['blocks_state']}, carry {pl['blocks_carry']}, output "
+        f"{pl['blocks_output']}; scratch {pl['scratch_bytes'] / 1e6:.1f} MB")
+    log(f"phase 11 B6 timing: kernel {ms:.4f} ms (any caller chunk: the "
+        f"kernel takes its own), {ms_h0:.4f} ms with h0; by pass: {passes}; "
+        f"plain (per-step, {S} steps, one run) {plain:.4f} ms; bound "
+        f"{bnd:.4f} ms ({by}; operations in split TF32 {3 * 2 * fma / 1e9:.2f}"
+        f" GFLOP at {TF32_FLOP_PER_S / 1e12:.0f} TFLOP/s "
+        f"{3 * 2 * fma / TF32_FLOP_PER_S * 1e3:.4f} ms; bytes "
+        f"{n_bytes / 1e6:.1f} MB {n_bytes / HBM_BYTES_PER_S * 1e3:.4f} ms); "
+        f"in f32 FMAs {b_f32:.4f} ms ({by_f32}, {2 * fma / 1e9:.2f} GFLOP for "
+        "the state read and update); library: none, no PyTorch call "
+        "computes the SSD scan")
     return {"name": "ssd", "route": "cuda",
             "source": "src/repro_torch/csrc/ssd.cu",
             "replaces": "src/repro/kernels/mamba2/kernel.py:24",
-            "launches": n, "max_abs_err": err, "ms": ms[128],
+            "launches": n, "max_abs_err": err, "ms": ms,
             "plain_ms": plain, "bound_ms": bnd, "bound_by": by,
             "library_ms": None}
 
 
 def phase_b7(ops_by_name: dict) -> dict:
     """B7, the RWKV-6 WKV recurrence, at RWKV6-7B's widths over 4,096
-    steps, with and without h0; and at the reference test's shapes."""
+    steps, with and without h0 (against the per-step plain version and
+    ``wkv6_chunked`` in f64); at the decay extremes w_log = -30 and -1e-4
+    over 256 steps (both in f64); and at the reference test's shapes."""
     import torch
 
     from repro_torch.kernels.rwkv6 import wkv6, wkv6_cuda, wkv6_reference
+    from repro_torch.kernels.rwkv6.kernel import plan
+    from repro_torch.model.rwkv import wkv6_chunked
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 12)
 
-    def inputs(B, S, H, N):
-        """tests/test_kernels.py::test_wkv6_kernel's distributions."""
+    def inputs(B, S, H, N, w_value=None):
+        """tests/test_kernels.py::test_wkv6_kernel's distributions; w_value
+        sets every log-decay."""
         r, k, v = (randn(gen, B, S, H, N, scale=0.5) for _ in range(3))
-        return (r, k, v, -torch.exp(randn(gen, B, S, H, N, scale=0.5)),
+        w_log = -torch.exp(randn(gen, B, S, H, N, scale=0.5))
+        return (r, k, v,
+                w_log if w_value is None else torch.full_like(w_log, w_value),
                 randn(gen, H, N, scale=0.5),
                 randn(gen, B, H, N, N, scale=0.1))
 
@@ -647,13 +730,39 @@ def phase_b7(ops_by_name: dict) -> dict:
     outs, n = drive(ops_by_name, "wkv6", lambda: [
         wkv6(r, k, v, w_log, u, h, chunk=WKV_CHUNK) for h in (None, h0)])
     err = 0.0
-    for h, (y, hf) in zip((None, h0), outs):
-        y_r, hf_r = wkv6_reference(r, k, v, w_log, u, h0=h)
-        e = (max_err(y, y_r), max_err(hf, hf_r))
-        err = max(err, *e)
+    for h, got in zip((None, h0), outs):
+        want = wkv6_reference(r, k, v, w_log, u, h0=h)
+        f64 = [a.double() for a in (r, k, v, w_log, u)]
+        e = held_to(got, {"plain": want, "wkv6_chunked f64": wkv6_chunked(
+            *f64, h0=None if h is None else h.double(), chunk=WKV_CHUNK)})
+        err = max(err, *e.values())
+        f32 = held_to(got, {"f32": wkv6_chunked(
+            r, k, v, w_log, u, h0=h, chunk=WKV_CHUNK)})["f32"]
         log(f"phase 12 B7 (1, {SEQ}, {WKV_H}, {WKV_N}), chunk {WKV_CHUNK}, "
-            f"h0 {h is not None}: max |err| y {e[0]:.3g}, state {e[1]:.3g} "
-            f"(max |y| {y_r.abs().max().item():.3g})")
+            f"h0 {h is not None}: max |err| (y, state) plain "
+            f"{e['plain']:.3g}, wkv6_chunked in f64 "
+            f"{e['wkv6_chunked f64']:.3g} (in f32 {f32:.3g}; max |y| "
+            f"{want[0].abs().max().item():.3g})")
+    extremes = []
+    for w_value in (-30.0, -1e-4):
+        *args, hs = inputs(1, 256, WKV_H, WKV_N, w_value)
+        for h in (None, hs):
+            got = wkv6(*args, h, chunk=WKV_CHUNK)
+            f64 = [a.double() for a in args]
+            h64 = None if h is None else h.double()
+            truth = wkv6_reference(*f64, h0=h64)
+            e = held_to(got, {
+                "plain f64": truth,
+                "wkv6_chunked f64": wkv6_chunked(*f64, h0=h64,
+                                                 chunk=WKV_CHUNK)})
+            err = max(err, *e.values())
+            drift = held_to(wkv6_reference(*args, h0=h), {"f64": truth})
+            extremes.append(f"w_log {w_value:g} h0 {h is not None}: "
+                            + ", ".join(f"{k} {v:.3g}" for k, v in e.items())
+                            + f" (plain f32 itself {drift['f64']:.3g} from "
+                            "f64)")
+    log(f"phase 12 B7 decay extremes (1, 256, {WKV_H}, {WKV_N}): "
+        + "; ".join(extremes))
     small = 0.0
     for shape in ((2, 64, 3, 16), (1, 128, 2, 32), (2, 32, 4, 16)):
         *args, hs = inputs(*shape)
@@ -665,12 +774,17 @@ def phase_b7(ops_by_name: dict) -> dict:
     if err > B7_TOL:
         raise AssertionError(f"B7 != plain version: max |err| {err:.3g} > "
                              f"{B7_TOL}")
-    log(f"phase 12 B7 = plain version within {err:.3g} (bar {B7_TOL}; "
-        f"{small:.3g} at the reference's test shapes); launches {n}")
+    log(f"phase 12 B7 = plain version and wkv6_chunked within {err:.3g} "
+        f"(bar {B7_TOL}; {small:.3g} at the reference's test shapes); "
+        f"launches {n}")
     y = torch.empty_like(r)
     hf = torch.empty((1, WKV_H, WKV_N, WKV_N), device="cuda")
-    ms = time_ms(functools.partial(wkv6_cuda, r, k, v, w_log, u, y, hf),
-                 reps=5)
+    kernel = functools.partial(wkv6_cuda, r, k, v, w_log, u, None, y, hf)
+    ms = time_ms(kernel, reps=5)
+    ms_h0 = time_ms(functools.partial(wkv6_cuda, r, k, v, w_log, u, h0, y,
+                                      hf), reps=5)
+    passes = pass_times(kernel)
+    pl = plan(1, SEQ, WKV_H, WKV_N)
     plain = events_ms(lambda: wkv6_reference(r, k, v, w_log, u), warm=False)
     S, H, N = SEQ, WKV_H, WKV_N
     # the function's least work, whatever the chunking: each step and head
@@ -678,10 +792,15 @@ def phase_b7(ops_by_name: dict) -> dict:
     fma = 2 * N * N * H * S
     bnd, by = bound_ms(4 * (5 * S * H * N + H * N + H * N * N), 2 * fma,
                        F32_FLOP_PER_S)
-    log(f"phase 12 B7 timing: kernel {ms:.4f} ms; plain (per-step, {S} "
-        f"steps, one run) {plain:.4f} ms; bound {bnd:.4f} ms ({by}, "
-        f"{2 * fma / 1e9:.2f} GFLOP for the state read and update); "
-        "library: none, no PyTorch call computes the WKV recurrence")
+    log(f"phase 12 B7 plan at (1, {S}, {H}, {N}): kernel chunk "
+        f"{pl['chunk']}, {pl['chunks']} chunks; blocks state "
+        f"{pl['blocks_state']}, carry {pl['blocks_carry']}, output "
+        f"{pl['blocks_output']}; scratch {pl['scratch_bytes'] / 1e6:.1f} MB")
+    log(f"phase 12 B7 timing: kernel {ms:.4f} ms, {ms_h0:.4f} ms with h0; "
+        f"by pass: {passes}; plain (per-step, {S} steps, one run) "
+        f"{plain:.4f} ms; bound {bnd:.4f} ms ({by}, {2 * fma / 1e9:.2f} "
+        "GFLOP for the state read and update); library: none, no PyTorch "
+        "call computes the WKV recurrence")
     return {"name": "wkv6", "route": "cuda",
             "source": "src/repro_torch/csrc/wkv6.cu",
             "replaces": "src/repro/kernels/rwkv6/kernel.py:21",

@@ -1,256 +1,571 @@
-// B6: the Mamba-2 SSD chunk scan (n_groups = 1) — y and the final state
-// of every (batch, head) in one launch, from a zero initial state.
+// B6: the Mamba-2 SSD scan (n_groups = 1) — y and the final state of every
+// (batch, head), as a chunk-parallel scan in three passes.
 //
 // Replaces the TPU kernel src/repro/kernels/mamba2/kernel.py::_ssd_kernel,
 // launched by kernel.py::ssd_pallas through ops.py::ssd.
 //
-// What it computes, as the TPU kernel does, chunk by chunk of L steps
-// carrying the (P, N) state S of the chunk's start: with a = dt * A and
-// a_cs its running sum inside the chunk,
+// What it computes, as the reference's chunked form does
+// (src/repro/model/ssm.py::ssd_chunked): with a = dt * A, a_cs its running
+// sum inside a chunk of L steps and a_tot = a_cs[L-1], chunk c's own state
+//   T_c = sum_j (dt_j x_j) (B_j e^{a_tot - a_cs[j]})^T          (P x N),
+// the carry S_{c+1} = e^{a_tot} S_c + T_c from S_0 = h0, and
 //   y_i = sum_{j <= i} (C_i . B_j) e^{a_cs[i] - a_cs[j]} dt_j x_j
-//         + e^{a_cs[i]} C_i . S
-//   S  <- e^{a_cs[L-1]} S + sum_j (dt_j x_j) (B_j e^{a_cs[L-1] - a_cs[j]})^T
-// Only the j <= i half of the decays is ever evaluated, so no exponent is
-// positive (A < 0, dt > 0) and nothing overflows; the reference masks
-// before its exp (kernel.py:42) for the same reason. The running sum a_cs
-// is kept in f64: at chunk 256 it reaches several hundred, and an f32
-// difference a_cs[i] - a_cs[j] of two such sums loses about 1e-5 of each
-// decay, 10x the error of the per-step oracle; each exponent is rounded to
-// f32 once, after the difference.
+//         + e^{a_cs[i]} C_i . S_c.
+// The decay between two positions of a chunk is applied to the score tile
+// elementwise, j <= i only, so no exponent is ever positive (A < 0, dt > 0):
+// factoring it as e^{a_cs[i]} e^{-a_cs[j]} would overflow, since a_cs
+// passes -100 inside a chunk of 128. a_cs is kept in f64: an f32
+// difference of two sums near -100 loses about 1e-5 of each decay; each
+// exponent is rounded to f32 once, after the difference. The result does
+// not depend on the chunk, so the kernel takes its own, L = 128; a ragged
+// last chunk is masked as the reference pads it (dt = 0: decay 1, no
+// contribution).
 //
-// What bounds it on an H100: at Zamba2-7B's SSD (112 heads, P = N = 64,
-// S = 4,096, chunk 128) the work is about 15 GFLOP of f32 FMAs (the causal
-// half of C.B^T and of scores.(dt x), the state read and the state update)
-// against 241 MB, so the f32 FMA rate (67 TFLOP/s: 0.23 ms) bounds it more
-// than HBM (0.072 ms).
+// Three launches a call (the carry pass is csrc/chunk_carry.cuh):
+//   1. chunk state, grid (H, nc, B): T_c and e^{a_tot} into the scratch
+//      `states` (B, nc, H, P, N) and `decay` (B, nc, H); the blocks of head
+//      0 also write the chunk's C B^T, the same for every head (n_groups =
+//      1), into `cb` (B, nc, L, L): all f32;
+//   2. carry, grid (B * H, state tiles): in place, so `states` then holds
+//      each chunk's start state S_c; the final state to `hout`;
+//   3. output, grid (H, nc, B): y of the chunk from S_c and C B^T.
+// At Zamba2-7B's SSD (112 heads, P = N = 64, S = 4,096) passes 1 and 3
+// launch 32 x 112 = 3,584 blocks each, 9 waves at 3 blocks an SM; the
+// scratch is 60.8 MB.
 //
-// Design (simple and right): one block of 256 threads (a 16 x 16 grid,
-// each thread a 4 x 4 register tile) per (batch, head), looping over the
-// chunks in order with S in shared memory. A chunk is taken in 64-row
-// blocks: for each row block, the C rows are staged once; y starts from
-// the state read, then for each 64-column block at or left of the diagonal
-// the B rows and dt * x rows are staged, the 64 x 64 score tile is formed,
-// decayed and masked into shared memory, and multiplied into y. The
-// diagonal block also feeds the state update, kept in registers until the
-// chunk ends. So shared memory holds five 64 x 65 tiles (83 KB) whatever
-// the chunk: 128 and 256 run alike. The running sum a_cs is taken by one
-// thread per chunk, in order. x and y are read and written in the public
+// What bounds it on an H100: the function moves 241 MB (0.072 ms at 3.35
+// TB/s); the chunked form's products are 11.3 GFLOP (the causal half of
+// C.B^T, once, and of scores.(dt x), the state read and the chunk states),
+// 0.17 ms in f32 FMAs. So the products go to the tensor cores, in split
+// TF32 for f32 accuracy (plain TF32 keeps about three decimal digits, far
+// from the 1e-4 bar at |y| in the tens): each operand is
+// a = a_hi + a_lo, both TF32, and a b takes three mma.sync.m16n8k8
+// products, lo.hi + hi.lo + hi.hi, summed in f32 (3 x 7.5 GFLOP of TF32 at
+// 495 TFLOP/s: 0.046 ms, under the bytes).
+//
+// Design: blocks of 4 warps; each warp owns 16-row tiles of the chunk.
+// Pass 1: the chunk's dt x e^{a_tot - a_cs} and B rows staged in shared
+// memory, T = (dt x)^T B over k = 128 steps, one warp per 16 rows of P.
+// Pass 3: dt x rows and S_c (split into TF32 parts once) staged; warp w
+// takes row tiles w and 7 - w (equal causal work); C's fragments stay in
+// registers, split once; y starts from C S_c^T scaled by e^{a_cs[i]}; then
+// for each pair of 8-column tiles left of or on the diagonal the scores,
+// read from `cb` in L2, are decayed and masked in registers and fed
+// straight back as the A operand of scores . (dt x): the accumulator holds
+// columns (2t, 2t+1) where the A operand wants (t, t + 4), so the k index
+// of that product is permuted and the dt x rows are read in the same
+// order. No loop over a tile holds a branch: one would keep ptxas from
+// overlapping the tiles' dependent mma chains. x and y stay in the public
 // (B, S, H, P) layout; P and N up to 64.
 #include <cuda_runtime.h>
+#include <stdint.h>
 
+#include "chunk_carry.cuh"
 #include "error_string.cuh"
 
 namespace {
 
-constexpr int R = 64;          // rows (and columns) of a score tile
+constexpr int L = 128;         // the kernel's chunk (steps)
 constexpr int DM = 64;         // the largest P and N compiled for
-constexpr int LD = DM + 1;     // padded row stride, in floats
-constexpr int NT = 256;        // a 16 x 16 thread grid
+constexpr int NW = 4;          // warps a block
+constexpr int NT = 32 * NW;    // == L: one thread per step for the scan
+constexpr int LD1 = DM + 8;    // pass 1 row stride: (t * LD + g) conflict-free
 
-struct Args {
-  int S, H, P, N, L;
+static_assert(NT == L, "the scan takes one thread per step");
+
+struct Dims {
+  int S, H, P, N, nc;
 };
 
+// v rounded to TF32 (10 mantissa bits), to nearest with ties away from
+// zero as cvt.rna.tf32.f32 does, in two integer operations (finite v)
+__device__ __forceinline__ uint32_t to_tf32(float v) {
+  return (__float_as_uint(v) + 0x1000u) & 0xffffe000u;
+}
+
+// v = hi + lo, both TF32: hi rounded to nearest, lo the rest, rounded
+struct Split {
+  uint32_t hi, lo;
+};
+
+__device__ __forceinline__ Split split(float v) {
+  const uint32_t hi = to_tf32(v);
+  return {hi, to_tf32(v - __uint_as_float(hi))};
+}
+
+__device__ __forceinline__ void mma(float (&d)[4], uint32_t a0, uint32_t a1,
+                                    uint32_t a2, uint32_t a3, uint32_t b0,
+                                    uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+// d += a0 b0 + a1 b1, two k-steps, in split TF32, the small terms first.
+// A fragment (m16 x k8, row): a[0] (g, t), a[1] (g + 8, t), a[2] (g, t +
+// 4), a[3] (g + 8, t + 4); B fragment (k8 x n8, col): b[0] (t, g), b[1] (t
+// + 4, g); accumulator d[0..1] (g, 2t..2t+1), d[2..3] (g + 8, 2t..2t+1); g
+// = lane / 4, t = lane % 4. The six products are summed from zero and added
+// to d by the CUDA cores: the tensor cores round their sums toward zero, an
+// error that grows with every product added into a long-lived sum and, at
+// the long-memory extreme (A = -1e-4), passed the 1e-4 bar.
+__device__ __forceinline__ void mma6(float (&d)[4], const Split (&a0)[4],
+                                     Split b00, Split b01,
+                                     const Split (&a1)[4], Split b10,
+                                     Split b11) {
+  float t[4] = {0.f, 0.f, 0.f, 0.f};
+  mma(t, a0[0].lo, a0[1].lo, a0[2].lo, a0[3].lo, b00.hi, b01.hi);
+  mma(t, a1[0].lo, a1[1].lo, a1[2].lo, a1[3].lo, b10.hi, b11.hi);
+  mma(t, a0[0].hi, a0[1].hi, a0[2].hi, a0[3].hi, b00.lo, b01.lo);
+  mma(t, a1[0].hi, a1[1].hi, a1[2].hi, a1[3].hi, b10.lo, b11.lo);
+  mma(t, a0[0].hi, a0[1].hi, a0[2].hi, a0[3].hi, b00.hi, b01.hi);
+  mma(t, a1[0].hi, a1[1].hi, a1[2].hi, a1[3].hi, b10.hi, b11.hi);
+#pragma unroll
+  for (int e = 0; e < 4; ++e) d[e] += t[e];
+}
+
+__device__ __forceinline__ float4 zero4() {
+  return make_float4(0.f, 0.f, 0.f, 0.f);
+}
+
+// ROWS rows of up to DM floats, row j at src + j * stride (zero past row
+// nrows and column W), held in registers between load and put: a thread
+// holds columns n .. n + 3 of ROWS / 8 rows, all loaded at once, with
+// 16-byte loads where the rows are 16-byte aligned; put(j, n, v) then hands
+// each group of four on.
+template <int ROWS>
+struct Rows {
+  static constexpr int G = DM / 4, SWEEP = NT / G, BATCH = ROWS / SWEEP;
+  float4 v[BATCH];
+
+  template <bool Vec>
+  __device__ __forceinline__ void load_as(const float* __restrict__ src,
+                                          long long stride, int W,
+                                          int nrows) {
+    const int n = 4 * (threadIdx.x % G), jr = threadIdx.x / G;
+#pragma unroll
+    for (int u = 0; u < BATCH; ++u) {
+      const int j = SWEEP * u + jr;
+      const float* row = src + j * stride;
+      const bool ok = j < nrows;
+      if (Vec)
+        v[u] = ok && n < W ? *reinterpret_cast<const float4*>(row + n)
+                           : zero4();
+      else
+        v[u] = make_float4(ok && n < W ? row[n] : 0.f,
+                           ok && n + 1 < W ? row[n + 1] : 0.f,
+                           ok && n + 2 < W ? row[n + 2] : 0.f,
+                           ok && n + 3 < W ? row[n + 3] : 0.f);
+    }
+  }
+
+  __device__ __forceinline__ void load(const float* __restrict__ src,
+                                       long long stride, int W, int nrows) {
+    if (W % 4 == 0 && stride % 4 == 0 &&
+        reinterpret_cast<uintptr_t>(src) % 16 == 0)
+      load_as<true>(src, stride, W, nrows);
+    else
+      load_as<false>(src, stride, W, nrows);
+  }
+
+  template <typename Put>
+  __device__ __forceinline__ void put(Put f) const {
+    const int n = 4 * (threadIdx.x % G), jr = threadIdx.x / G;
+#pragma unroll
+    for (int u = 0; u < BATCH; ++u) f(SWEEP * u + jr, n, v[u]);
+  }
+};
+
+// The chunk's running sum a_cs[t] = sum_{s <= t} dt_s A, in f64, one
+// thread per step (steps past S have dt = 0); dts[t] gets dt. Ends synced.
+__device__ void chunk_cumsum(const float* __restrict__ dt, float Ah,
+                             long long row0, int c0, const Dims& d,
+                             int h, double* acs, float* dts) {
+  __shared__ double warp_sum[NW];
+  const int t = threadIdx.x, lane = t & 31, w = t >> 5;
+  const float dv = c0 + t < d.S ? dt[(row0 + c0 + t) * d.H + h] : 0.f;
+  double v = static_cast<double>(__fmul_rn(dv, Ah));
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const double n = __shfl_up_sync(0xffffffffu, v, o);
+    if (lane >= o) v += n;
+  }
+  if (lane == 31) warp_sum[w] = v;
+  __syncthreads();
+  for (int i = 0; i < w; ++i) v += warp_sum[i];
+  acs[t] = v;
+  dts[t] = dv;
+  __syncthreads();
+}
+
+// The products over n (C B^T, C S_c^T) take their k index permuted: in each
+// 16 columns n0 .. n0 + 15 lane t holds n0 + 4t .. n0 + 4t + 3, the k = t
+// and k = t + 4 slots of two k-steps (a dot product does not depend on the
+// order of its terms, and both operands follow the same map), so each lane
+// reads its four with one 16-byte load.
+
+// row[n .. n + 3] (n a multiple of 4), zero past N; one 16-byte load where
+// rows are 16-byte aligned (vec: N % 4 == 0)
+__device__ __forceinline__ float4 load4(const float* row, int n, int N,
+                                        bool vec) {
+  if (vec) return n < N ? *reinterpret_cast<const float4*>(row + n)
+                        : zero4();
+  return make_float4(n < N ? row[n] : 0.f, n + 1 < N ? row[n + 1] : 0.f,
+                     n + 2 < N ? row[n + 2] : 0.f,
+                     n + 3 < N ? row[n + 3] : 0.f);
+}
+
+// C rows i0 + g and i0 + g + 8 of the chunk as A fragments of k-steps 2qq
+// and 2qq + 1 over n, k permuted as above
+__device__ __forceinline__ void load_c2(Split (&ca)[4], Split (&cb)[4],
+                                        const float* __restrict__ Cm,
+                                        long long row0, int c0, int i0,
+                                        int qq, const Dims& d) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, tq = lane & 3;
+  const bool vec = d.N % 4 == 0;
+  const int n = 16 * qq + 4 * tq;
+  const float4 lo = c0 + i0 + g < d.S
+      ? load4(Cm + (row0 + c0 + i0 + g) * d.N, n, d.N, vec) : zero4();
+  const float4 hi = c0 + i0 + g + 8 < d.S
+      ? load4(Cm + (row0 + c0 + i0 + g + 8) * d.N, n, d.N, vec) : zero4();
+  ca[0] = split(lo.x);
+  ca[1] = split(hi.x);
+  ca[2] = split(lo.y);
+  ca[3] = split(hi.y);
+  cb[0] = split(lo.z);
+  cb[1] = split(hi.z);
+  cb[2] = split(lo.w);
+  cb[3] = split(hi.w);
+}
+
+// ---- pass 1: the chunk's own state T_c, from zero --------------------------
 __global__ void __launch_bounds__(NT)
-    ssd_kernel(const float* __restrict__ x, const float* __restrict__ dt,
-               const float* __restrict__ A, const float* __restrict__ Bm,
-               const float* __restrict__ Cm, float* __restrict__ y,
-               float* __restrict__ hout, Args a) {
-  extern __shared__ double sm[];
-  double* acs = sm;                  // L: a_cs of the chunk, in f64
-  float* St = reinterpret_cast<float*>(acs + a.L);  // DM x LD: [p][n]
-  float* Ci = St + DM * LD;          // R x LD: C rows of the row block
-  float* Bj = Ci + R * LD;           // R x LD: B rows of the column block
-  float* Xj = Bj + R * LD;           // R x LD: dt * x rows [j][p]
-  float* Sc = Xj + R * LD;           // R x LD: decayed scores [i][j]
-  float* dec = Sc + R * LD;          // R: e^{a_tot - a_cs[j]}, diagonal block
-  float* dts = dec + R;              // L: dt of the chunk
+    ssd_state_kernel(const float* __restrict__ x, const float* __restrict__ dt,
+                     const float* __restrict__ A, const float* __restrict__ Bm,
+                     const float* __restrict__ Cm, float* __restrict__ states,
+                     float* __restrict__ decay, float* __restrict__ cb,
+                     Dims d) {
+  extern __shared__ double smem1[];
+  double* acs = smem1;                           // L
+  float* dts = reinterpret_cast<float*>(acs + L);  // L
+  float* dec = dts + L;                          // L: dt e^{a_tot - a_cs}
+  float* Xs = dec + L;                           // L x LD1: [j][p]
+  float* Bs = Xs + L * LD1;                      // L x LD1: [j][n]
 
-  const int S = a.S, H = a.H, P = a.P, N = a.N, L = a.L;
-  const int b = blockIdx.x / H, h = blockIdx.x % H;
-  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
-  const float Ah = A[h];
-  const long long row0 = static_cast<long long>(b) * S;   // (b, t = 0)
+  const int h = blockIdx.x, c = blockIdx.y, b = blockIdx.z;
+  const int c0 = c * L, P = d.P, N = d.N;
+  const long long row0 = static_cast<long long>(b) * d.S;
+  chunk_cumsum(dt, A[h], row0, c0, d, h, acs, dts);
+  const double a_tot = acs[L - 1];
+  dec[threadIdx.x] = dts[threadIdx.x] *
+      expf(static_cast<float>(a_tot - acs[threadIdx.x]));
+  __syncthreads();
+  Rows<L> rows;
+  rows.load(x + ((row0 + c0) * d.H + h) * P, static_cast<long long>(d.H) * P,
+            P, d.S - c0);
+  rows.put([&](int j, int n, float4 v) {
+    const float f = dec[j];
+    *reinterpret_cast<float4*>(Xs + j * LD1 + n) =
+        make_float4(v.x * f, v.y * f, v.z * f, v.w * f);
+  });
+  rows.load(Bm + (row0 + c0) * N, N, N, d.S - c0);
+  rows.put([&](int j, int n, float4 v) {
+    *reinterpret_cast<float4*>(Bs + j * LD1 + n) = v;
+  });
+  __syncthreads();
 
-  for (int i = tid; i < DM * LD; i += NT) St[i] = 0.f;
-
-  for (int c0 = 0; c0 < S; c0 += L) {
-    __syncthreads();                 // the last chunk's readers are done
-    for (int t = tid; t < L; t += NT) dts[t] = dt[(row0 + c0 + t) * H + h];
-    __syncthreads();
-    if (tid == 0) {
-      double run = 0.0;
-      for (int t = 0; t < L; ++t) {
-        run += __fmul_rn(dts[t], Ah);
-        acs[t] = run;
+  const int lane = threadIdx.x & 31, g = lane >> 2, tq = lane & 3;
+  const int m0 = 16 * (threadIdx.x >> 5);        // this warp's rows of P
+  float* T = states + ((static_cast<long long>(b) * d.nc + c) * d.H + h)
+                      * P * N;
+  if (m0 < P) {
+    float acc[8][4] = {};
+    for (int k0 = 0; k0 < L; k0 += 16) {   // k-steps k0 and k0 + 8
+      const float* x0 = Xs + (k0 + tq) * LD1 + m0 + g;
+      const Split a0[4] = {split(x0[0]), split(x0[8]), split(x0[4 * LD1]),
+                           split(x0[4 * LD1 + 8])};
+      const Split a1[4] = {split(x0[8 * LD1]), split(x0[8 * LD1 + 8]),
+                           split(x0[12 * LD1]), split(x0[12 * LD1 + 8])};
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt) {
+        const float* b0 = Bs + (k0 + tq) * LD1 + nt * 8 + g;
+        mma6(acc[nt], a0, split(b0[0]), split(b0[4 * LD1]), a1,
+             split(b0[8 * LD1]), split(b0[12 * LD1]));
       }
     }
-    __syncthreads();
-    const double a_tot = acs[L - 1];
-    float upd[4][4] = {};            // state update, [p = ty+16u][n = tx+16v]
-
-    for (int i0 = 0; i0 < L; i0 += R) {
-      const int rows = min(R, L - i0);
-      __syncthreads();               // Ci's last readers are done
-      for (int i = tid; i < R * DM; i += NT) {
-        const int r = i / DM, n = i % DM;
-        Ci[r * LD + n] = (r < rows && n < N)
-                             ? Cm[(row0 + c0 + i0 + r) * N + n] : 0.f;
-      }
-      __syncthreads();
-      // y = e^{a_cs[i]} C_i . S, rows i = ty + 16u, dims p = tx + 16v
-      float yacc[4][4] = {};
-      for (int n = 0; n < N; ++n) {
-        float cv[4], sv[4];
 #pragma unroll
-        for (int u = 0; u < 4; ++u) cv[u] = Ci[(ty + 16 * u) * LD + n];
+    for (int nt = 0; nt < 8; ++nt)
 #pragma unroll
-        for (int v = 0; v < 4; ++v) sv[v] = St[(tx + 16 * v) * LD + n];
-#pragma unroll
-        for (int u = 0; u < 4; ++u)
-#pragma unroll
-          for (int v = 0; v < 4; ++v) yacc[u][v] = fmaf(cv[u], sv[v],
-                                                        yacc[u][v]);
-      }
-#pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        const int r = ty + 16 * u;
-        const float e = r < rows ? expf(static_cast<float>(acs[i0 + r]))
-                                 : 0.f;
-#pragma unroll
-        for (int v = 0; v < 4; ++v) yacc[u][v] *= e;
-      }
-
-      for (int j0 = 0; j0 <= i0; j0 += R) {
-        const int cols = min(R, L - j0);
-        __syncthreads();             // Bj, Xj, Sc's last readers are done
-        for (int i = tid; i < R * DM; i += NT) {
-          const int r = i / DM, d = i % DM;
-          const long long t = row0 + c0 + j0 + r;
-          Bj[r * LD + d] = (r < cols && d < N) ? Bm[t * N + d] : 0.f;
-          Xj[r * LD + d] = (r < cols && d < P)
-                               ? x[(t * H + h) * P + d] * dts[j0 + r] : 0.f;
+      for (int e = 0; e < 4; e += 2) {
+        const int p = m0 + g + (e >> 1) * 8, n = nt * 8 + 2 * tq;
+        if (p >= P) continue;
+        if (N % 2 == 0 && n < N) {   // 8-byte aligned pairs
+          *reinterpret_cast<float2*>(T + p * N + n) =
+              make_float2(acc[nt][e], acc[nt][e + 1]);
+        } else {
+          if (n < N) T[p * N + n] = acc[nt][e];
+          if (n + 1 < N) T[p * N + n + 1] = acc[nt][e + 1];
         }
-        if (j0 == i0)
-          for (int r = tid; r < R; r += NT)
-            dec[r] = r < cols ? expf(static_cast<float>(a_tot - acs[j0 + r]))
-                              : 0.f;
-        __syncthreads();
-        // scores, rows i = ty + 16u, columns j = tx + 16v
-        float s[4][4] = {};
-        for (int n = 0; n < N; ++n) {
-          float cv[4], bv[4];
-#pragma unroll
-          for (int u = 0; u < 4; ++u) cv[u] = Ci[(ty + 16 * u) * LD + n];
-#pragma unroll
-          for (int v = 0; v < 4; ++v) bv[v] = Bj[(tx + 16 * v) * LD + n];
-#pragma unroll
-          for (int u = 0; u < 4; ++u)
-#pragma unroll
-            for (int v = 0; v < 4; ++v) s[u][v] = fmaf(cv[u], bv[v], s[u][v]);
-        }
-#pragma unroll
-        for (int u = 0; u < 4; ++u)
-#pragma unroll
-          for (int v = 0; v < 4; ++v) {
-            const int gi = i0 + ty + 16 * u, gj = j0 + tx + 16 * v;
-            // only j <= i inside the chunk: every exponent is <= 0
-            Sc[(ty + 16 * u) * LD + tx + 16 * v] =
-                (gi < L && gj <= gi)
-                    ? s[u][v] * expf(static_cast<float>(acs[gi] - acs[gj]))
-                    : 0.f;
-          }
-        __syncthreads();
-        for (int j = 0; j < cols; ++j) {
-          float pv[4], xv[4];
-#pragma unroll
-          for (int u = 0; u < 4; ++u) pv[u] = Sc[(ty + 16 * u) * LD + j];
-#pragma unroll
-          for (int v = 0; v < 4; ++v) xv[v] = Xj[j * LD + tx + 16 * v];
-#pragma unroll
-          for (int u = 0; u < 4; ++u)
-#pragma unroll
-            for (int v = 0; v < 4; ++v) yacc[u][v] = fmaf(pv[u], xv[v],
-                                                          yacc[u][v]);
-        }
-        if (j0 == i0) {
-          // state update from this column block, [p = ty+16u][n = tx+16v]
-          for (int j = 0; j < cols; ++j) {
-            const float f = dec[j];
-            float xv[4], bv[4];
-#pragma unroll
-            for (int u = 0; u < 4; ++u) xv[u] = Xj[j * LD + ty + 16 * u] * f;
-#pragma unroll
-            for (int v = 0; v < 4; ++v) bv[v] = Bj[j * LD + tx + 16 * v];
-#pragma unroll
-            for (int u = 0; u < 4; ++u)
-#pragma unroll
-              for (int v = 0; v < 4; ++v) upd[u][v] = fmaf(xv[u], bv[v],
-                                                           upd[u][v]);
-          }
-        }
-      }
-#pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        const int r = ty + 16 * u;
-        if (r >= rows) continue;
-        float* yrow = y + ((row0 + c0 + i0 + r) * H + h) * P;
-#pragma unroll
-        for (int v = 0; v < 4; ++v)
-          if (tx + 16 * v < P) yrow[tx + 16 * v] = yacc[u][v];
-      }
-    }
-    __syncthreads();                 // every read of the chunk-start S done
-    const float e_tot = expf(static_cast<float>(a_tot));
-#pragma unroll
-    for (int u = 0; u < 4; ++u)
-#pragma unroll
-      for (int v = 0; v < 4; ++v) {
-        float* sp = St + (ty + 16 * u) * LD + tx + 16 * v;
-        *sp = *sp * e_tot + upd[u][v];
       }
   }
-  __syncthreads();
-  float* hb = hout + static_cast<long long>(blockIdx.x) * P * N;
-  for (int i = tid; i < P * N; i += NT) hb[i] = St[(i / N) * LD + i % N];
+  if (threadIdx.x == 0)
+    decay[(static_cast<long long>(b) * d.nc + c) * d.H + h] =
+        expf(static_cast<float>(a_tot));
+  if (h != 0) return;
+  // C B^T of the chunk, the same for every head (n_groups = 1), once: the
+  // lower 8-column tiles of each 16-row tile, into `cb` (B, nc, L, L). Warp
+  // w takes row tiles w and 7 - w (equal causal work); B's staged rows are
+  // read k-permuted.
+  float* cbc = cb + (static_cast<long long>(b) * d.nc + c) * L * L;
+  const int w = threadIdx.x >> 5;
+  for (int half = 0; half < 2; ++half) {
+    const int rt = half == 0 ? w : 2 * NW - 1 - w, i0 = 16 * rt;
+    Split ca[8][4];
+#pragma unroll
+    for (int qq = 0; qq < 4; ++qq)
+      load_c2(ca[2 * qq], ca[2 * qq + 1], Cm, row0, c0, i0, qq, d);
+    for (int jt = 0; jt <= 2 * rt + 1; ++jt) {
+      float sc[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+      for (int qq = 0; qq < 4; ++qq) {
+        const float4 b4 = *reinterpret_cast<const float4*>(
+            Bs + (jt * 8 + g) * LD1 + 16 * qq + 4 * tq);
+        mma6(sc, ca[2 * qq], split(b4.x), split(b4.y), ca[2 * qq + 1],
+             split(b4.z), split(b4.w));
+      }
+      float* out = cbc + (i0 + g) * L + jt * 8 + 2 * tq;
+      *reinterpret_cast<float2*>(out) = make_float2(sc[0], sc[1]);
+      *reinterpret_cast<float2*>(out + 8 * L) = make_float2(sc[2], sc[3]);
+    }
+  }
 }
+
+// ---- pass 3: y of the chunk from its start state S_c -----------------------
+// S_c sits in shared memory in 16-byte chunks XOR-swizzled by the row's
+// parity, so the two rows of a k-permuted load phase fall in disjoint banks;
+// dt x rows sit in pairs of steps (j, j + 1) side by side, so the permuted
+// (2t, 2t + 1) rows of scores . (dt x) come in one 8-byte load. The scores
+// are pass 1's C B^T, read from L2 (every head of a chunk reads the same).
+constexpr int LDX2 = 2 * DM + 8;   // floats a pair of dt x rows
+
+__device__ __forceinline__ int swz(int row, int n) {
+  return row * DM + (((n >> 2) ^ ((row & 1) << 2)) << 2) + (n & 3);
+}
+
+__global__ void __launch_bounds__(NT, 3)
+    ssd_output_kernel(const float* __restrict__ x,
+                      const float* __restrict__ dt,
+                      const float* __restrict__ A,
+                      const float* __restrict__ Cm,
+                      const float* __restrict__ states,
+                      const float* __restrict__ cb,
+                      float* __restrict__ y, Dims d) {
+  extern __shared__ double smem3[];
+  double* acs = smem3;                           // L
+  float* dts = reinterpret_cast<float*>(acs + L);  // L
+  float* Xs = dts + L;                           // L / 2 x LDX2: dt x pairs
+  // S_c split once into TF32 hi and lo parts, DM x DM each, swizzled
+  uint32_t* Sh = reinterpret_cast<uint32_t*>(Xs + L / 2 * LDX2);
+  uint32_t* Sl = Sh + DM * DM;
+
+  const int h = blockIdx.x, c = blockIdx.y, b = blockIdx.z;
+  const int c0 = c * L, P = d.P, N = d.N;
+  const long long row0 = static_cast<long long>(b) * d.S;
+  const long long bc = static_cast<long long>(b) * d.nc + c;
+  chunk_cumsum(dt, A[h], row0, c0, d, h, acs, dts);
+  Rows<L> xr;
+  Rows<DM> sr;
+  xr.load(x + ((row0 + c0) * d.H + h) * P, static_cast<long long>(d.H) * P,
+          P, d.S - c0);
+  sr.load(states + (bc * d.H + h) * P * N, N, N, P);
+  xr.put([&](int j, int n, float4 v) {   // dt x, pairs of rows
+    const float f = dts[j];
+    float* o = Xs + (j >> 1) * LDX2 + 2 * n + (j & 1);
+    o[0] = v.x * f;
+    o[2] = v.y * f;
+    o[4] = v.z * f;
+    o[6] = v.w * f;
+  });
+  sr.put([&](int p, int n, float4 v) {   // S_c [p][n], swizzled
+    const Split e[4] = {split(v.x), split(v.y), split(v.z), split(v.w)};
+    *reinterpret_cast<uint4*>(Sh + swz(p, n)) =
+        make_uint4(e[0].hi, e[1].hi, e[2].hi, e[3].hi);
+    *reinterpret_cast<uint4*>(Sl + swz(p, n)) =
+        make_uint4(e[0].lo, e[1].lo, e[2].lo, e[3].lo);
+  });
+  __syncthreads();
+
+  const int lane = threadIdx.x & 31, g = lane >> 2, tq = lane & 3;
+  const int w = threadIdx.x >> 5;
+  const float* cbc = cb + bc * L * L;
+  for (int half = 0; half < 2; ++half) {
+    const int rt = half == 0 ? w : 2 * NW - 1 - w;   // 16-row tile
+    const int i0 = 16 * rt;
+    Split ca[8][4];
+#pragma unroll
+    for (int qq = 0; qq < 4; ++qq)
+      load_c2(ca[2 * qq], ca[2 * qq + 1], Cm, row0, c0, i0, qq, d);
+    // y = e^{a_cs[i]} C_i . S_c: B fragment (k = n, col = p) = S_c[p][n]
+    float yacc[8][4] = {};
+#pragma unroll
+    for (int qq = 0; qq < 4; ++qq)
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt) {
+        const int at = swz(nt * 8 + g, 16 * qq + 4 * tq);
+        const uint4 hi = *reinterpret_cast<const uint4*>(Sh + at);
+        const uint4 lo = *reinterpret_cast<const uint4*>(Sl + at);
+        mma6(yacc[nt], ca[2 * qq], {hi.x, lo.x}, {hi.y, lo.y},
+             ca[2 * qq + 1], {hi.z, lo.z}, {hi.w, lo.w});
+      }
+    const double ai0 = acs[i0 + g], ai1 = acs[i0 + g + 8];
+    const float e0 = expf(static_cast<float>(ai0));
+    const float e1 = expf(static_cast<float>(ai1));
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt) {
+      yacc[nt][0] *= e0;
+      yacc[nt][1] *= e0;
+      yacc[nt][2] *= e1;
+      yacc[nt][3] *= e1;
+    }
+    // the diagonal part, column tiles jt and jt + 1 at a time; the scores
+    // of the next pair are loaded while this one is computed
+    const float* cb0 = cbc + (i0 + g) * L + 2 * tq;       // row i0 + g
+    float2 next[2][2];
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      next[u][0] = *reinterpret_cast<const float2*>(cb0 + u * 8);
+      next[u][1] = *reinterpret_cast<const float2*>(cb0 + 8 * L + u * 8);
+    }
+    for (int jt = 0; jt <= 2 * rt; jt += 2) {
+      float s[2][4];
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        s[u][0] = next[u][0].x;
+        s[u][1] = next[u][0].y;
+        s[u][2] = next[u][1].x;
+        s[u][3] = next[u][1].y;
+      }
+      const int jn = min(jt + 2, 2 * rt);
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        next[u][0] = *reinterpret_cast<const float2*>(cb0 + (jn + u) * 8);
+        next[u][1] = *reinterpret_cast<const float2*>(cb0 + 8 * L
+                                                      + (jn + u) * 8);
+      }
+      Split sa[2][4];
+#pragma unroll
+      for (int u = 0; u < 2; ++u)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          // decay and mask (j <= i only: every exponent <= 0)
+          const int i = i0 + g + (e >> 1) * 8;
+          const int j = (jt + u) * 8 + 2 * tq + (e & 1);
+          const float f = j <= i ? expf(static_cast<float>(
+                                       (e >> 1 ? ai1 : ai0) - acs[j]))
+                                 : 0.f;
+          // accumulator (g + 8(e/2), 2t + e%2) -> A operand k = t + 4(e%2)
+          sa[u][(e & 1) * 2 + (e >> 1)] = split(s[u][e] * f);
+        }
+      // dt x rows (jt + u) * 8 + 2t and + 1, one pair each
+      const float* x0 = Xs + (jt * 4 + tq) * LDX2 + 2 * g;
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt) {
+        const float2 x2 = *reinterpret_cast<const float2*>(x0 + 16 * nt);
+        const float2 x3 = *reinterpret_cast<const float2*>(x0 + 4 * LDX2
+                                                           + 16 * nt);
+        mma6(yacc[nt], sa[0], split(x2.x), split(x2.y), sa[1], split(x3.x),
+             split(x3.y));
+      }
+    }
+#pragma unroll
+    for (int e = 0; e < 4; e += 2) {
+      const int i = i0 + g + (e >> 1) * 8;
+      if (c0 + i >= d.S) continue;
+      float* yrow = y + ((row0 + c0 + i) * d.H + h) * P;
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt) {
+        const int p = nt * 8 + 2 * tq;
+        if (P % 2 == 0 && p < P) {   // 8-byte aligned pairs
+          *reinterpret_cast<float2*>(yrow + p) =
+              make_float2(yacc[nt][e], yacc[nt][e + 1]);
+        } else {
+          if (p < P) yrow[p] = yacc[nt][e];
+          if (p + 1 < P) yrow[p + 1] = yacc[nt][e + 1];
+        }
+      }
+    }
+  }
+}
+
+constexpr size_t kSmem1 = L * sizeof(double) + (2 * L + 2 * L * LD1)
+                                                   * sizeof(float);
+constexpr size_t kSmem3 = L * sizeof(double)
+                          + (L + L / 2 * LDX2 + 2 * DM * DM) * sizeof(float);
+
+int chunks(int S) { return (S + L - 1) / L; }
 
 }  // namespace
 
-// x (B, S, H, P), dt (B, S, H), A (H,), Bm / Cm (B, S, N), y (B, S, H, P),
-// hout (B, H, P, N): float32, contiguous. L is the chunk (S % L == 0).
+// The plan of a call: out[0] the kernel's chunk, out[1] the chunks, out[2..4]
+// the blocks of passes 1-3, out[5..7] the floats of `states`, `decay` and
+// `cb`.
+extern "C" int ssd_plan(int Bsz, int S, int H, int P, int N, long long* out) {
+  const long long nc = chunks(S);
+  const dim3 carry = chunk_carry::grid(Bsz, H, P, N);
+  out[0] = L;
+  out[1] = nc;
+  out[2] = out[4] = nc * H * Bsz;
+  out[3] = static_cast<long long>(carry.x) * carry.y;
+  out[5] = nc * Bsz * H * P * N;
+  out[6] = nc * Bsz * H;
+  out[7] = nc * Bsz * L * L;
+  return 0;
+}
+
+// x (B, S, H, P), dt (B, S, H), A (H,), Bm / Cm (B, S, N), h0 (B, H, P, N)
+// or null, y (B, S, H, P), hout (B, H, P, N), scratch states (B, nc, H, P,
+// N), decay (B, nc, H) and cb (B, nc, 128, 128) with nc = ceil(S / 128)
+// (ssd_plan): float32, contiguous. Three launches on `stream`.
 extern "C" int ssd_launch(const void* x, const void* dt, const void* A,
-                          const void* Bm, const void* Cm, void* y, void* hout,
-                          int Bsz, int S, int H, int P, int N, int L,
+                          const void* Bm, const void* Cm, const void* h0,
+                          void* y, void* hout, void* states, void* decay,
+                          void* cb, int Bsz, int S, int H, int P, int N,
                           void* stream) {
+  const int nc = S > 0 ? chunks(S) : 0;
   if (Bsz <= 0 || S <= 0 || H <= 0 || P <= 0 || P > DM || N <= 0 ||
-      N > DM || L <= 0 || S % L != 0 ||
+      N > DM || nc > 65535 || Bsz > 65535 ||
       static_cast<long long>(Bsz) * H > 0x7fffffffLL)
     return static_cast<int>(cudaErrorInvalidValue);
-  const size_t Ls = static_cast<size_t>(L);
-  const size_t smem =
-      Ls * sizeof(double) + (5 * R * LD + R + Ls) * sizeof(float);
-  int dev = 0, smem_max = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&smem_max, cudaDevAttrMaxSharedMemoryPerBlockOptin,
-                         dev);
-  if (smem > static_cast<size_t>(smem_max))
-    return static_cast<int>(cudaErrorInvalidValue);     // chunk too long
-  // opt in to all of the card's shared memory once, before any launch
-  // (so never inside a CUDA-graph capture after the first call)
+  // once, before any launch (so never inside a CUDA-graph capture after
+  // the first call)
   static bool opted_in = false;
   if (!opted_in) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        ssd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        smem_max);
+    cudaError_t err = chunk_carry::opt_in(ssd_state_kernel, kSmem1);
+    if (err == cudaSuccess)
+      err = chunk_carry::opt_in(ssd_output_kernel, kSmem3);
     if (err != cudaSuccess) return static_cast<int>(err);
     opted_in = true;
   }
-  const Args a{S, H, P, N, L};
-  ssd_kernel<<<Bsz * H, NT, smem, static_cast<cudaStream_t>(stream)>>>(
+  const auto st = static_cast<cudaStream_t>(stream);
+  const Dims d{S, H, P, N, nc};
+  const dim3 chunk_grid(H, nc, Bsz);
+  ssd_state_kernel<<<chunk_grid, NT, kSmem1, st>>>(
       static_cast<const float*>(x), static_cast<const float*>(dt),
       static_cast<const float*>(A), static_cast<const float*>(Bm),
-      static_cast<const float*>(Cm), static_cast<float*>(y),
-      static_cast<float*>(hout), a);
+      static_cast<const float*>(Cm), static_cast<float*>(states),
+      static_cast<float*>(decay), static_cast<float*>(cb), d);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = chunk_carry::launch<false>(
+      static_cast<float*>(states), static_cast<const float*>(decay),
+      static_cast<const float*>(h0), static_cast<float*>(hout), Bsz, nc, H,
+      P, N, st);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  ssd_output_kernel<<<chunk_grid, NT, kSmem3, st>>>(
+      static_cast<const float*>(x), static_cast<const float*>(dt),
+      static_cast<const float*>(A), static_cast<const float*>(Cm),
+      static_cast<const float*>(states), static_cast<const float*>(cb),
+      static_cast<float*>(y), d);
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,5 +1,5 @@
 """Public wrapper of the SSD chunk-scan template (B6): the (B, S, H, P)
-layout, the n_groups = 1 broadcast and the optional h0 fold-in."""
+layout, the n_groups = 1 broadcast and the optional initial state."""
 from __future__ import annotations
 
 from typing import Optional, Tuple
@@ -13,7 +13,7 @@ from repro_torch.kernels.mamba2.ref import ssd_reference
 launches = 0
 
 
-def _check(x, dt, A, Bm, Cm, h0, chunk: int) -> int:
+def _check(x, dt, A, Bm, Cm, h0, chunk: int) -> None:
     if x.ndim != 4 or Bm.ndim != 4:
         raise ValueError(f"ssd: x must be (B, S, H, P) and B/C (B, S, G, N),"
                          f" got {tuple(x.shape)}, {tuple(Bm.shape)}")
@@ -36,10 +36,9 @@ def _check(x, dt, A, Bm, Cm, h0, chunk: int) -> int:
     if S < 1 or chunk < 1:
         raise ValueError(f"ssd: needs S >= 1 and chunk >= 1, got S={S}, "
                          f"chunk={chunk}")
-    L = min(chunk, S)
-    if S % L:
-        raise ValueError(f"ssd: S={S} is not a multiple of the chunk {L}")
-    return L
+    if S % min(chunk, S):
+        raise ValueError(f"ssd: S={S} is not a multiple of the chunk "
+                         f"{min(chunk, S)}")
 
 
 def ssd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
@@ -47,38 +46,32 @@ def ssd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
         *, chunk: int = 128) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: (B,S,H,P); dt: (B,S,H); A: (H,); B/C: (B,S,G,N), n_groups G=1.
 
-    Returns (y (B,S,H,P) in x's dtype, final_state (B,H,P,N) f32). The scan
-    starts from a zero state; a nonzero ``h0`` is folded in afterwards (the
-    recurrence is linear in the state): y += (C e^{a_cs}) h0ᵀ and
-    S += e^{a_tot} h0, as the reference wrapper does. On a CUDA tensor one
-    kernel launch scans every (batch, head) in chunks of ``min(chunk, S)``
-    (which must divide S); on a CPU tensor the per-step plain version runs.
+    Returns (y (B,S,H,P) in x's dtype, final_state (B,H,P,N) f32), from the
+    state ``h0`` (zero without one). ``min(chunk, S)`` must divide S, as the
+    reference's wrapper asks; the result does not depend on it. On a CUDA
+    tensor one call launches the kernel's three passes (chunk states, the
+    carry over the chunks from ``h0``, the output) in chunks of its own; on
+    a CPU tensor the per-step plain version runs.
     """
     global launches
-    L = _check(x, dt, A, Bm, Cm, h0, chunk)
+    _check(x, dt, A, Bm, Cm, h0, chunk)
     dtf, Af = dt.float(), A.float()
     if x.device.type == "cpu":
-        y, hf = ssd_reference(x, dtf, Af, Bm, Cm)
-    elif x.device.type == "cuda":
-        Bsz, S, H, P = x.shape
-        N = Bm.shape[-1]
-        if P > MAX_DIM or N > MAX_DIM:
-            raise ValueError(f"ssd: the CUDA kernel takes P, N <= {MAX_DIM},"
-                             f" got P={P}, N={N}")
-        yf = torch.empty((Bsz, S, H, P), dtype=torch.float32, device=x.device)
-        hf = torch.empty((Bsz, H, P, N), dtype=torch.float32, device=x.device)
-        with torch.cuda.device(x.device):
-            ssd_cuda(x.float().contiguous(), dtf.contiguous(),
-                     Af.contiguous(), Bm[:, :, 0].float().contiguous(),
-                     Cm[:, :, 0].float().contiguous(), yf, hf, chunk=L)
-        launches += 1
-        y = yf.to(x.dtype)
-    else:
+        return ssd_reference(x, dtf, Af, Bm, Cm,
+                             h0=None if h0 is None else h0.float())
+    if x.device.type != "cuda":
         raise ValueError(f"ssd: no kernel for device {x.device}")
-    if h0 is not None:
-        a_cs = torch.cumsum(dtf * Af[None, None, :], dim=1)     # (B,S,H)
-        cdec = Cm[:, :, 0].float()                              # (B,S,N)
-        y = y + torch.einsum("bsn,bsh,bhpn->bshp", cdec, torch.exp(a_cs),
-                             h0).to(y.dtype)
-        hf = hf + h0 * torch.exp(a_cs[:, -1])[..., None, None]  # (B,H,1,1)
-    return y, hf
+    Bsz, S, H, P = x.shape
+    N = Bm.shape[-1]
+    if P > MAX_DIM or N > MAX_DIM:
+        raise ValueError(f"ssd: the CUDA kernel takes P, N <= {MAX_DIM}, "
+                         f"got P={P}, N={N}")
+    yf = torch.empty((Bsz, S, H, P), dtype=torch.float32, device=x.device)
+    hf = torch.empty((Bsz, H, P, N), dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        ssd_cuda(x.float().contiguous(), dtf.contiguous(), Af.contiguous(),
+                 Bm[:, :, 0].float().contiguous(),
+                 Cm[:, :, 0].float().contiguous(),
+                 None if h0 is None else h0.float().contiguous(), yf, hf)
+    launches += 1
+    return yf.to(x.dtype), hf

@@ -1,5 +1,5 @@
 """Public wrapper of the WKV6 template (B7): the (B, S, H, N) layout and
-the optional h0 fold-in."""
+the optional initial state."""
 from __future__ import annotations
 
 from typing import Optional, Tuple
@@ -43,38 +43,31 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
          h0: Optional[torch.Tensor] = None, *, chunk: int = 128
          ) -> Tuple[torch.Tensor, torch.Tensor]:
     """r/k/v/w_log: (B,S,H,N), w_log <= 0; u: (H,N). Returns (y (B,S,H,N)
-    in r's dtype, final_state (B,H,N,N) f32).
+    in r's dtype, final_state (B,H,N,N) f32), from the state ``h0`` (zero
+    without one).
 
-    The recurrence starts from a zero state; a nonzero ``h0`` is folded in
-    afterwards with one extra decay term: y += (r ⊙ e^{cum w - w}) h0 and
-    S_final += e^{tot} h0 (the recurrence is linear in the state), as the
-    reference wrapper does. ``min(chunk, S)`` must divide S and be a
-    multiple of 16; the subchunks chain the same way whatever it is. On a
-    CUDA tensor one kernel launch runs every (batch, head); on a CPU tensor
-    the per-step plain version runs.
+    ``min(chunk, S)`` must divide S and be a multiple of 16, as the
+    reference's wrapper asks; the result does not depend on it. On a CUDA
+    tensor one call launches the kernel's three passes (chunk states, the
+    carry over the chunks from ``h0``, the output) in chunks of its own; on
+    a CPU tensor the per-step plain version runs.
     """
     global launches
     _check(r, k, v, w_log, u, h0, chunk)
     wf = w_log.float()
+    h0f = None if h0 is None else h0.float()
     if r.device.type == "cpu":
-        y, hf = wkv6_reference(r, k, v, wf, u)
-    elif r.device.type == "cuda":
-        B, S, H, N = r.shape
-        if N > MAX_DIM:
-            raise ValueError(f"wkv6: the CUDA kernel takes N <= {MAX_DIM}, "
-                             f"got N={N}")
-        yf = torch.empty((B, S, H, N), dtype=torch.float32, device=r.device)
-        hf = torch.empty((B, H, N, N), dtype=torch.float32, device=r.device)
-        with torch.cuda.device(r.device):
-            wkv6_cuda(*(t.float().contiguous() for t in (r, k, v, wf, u)),
-                      yf, hf)
-        launches += 1
-        y = yf.to(r.dtype)
-    else:
+        return wkv6_reference(r, k, v, wf, u, h0=h0f)
+    if r.device.type != "cuda":
         raise ValueError(f"wkv6: no kernel for device {r.device}")
-    if h0 is not None:
-        cum = torch.cumsum(wf, dim=1)                     # (B,S,H,N)
-        rdec = r.float() * torch.exp(cum - wf)            # e^{c_{t-1}}
-        y = y + torch.einsum("bshn,bhnp->bshp", rdec, h0).to(y.dtype)
-        hf = hf + h0 * torch.exp(cum[:, -1])[..., None]   # (B,H,N,1) key decay
-    return y, hf
+    B, S, H, N = r.shape
+    if N > MAX_DIM:
+        raise ValueError(f"wkv6: the CUDA kernel takes N <= {MAX_DIM}, "
+                         f"got N={N}")
+    yf = torch.empty((B, S, H, N), dtype=torch.float32, device=r.device)
+    hf = torch.empty((B, H, N, N), dtype=torch.float32, device=r.device)
+    with torch.cuda.device(r.device):
+        wkv6_cuda(*(t.float().contiguous() for t in (r, k, v, wf, u)),
+                  None if h0f is None else h0f.contiguous(), yf, hf)
+    launches += 1
+    return yf.to(r.dtype), hf

@@ -5,7 +5,9 @@ within the reference's 2e-5 in f32 and 0.03 in bf16, bf16 also within
 ``BF16_REL_RMS_BAR`` of each 128-row block's rms, on the variant its
 routing names and on ``simt`` at every bf16 shape; B3 within 1e-5; B4 bit
 for bit, each of its two variants launched directly and through the
-wrapper; B6/B7 within 1e-4 on y and the final state), the emulator on CUDA against the golden sets and its own
+wrapper; B6/B7 within 1e-4 on y and the final state of the per-step plain version
+and of the chunked forms ``ssd_chunked``/``wkv6_chunked``, also at decay
+extremes), the emulator on CUDA against the golden sets and its own
 plain path, and the LM server with B5 against its plain attention path.
 
 Imports nothing of JAX, so it also runs where JAX is not installed:
@@ -44,6 +46,8 @@ from repro_torch.kernels.quant_matmul import (quant_matmul, quant_matmul_cuda,
 from repro_torch.kernels.rwkv6 import ops as wkv_ops
 from repro_torch.kernels.rwkv6 import wkv6, wkv6_reference
 from repro_torch.model.lm import Stepper
+from repro_torch.model.rwkv import wkv6_chunked
+from repro_torch.model.ssm import ssd_chunked
 from repro_torch.quant.fixedpoint import FxpFormat
 from repro_torch.quant.ptq import Int8Params, quantize_params_int8
 from repro_torch.rtl.emulator import RTLEmulator, assert_bit_exact
@@ -562,57 +566,121 @@ def test_carried_int8_codes_stay_k_major_on_the_card(cuda):
 
 
 # (B, S, H, P, N, chunk): the reference's B6 test shapes, a ragged row block
-# (chunk 96 = 64 + 32 rows), and Zamba2's P = N = 64 at chunks 128 and 256
+# (chunk 96 = 64 + 32 rows), Zamba2's P = N = 64 at chunks 128 and 256,
+# 4,096 steps at full head width (32 of the kernel's own 128-step chunks),
+# and lengths that are no multiple of the kernel's chunk (caller chunks 40
+# and 96)
 SSD_SHAPES = [(2, 64, 4, 16, 16, 16), (1, 128, 2, 32, 16, 16),
               (1, 192, 3, 16, 8, 96), (1, 512, 2, 64, 64, 128),
-              (1, 512, 2, 64, 64, 256), (2, 40, 1, 5, 3, 128)]
+              (1, 512, 2, 64, 64, 256), (2, 40, 1, 5, 3, 128),
+              (1, 4096, 2, 64, 64, 128), (1, 200, 2, 64, 64, 40),
+              (1, 288, 3, 16, 8, 96)]
+
+
+def _ssd_inputs(rng, B, S, H, P, N, with_h0, device, A_value=None):
+    """tests/test_kernels.py::test_mamba2_kernel's distributions; A_value
+    sets every head's A."""
+    def t(a):
+        return torch.as_tensor(a, dtype=torch.float32, device=device)
+
+    x = t(rng.standard_normal((B, S, H, P)) * 0.5)
+    dt = torch.nn.functional.softplus(t(rng.standard_normal((B, S, H))))
+    A = -torch.exp(t(rng.standard_normal(H) * 0.3))
+    if A_value is not None:
+        A = torch.full_like(A, A_value)
+    Bm = t(rng.standard_normal((B, S, 1, N)) * 0.5)
+    Cm = t(rng.standard_normal((B, S, 1, N)) * 0.5)
+    h0 = t(rng.standard_normal((B, H, P, N)) * 0.1) if with_h0 else None
+    return x, dt, A, Bm, Cm, h0
+
+
+def _hold(got, wants, bar=1e-4):
+    for want in wants:
+        for g, w in zip(got, want):
+            assert (g.double() - w.double()).abs().max().item() < bar
 
 
 @pytest.mark.parametrize("with_h0", [False, True])
 @pytest.mark.parametrize("B,S,H,P,N,chunk", SSD_SHAPES)
 def test_ssd_kernel_matches_plain(cuda, B, S, H, P, N, chunk, with_h0):
     rng = np.random.default_rng(S + H + P + N)
-
-    def t(a):
-        return torch.as_tensor(a, dtype=torch.float32, device=cuda)
-
-    x = t(rng.standard_normal((B, S, H, P)) * 0.5)
-    dt = torch.nn.functional.softplus(t(rng.standard_normal((B, S, H))))
-    A = -torch.exp(t(rng.standard_normal(H) * 0.3))
-    Bm = t(rng.standard_normal((B, S, 1, N)) * 0.5)
-    Cm = t(rng.standard_normal((B, S, 1, N)) * 0.5)
-    h0 = t(rng.standard_normal((B, H, P, N)) * 0.1) if with_h0 else None
+    x, dt, A, Bm, Cm, h0 = _ssd_inputs(rng, B, S, H, P, N, with_h0, cuda)
     before = ssd_ops.launches
     y, hf = ssd(x, dt, A, Bm, Cm, h0, chunk=chunk)
     assert ssd_ops.launches == before + 1
-    y_r, hf_r = ssd_reference(x, dt, A, Bm, Cm, h0=h0)
-    assert (y - y_r).abs().max().item() < 1e-4
-    assert (hf - hf_r).abs().max().item() < 1e-4
+    _hold((y, hf), (ssd_reference(x, dt, A, Bm, Cm, h0=h0),
+                    ssd_chunked(x, dt, A, Bm, Cm, chunk, h0=h0)))
 
 
-# (B, S, H, N, chunk): the reference's B7 test shapes, RWKV6's N = 64
+# decay extremes over two of the kernel's chunks: A = -20, where e^{a}
+# underflows within a chunk, and A = -1e-4, the long memory where e^{a_tot}
+# stays near 1 and y grows with the sequence. The plain version runs in
+# f64 there: at the long memory its f32 run drifts from the f64 recurrence
+# towards the bar and past it as the sequence grows (chip_smoke.py phase 11
+# prints by how much), so the bar would read the yardstick's own rounding
+@pytest.mark.parametrize("with_h0", [False, True])
+@pytest.mark.parametrize("A_value", [-20.0, -1e-4])
+def test_ssd_kernel_decay_extremes(cuda, A_value, with_h0):
+    rng = np.random.default_rng(17)
+    x, dt, A, Bm, Cm, h0 = _ssd_inputs(rng, 1, 256, 2, 64, 64, with_h0, cuda,
+                                       A_value)
+    y, hf = ssd(x, dt, A, Bm, Cm, h0, chunk=128)
+    f64 = [None if a is None else a.double() for a in (x, dt, A, Bm, Cm, h0)]
+    _hold((y, hf), (ssd_reference(*f64[:5], h0=f64[5]),
+                    ssd_chunked(x, dt, A, Bm, Cm, 128, h0=h0)))
+
+
+# (B, S, H, N, chunk): the reference's B7 test shapes, RWKV6's N = 64,
+# 4,096 steps at full head width (32 of the kernel's own 128-step chunks),
+# and lengths that are no multiple of the kernel's chunk (caller chunks 48
+# and 96)
 WKV_SHAPES = [(2, 64, 3, 16, 32), (1, 128, 2, 32, 32), (2, 32, 4, 16, 32),
-              (1, 256, 2, 64, 128), (1, 48, 1, 7, 16)]
+              (1, 256, 2, 64, 128), (1, 48, 1, 7, 16),
+              (1, 4096, 2, 64, 128), (1, 240, 2, 64, 48),
+              (1, 288, 3, 16, 96)]
+
+
+def _wkv_inputs(rng, B, S, H, N, with_h0, device, w_value=None):
+    """tests/test_kernels.py::test_wkv6_kernel's distributions; w_value sets
+    every log-decay."""
+    def t(a):
+        return torch.as_tensor(a, dtype=torch.float32, device=device)
+
+    r, k, v = (t(rng.standard_normal((B, S, H, N)) * 0.5) for _ in range(3))
+    w_log = -torch.exp(t(rng.standard_normal((B, S, H, N)) * 0.5))
+    if w_value is not None:
+        w_log = torch.full_like(w_log, w_value)
+    u = t(rng.standard_normal((H, N)) * 0.5)
+    h0 = t(rng.standard_normal((B, H, N, N)) * 0.1) if with_h0 else None
+    return r, k, v, w_log, u, h0
 
 
 @pytest.mark.parametrize("with_h0", [False, True])
 @pytest.mark.parametrize("B,S,H,N,chunk", WKV_SHAPES)
 def test_wkv6_kernel_matches_plain(cuda, B, S, H, N, chunk, with_h0):
     rng = np.random.default_rng(S + H + N)
-
-    def t(a):
-        return torch.as_tensor(a, dtype=torch.float32, device=cuda)
-
-    r, k, v = (t(rng.standard_normal((B, S, H, N)) * 0.5) for _ in range(3))
-    w_log = -torch.exp(t(rng.standard_normal((B, S, H, N)) * 0.5))
-    u = t(rng.standard_normal((H, N)) * 0.5)
-    h0 = t(rng.standard_normal((B, H, N, N)) * 0.1) if with_h0 else None
+    r, k, v, w_log, u, h0 = _wkv_inputs(rng, B, S, H, N, with_h0, cuda)
     before = wkv_ops.launches
     y, hf = wkv6(r, k, v, w_log, u, h0, chunk=chunk)
     assert wkv_ops.launches == before + 1
-    y_r, hf_r = wkv6_reference(r, k, v, w_log, u, h0=h0)
-    assert (y - y_r).abs().max().item() < 1e-4
-    assert (hf - hf_r).abs().max().item() < 1e-4
+    _hold((y, hf), (wkv6_reference(r, k, v, w_log, u, h0=h0),
+                    wkv6_chunked(r, k, v, w_log, u, h0=h0, chunk=chunk)))
+
+
+# decay extremes over two of the kernel's chunks: w_log = -30, where every
+# step forgets the state, and -1e-4, the long memory; the plain version
+# runs in f64, as for B6: its f32 run drifts further from the f64
+# recurrence than B6's (chip_smoke.py phase 12 prints by how much)
+@pytest.mark.parametrize("with_h0", [False, True])
+@pytest.mark.parametrize("w_value", [-30.0, -1e-4])
+def test_wkv6_kernel_decay_extremes(cuda, w_value, with_h0):
+    rng = np.random.default_rng(19)
+    r, k, v, w_log, u, h0 = _wkv_inputs(rng, 1, 256, 2, 64, with_h0, cuda,
+                                        w_value)
+    y, hf = wkv6(r, k, v, w_log, u, h0, chunk=128)
+    f64 = [None if a is None else a.double() for a in (r, k, v, w_log, u, h0)]
+    _hold((y, hf), (wkv6_reference(*f64[:5], h0=f64[5]),
+                    wkv6_chunked(r, k, v, w_log, u, h0=h0, chunk=128)))
 
 
 def test_ssd_and_wkv6_refuse_widths_the_kernels_lack(cuda):
