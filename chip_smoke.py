@@ -63,7 +63,14 @@ reference test's bar, then timed beside its bound, its plain version and,
 where one exists, the PyTorch call that computes the same function:
 
 9. B3, the float LSTM window, at ``elastic-lstm`` over 65,536 windows
-   (1e-5; yardstick cuDNN's LSTM);
+   (1e-5; yardstick cuDNN's LSTM): the wrapper must route it to the
+   ``mma`` variant (split TF32 on ``mma.sync``); ``mma`` and ``simt`` are
+   also launched directly there and at the reference's test shapes (and at
+   the widest ``mma`` cell with x × 30 against the f64 plain version,
+   2e-5; and with one window's x holding an Inf and a NaN, whose row of h
+   must be NaN), ``mma``'s MUFU activations are swept against the accurate
+   ones (1e-6), both variants are timed, and the SASS of ``mma``'s step
+   loop is counted per (window, step, unit);
 10. B4, the int8 matmul, at Yi-9B's MLP, 4096 <-> 11008, with weights
     quantized on the card by ``quantize_params_int8`` (stored K-major)
     and 2,048 or 4 rows of bf16 activations: the wrapper must route the
@@ -122,6 +129,9 @@ INT32_MAC_PER_S = 132 * 64 * 1.98e9
 # integer ALU pipe takes 64 lanes a clock, IMAD on the FMA pipe 64 more),
 # so no mix of int32 ops runs faster than 132 x 128 x 1.98e9 a second.
 INT32_ISSUE_PER_S = 132 * 128 * 1.98e9
+# The special-function unit (MUFU: ex2, rcp, ...) takes 16 lanes a clock an
+# SM, a quarter of a warp-instruction.
+MUFU_PER_S = 132 * 16 * 1.98e9
 # B1's elementwise work per (window, step, unit): the int32 operations the
 # cell's function needs (csrc/lstm_cell_int.cu's unit_update and gate
 # requants), none of a kernel's own data movement: four gate
@@ -167,6 +177,28 @@ SSD_H, SSD_P, SSD_N = 2 * 3584 // 64, 64, 64
 # 64, chunk 128): 64 heads of N = 64
 WKV_H, WKV_N, WKV_CHUNK = 4096 // 64, 64, 128
 B3_TOL, B4_TOL, B6_TOL, B7_TOL = 1e-5, 1e-3, 1e-4, 1e-4
+# the reference test's B3 shapes (tests/test_kernels.py:78), (B, S, d_in, H)
+B3_REF_SHAPES = ((64, 6, 1, 20), (128, 6, 1, 20), (32, 12, 4, 32),
+                 (200, 6, 1, 20))
+# B3 mma's activations against the accurate ones: points of [-30, 30]
+# (a step of 5e-6) and the bar on their difference
+B3_SWEEP, B3_ACT_TOL = 12_000_001, 1e-6
+# B3's MUFU work per (window, step, unit): the operations the cell's
+# function needs. Three sigmoids (i, f, o) and two tanh (g, c) take five
+# exponentials, e_z = exp(-z) for i, f, o and exp(-2z) for g, c (MUFU.EX2
+# after a multiply by log2 e). Over common denominators they take two
+# reciprocals (MUFU.RCP), not five:
+#   c' = sig(f) c + sig(i) tanh(g)
+#      = [c (1 + e_i)(1 + e_g) + (1 - e_g)(1 + e_f)]
+#        / [(1 + e_f)(1 + e_i)(1 + e_g)],
+#   h  = sig(o) tanh(c') = (1 - e_c) / [(1 + e_o)(1 + e_c)],
+# with each exponent clamped to 2^42 so that the product of three
+# denominators stays finite (the clamp moves a gate by under 2^-41). That
+# is 7. Both kernels issue 10, one reciprocal an activation; phase 9
+# prints the count in mma's SASS beside this one. An exponential computed
+# on the FMA pipe instead would trade MUFU work for issue slots, which
+# this bound does not count.
+B3_MUFU_OPS = 7
 
 
 def log(msg: str) -> None:
@@ -264,11 +296,15 @@ def drive(ops_by_name: dict, name: str, fn):
     return out, counts[name]
 
 
-def sass_iteration(lib_path, function_key: str, anchor: str = "IMMA"):
-    """Opcode counts of one unrolled loop iteration of a compiled kernel:
-    the instructions from one ``anchor`` to the next in the function whose
-    mangled name holds ``function_key`` (``cuobjdump -sass``, beside
-    ``nvcc``); None where the tool or the function is missing."""
+def sass_iteration(lib_path, function_key: str, anchor: str = "IMMA",
+                   loop: bool = False):
+    """Opcode counts of one loop iteration of a compiled kernel, in the
+    function whose mangled name holds ``function_key`` (``cuobjdump
+    -sass``, beside ``nvcc``): the instructions from one ``anchor`` to the
+    next (an unrolled loop with one ``anchor`` an iteration) or, with
+    ``loop``, the body of the innermost loop (a backward branch's range)
+    that holds an ``anchor``; None where the tool, the function or the
+    loop is missing."""
     from repro_torch.kernels import build
 
     tool = os.path.join(os.path.dirname(build.nvcc_path()), "cuobjdump")
@@ -281,11 +317,25 @@ def sass_iteration(lib_path, function_key: str, anchor: str = "IMMA"):
     for func in sass.split("Function : ")[1:]:
         if function_key not in func.splitlines()[0]:
             continue
-        ops = re.findall(
-            r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)", func)
-        marks = [i for i, op in enumerate(ops) if op == anchor]
-        if len(marks) >= 2:
-            return collections.Counter(ops[marks[0]:marks[1]])
+        code = [(int(addr, 16), op, rest) for addr, op, rest in re.findall(
+            r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)"
+            r"([^;]*);", func)]
+        ops = [op for _, op, _ in code]
+        if not loop:
+            marks = [i for i, op in enumerate(ops) if op == anchor]
+            if len(marks) >= 2:
+                return collections.Counter(ops[marks[0]:marks[1]])
+            continue
+        bodies = []
+        for addr, op, rest in code:
+            target = re.search(r"0x([0-9a-f]+)", rest)
+            if op == "BRA" and target and int(target.group(1), 16) < addr:
+                body = [o for a, o, _ in code
+                        if int(target.group(1), 16) <= a <= addr]
+                if anchor in body:
+                    bodies.append(body)
+        if bodies:
+            return collections.Counter(min(bodies, key=len))
     return None
 
 
@@ -341,32 +391,106 @@ def max_err(got, want) -> float:
 def phase_b3(ops_by_name: dict) -> dict:
     """B3, the float LSTM window, at ``elastic-lstm`` (Table I: H = 20,
     S = 6, d_in = 1) over 65,536 windows, and at the reference test's
-    widest shape (32, 12, 4, 32)."""
+    shapes. The wrapper must route Table I to ``mma``; both variants are
+    also launched directly there, ``mma``'s MUFU activations are swept
+    against the accurate ones, and both variants are timed beside the
+    plain version and cuDNN's LSTM."""
     import torch
 
     from repro_torch.configs import get_config
+    from repro_torch.kernels import build
     from repro_torch.kernels.lstm_cell import (lstm_window, lstm_window_cuda,
                                                lstm_window_ref)
+    from repro_torch.kernels.lstm_cell import ops as lstm_f_ops
+    from repro_torch.kernels.lstm_cell.kernel import activation_sweep
 
     c = get_config("elastic-lstm").lstm
     B, S, din, H = B3_WINDOWS, c.seq_len, c.in_features, c.hidden
     gen = torch.Generator(device="cuda").manual_seed(SEED + 9)
     x, w, b = (randn(gen, B, S, din), randn(gen, din + H, 4 * H, scale=0.3),
                randn(gen, 4 * H, scale=0.1))
+    lstm_f_ops.launches_by_variant = dict.fromkeys(
+        lstm_f_ops.launches_by_variant, 0)
     got, n = drive(ops_by_name, "lstm_cell", lambda: lstm_window(x, w, b))
-    err = max_err(got, lstm_window_ref(x, w, b))
-    args2 = (randn(gen, 32, 12, 4), randn(gen, 36, 128, scale=0.3),
-             randn(gen, 128, scale=0.1))
-    err = max(err, max_err(lstm_window(*args2), lstm_window_ref(*args2)))
+    by_variant = dict(lstm_f_ops.launches_by_variant)
+    routed = lstm_f_ops.variant(x, w)
+    if routed != "mma" or by_variant != {"mma": n, "simt": 0}:
+        raise AssertionError(f"B3 at Table I routed {routed}, launches by "
+                             f"variant {by_variant}: want mma only")
+
+    def direct(args, name):
+        out = torch.full((args[0].shape[0], args[1].shape[1] // 4),
+                         float("nan"), device="cuda")
+        lstm_window_cuda(*args, out, block_b=128, variant=name)
+        return out
+
+    # Table I, then the reference test's shapes (test_kernels.py:78)
+    cases = [(x, w, b)] + [
+        (randn(gen, Bt, St, dt), randn(gen, dt + Ht, 4 * Ht, scale=0.3),
+         randn(gen, 4 * Ht, scale=0.1))
+        for Bt, St, dt, Ht in B3_REF_SHAPES]
+    errs = {"wrapper": 0.0, "mma": 0.0, "simt": 0.0}
+    for k, args in enumerate(cases):
+        want = lstm_window_ref(*args)
+        errs["wrapper"] = max(errs["wrapper"], max_err(
+            got if k == 0 else lstm_window(*args), want))
+        for name in ("mma", "simt"):
+            errs[name] = max(errs[name], max_err(direct(args, name), want))
+    err = max(errs.values())
     if err > B3_TOL:
-        raise AssertionError(f"B3 != plain version: max |err| {err:.3g} > "
+        raise AssertionError(f"B3 != plain version: max |err| {errs} > "
                              f"{B3_TOL}")
+    # the widest mma cell with saturated gates: |z| reaches about 100,
+    # where f32 rounding alone moves h by about the bar, so the f32 plain
+    # version and both kernels are held to the f64 plain version
+    wide = (randn(gen, 100, 6, 64, scale=30.0),
+            randn(gen, 128, 256, scale=0.3), randn(gen, 256, scale=0.1))
+    want64 = lstm_window_ref(*(t.double() for t in wide))
+    wide_err = {name: (got64.double() - want64).abs().max().item()
+                for name, got64 in (("plain f32", lstm_window_ref(*wide)),
+                                    ("mma", direct(wide, "mma")),
+                                    ("simt", direct(wide, "simt")))}
+    if max(wide_err["mma"], wide_err["simt"]) > 2 * B3_TOL:
+        raise AssertionError(f"B3 at (64, 64), x x 30, against f64: "
+                             f"{wide_err} > {2 * B3_TOL}")
+    # a window whose x holds an Inf, then a NaN: NaN in its row of h in
+    # both variants, as in the plain version; the other rows unmoved
+    bad = [t.clone() for t in cases[3]]
+    bad[0][5, 1, 0], bad[0][5, 4, -1] = float("inf"), float("nan")
+    want = lstm_window_ref(*bad)
+    for name in ("mma", "simt"):
+        got_bad = direct(bad, name)
+        rest = torch.arange(len(got_bad), device="cuda") != 5
+        if not (torch.isnan(got_bad[5]).all() and torch.isnan(want[5]).all()
+                and max_err(got_bad[rest], want[rest]) <= B3_TOL):
+            raise AssertionError(f"B3 {name}: a NaN window's row is "
+                                 f"{got_bad[5].tolist()}")
     log(f"phase 9 B3 = plain version at (B, S, d_in, H) = ({B}, {S}, {din}, "
-        f"{H}) and (32, 12, 4, 32): max |err| {err:.3g} (bar {B3_TOL}); "
-        f"launches {n}")
+        f"{H}) and the reference's {B3_REF_SHAPES}: max |err| through the "
+        f"wrapper {errs['wrapper']:.3g}, mma launched directly "
+        f"{errs['mma']:.3g}, simt {errs['simt']:.3g} (bar {B3_TOL}); a "
+        f"window holding an Inf and a NaN gives a NaN row in both; wrapper "
+        f"launches {n}, by variant {json.dumps(by_variant)}")
+    log("phase 9 B3 widest mma cell (d_in, H) = (64, 64), x x 30, against "
+        "the f64 plain version: " + ", ".join(
+            f"{k} {v:.3g}" for k, v in wide_err.items())
+        + f" (bar for the kernels {2 * B3_TOL})")
+    z = torch.linspace(-30, 30, B3_SWEEP, device="cuda")
+    act = activation_sweep(z)
+    sweep = {"sigmoid": max_err(act[:, 0], act[:, 1]),
+             "tanh": max_err(act[:, 2], act[:, 3])}
+    if max(sweep.values()) > B3_ACT_TOL:
+        raise AssertionError(f"B3 mma activations != accurate forms: "
+                             f"{sweep} > {B3_ACT_TOL}")
+    log(f"phase 9 B3 mma's MUFU activations against expf/IEEE reciprocal/"
+        f"tanhf over {B3_SWEEP:,} points of [-30, 30]: max |diff| sigmoid "
+        f"{sweep['sigmoid']:.3g}, tanh {sweep['tanh']:.3g} (bar "
+        f"{B3_ACT_TOL})")
+
     out = torch.empty((B, H), device="cuda")
-    ms = time_ms(functools.partial(lstm_window_cuda, x, w, b, out,
-                                   block_b=128))
+    ms = {name: time_ms(functools.partial(
+        lstm_window_cuda, x, w, b, out, block_b=128, variant=name))
+        for name in ("mma", "simt")}
     plain = time_ms(functools.partial(lstm_window_ref, x, w, b), reps=5)
     # the library call: cuDNN's LSTM (gate order i, f, g, o, as B3's)
     lstm = torch.nn.LSTM(din, H, batch_first=True).cuda()
@@ -377,16 +501,49 @@ def phase_b3(ops_by_name: dict) -> dict:
         lstm.bias_hh_l0.zero_()
         lib_err = max_err(lstm(x)[1][0][0], got)
         lib = events_ms(lambda: lstm(x), reps=20)
-    bnd, by = bound_ms(4 * (B * S * din + (din + H) * 4 * H + 4 * H + B * H),
-                       2 * B * S * (din + H) * 4 * H, F32_FLOP_PER_S)
-    log(f"phase 9 B3 timing at {B} windows: kernel {ms:.4f} ms, plain "
-        f"{plain:.4f} ms, cuDNN LSTM {lib:.4f} ms (max |cuDNN - kernel| "
-        f"{lib_err:.3g}), bound {bnd:.4f} ms ({by})")
-    return {"name": "lstm_cell", "route": "cuda",
+    # the bounds: bytes; the gate product's multiply-adds as f32 FMAs
+    # (simt) or as three TF32 products (mma); the MUFU work the cell's
+    # activations need (B3_MUFU_OPS)
+    macs = B * S * (din + H) * 4 * H
+    bounds = {
+        "bytes": bound_ms(4 * (B * S * din + (din + H) * 4 * H + 4 * H
+                               + B * H), 0)[0],
+        "f32 FMAs": bound_ms(0, 2 * macs, F32_FLOP_PER_S)[0],
+        "split TF32": bound_ms(0, 3 * 2 * macs, TF32_FLOP_PER_S)[0],
+        "MUFU": bound_ms(0, B * S * H * B3_MUFU_OPS, MUFU_PER_S)[0]}
+    applicable = {"mma": ("bytes", "split TF32", "MUFU"),
+                  "simt": ("bytes", "f32 FMAs", "MUFU")}[routed]
+    by_term = max(applicable, key=bounds.get)
+    bnd = bounds[by_term]
+    log(f"phase 9 B3 timing at {B} windows: " + ", ".join(
+        f"{k} {t:.4f} ms" for k, t in ms.items()) + f"; plain {plain:.4f} "
+        f"ms, cuDNN LSTM {lib:.4f} ms (max |cuDNN - kernel| {lib_err:.3g}); "
+        "bounds " + ", ".join(f"{k} {t:.4f}" for k, t in bounds.items())
+        + f" ms; routed {routed}, bound {bnd:.4f} ms ({by_term})")
+    # what the compiler made of one (window, step, unit) of Table I's mma
+    # instance (10 n8 tiles, 3 k8 steps, two tiles a warp): its step loop
+    # holds, for each lane, 10 units of each of its 2 tiles
+    ops = sass_iteration(build.library_path("lstm_cell"),
+                         "lstm_mma_kernelILi10ELi3ELi2E", anchor="HMMA",
+                         loop=True)
+    if ops is None:
+        log("phase 9 B3 mma SASS: not measured (no cuobjdump)")
+    else:
+        per = 10 * 2
+        n_instr = sum(ops.values()) / per
+        mufu = ops["MUFU"] / per
+        log(f"phase 9 B3 mma<10, 3, 2> SASS: {n_instr:g} instructions a "
+            f"lane per (window, step, unit), "
+            f"{bound_ms(0, B * S * H * n_instr, INT32_ISSUE_PER_S)[0]:.4f} "
+            f"ms to issue at 128 a clock an SM; MUFU {mufu:g} (the "
+            f"function needs B3_MUFU_OPS = {B3_MUFU_OPS}): " + ", ".join(
+                f"{op} {k / per:g}" for op, k in ops.most_common()))
+    return {"name": "lstm_cell", "route": "cuda", "variant": routed,
             "source": "src/repro_torch/csrc/lstm_cell.cu",
             "replaces": "src/repro/kernels/lstm_cell/kernel.py:23",
-            "launches": n, "max_abs_err": err, "ms": ms, "plain_ms": plain,
-            "bound_ms": bnd, "bound_by": by, "library_ms": lib}
+            "launches": n, "max_abs_err": err, "ms": ms[routed],
+            "plain_ms": plain, "bound_ms": bnd, "bound_by": "bytes"
+            if by_term == "bytes" else "operations", "library_ms": lib}
 
 
 def rotating(fn, *arg_lists):

@@ -3,11 +3,22 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.lstm_cell.kernel import lstm_window_cuda
+from repro_torch.kernels.lstm_cell.kernel import lstm_window_cuda, mma_takes
 from repro_torch.kernels.lstm_cell.ref import lstm_window_ref
 
 #: kernel launches made by :func:`lstm_window` (CPU calls do not count)
 launches = 0
+#: ... and by the variant :func:`variant` chose
+launches_by_variant = {"mma": 0, "simt": 0}
+
+
+def variant(x: torch.Tensor, w: torch.Tensor) -> str:
+    """The kernel a CUDA call with these operands launches, decided from
+    their shapes alone: ``"mma"`` (the gate product in split TF32 on the
+    tensor cores) for hidden <= 64 and d_in + hidden <= 128 (Table I, the
+    reference test's shapes), ``"simt"`` (f32 FMAs on the CUDA cores) for
+    the rest."""
+    return "mma" if mma_takes(x.shape[2], w.shape[1] // 4) else "simt"
 
 
 def _check(x, w, b, block_b: int) -> None:
@@ -35,8 +46,10 @@ def lstm_window(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, *,
     """(B, S, d_in) × fused gate weights -> final hidden (B, hidden).
 
     On a CUDA tensor one kernel launch runs every step for every window,
-    ``block_b`` windows to a block (fewer if shared memory is short; the
-    ragged last block is masked, not padded); on a CPU tensor the plain
+    the one :func:`variant` names: ``simt`` takes ``block_b`` windows to a
+    block (fewer if shared memory is short), ``mma`` its fixed tiles of 16
+    windows and ignores ``block_b``; the result does not depend on it, and
+    the ragged last tile is masked, not padded. On a CPU tensor the plain
     version runs.
     """
     global launches
@@ -49,8 +62,10 @@ def lstm_window(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, *,
                       device=x.device)
     if x.shape[0] == 0:
         return out
+    name = variant(x, w)
     with torch.cuda.device(x.device):
         lstm_window_cuda(x.contiguous(), w.contiguous(), b.contiguous(), out,
-                         block_b=block_b)
+                         block_b=block_b, variant=name)
     launches += 1
+    launches_by_variant[name] += 1
     return out

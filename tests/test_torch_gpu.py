@@ -3,7 +3,8 @@ kernel against its plain version (exact integer equality for B1/B2, B1's
 ``mma`` and ``simt`` variants each through the wrapper and directly; B5
 within the reference's 2e-5 in f32 and 0.03 in bf16, bf16 also within
 ``BF16_REL_RMS_BAR`` of each 128-row block's rms, on the variant its
-routing names and on ``simt`` at every bf16 shape; B3 within 1e-5; B4 bit
+routing names and on ``simt`` at every bf16 shape; B3 within 1e-5, its
+``mma`` and ``simt`` variants each through the wrapper and directly; B4 bit
 for bit, each of its two variants launched directly and through the
 wrapper; B6/B7 within 1e-4 on y and the final state of the per-step plain version
 and of the chunked forms ``ssd_chunked``/``wkv6_chunked``, also at decay
@@ -29,8 +30,10 @@ from repro_torch.kernels.flash_attention import (attention_ref,
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.flash_attention.ref import (BF16_REL_RMS_BAR,
                                                      rel_rms_by_block)
-from repro_torch.kernels.lstm_cell import lstm_window, lstm_window_ref
+from repro_torch.kernels.lstm_cell import (lstm_window, lstm_window_cuda,
+                                           lstm_window_ref)
 from repro_torch.kernels.lstm_cell import ops as lstm_f_ops
+from repro_torch.kernels.lstm_cell.kernel import activation_sweep, mma_takes
 from repro_torch.kernels.lstm_cell_int import (CellSpec, lstm_window_int,
                                                lstm_window_int_cuda,
                                                lstm_window_int_ref)
@@ -403,21 +406,180 @@ LSTM_SHAPES = [(64, 6, 1, 20, 128), (128, 6, 1, 20, 128), (32, 12, 4, 32, 128),
                (70, 3, 100, 128, 128)]      # W (0.5 MB) read from global
 
 
+B3_TOL = 1e-5                  # the reference test's bar (test_kernels.py:88)
+
+
+def _b3_case(B, S, din, hid, device, x_scale=1.0, seed=None):
+    """The reference test's distributions, x scaled by ``x_scale``; the
+    seed is ``B + S + din + hid`` unless given."""
+    rng = np.random.default_rng(B + S + din + hid if seed is None else seed)
+    x = torch.as_tensor(rng.standard_normal((B, S, din)) * x_scale,
+                        dtype=torch.float32, device=device)
+    w = torch.as_tensor(rng.standard_normal((din + hid, 4 * hid)) * 0.3,
+                        dtype=torch.float32, device=device)
+    b = torch.as_tensor(rng.standard_normal(4 * hid) * 0.1,
+                        dtype=torch.float32, device=device)
+    torch.backends.cuda.matmul.allow_tf32 = False   # the plain version in f32
+    return x, w, b
+
+
+def _b3_direct(variant, x, w, b, bb=128):
+    """One launch of the named variant, into an output poisoned with NaN."""
+    out = torch.full((x.shape[0], w.shape[1] // 4), float("nan"),
+                     device=x.device)
+    lstm_window_cuda(x, w, b, out, block_b=bb, variant=variant)
+    torch.cuda.synchronize()
+    return out
+
+
+def _b3_err(got, x, w, b):
+    return (got - lstm_window_ref(x, w, b)).abs().max().item()
+
+
 @pytest.mark.parametrize("B,S,din,hid,bb", LSTM_SHAPES)
 def test_lstm_window_float_kernel_matches_plain(cuda, B, S, din, hid, bb):
-    rng = np.random.default_rng(B + S + hid)
-    x = torch.as_tensor(rng.standard_normal((B, S, din)), dtype=torch.float32,
-                        device=cuda)
-    w = torch.as_tensor(rng.standard_normal((din + hid, 4 * hid)) * 0.3,
-                        dtype=torch.float32, device=cuda)
-    b = torch.as_tensor(rng.standard_normal(4 * hid) * 0.1,
-                        dtype=torch.float32, device=cuda)
-    torch.backends.cuda.matmul.allow_tf32 = False
+    """Through the wrapper, which launches the variant its routing names."""
+    x, w, b = _b3_case(B, S, din, hid, cuda, seed=B + S + hid)
+    name = lstm_f_ops.variant(x, w)
     before = lstm_f_ops.launches
+    by_variant = dict(lstm_f_ops.launches_by_variant)
     got = lstm_window(x, w, b, block_b=bb)
     assert lstm_f_ops.launches == before + 1
+    by_variant[name] += 1
+    assert lstm_f_ops.launches_by_variant == by_variant
     assert got.shape == (B, hid) and got.dtype == torch.float32
-    assert (got - lstm_window_ref(x, w, b)).abs().max().item() < 1e-5
+    assert _b3_err(got, x, w, b) < B3_TOL
+
+
+@pytest.mark.parametrize("variant,B,S,din,hid,bb", [
+    (v, *shape) for v in ("mma", "simt") for shape in LSTM_SHAPES
+    if v == "simt" or mma_takes(shape[2], shape[3])])
+def test_lstm_window_float_variants_launched_directly(cuda, variant, B, S,
+                                                     din, hid, bb):
+    """Each variant at every shape inside its envelope (simt: all)."""
+    x, w, b = _b3_case(B, S, din, hid, cuda)
+    assert _b3_err(_b3_direct(variant, x, w, b, bb), x, w, b) < B3_TOL
+
+
+# one cell for each mma instance (n8 tiles x k8 steps: (10, 3), (10, 5),
+# (10, 8), (10, 16), (16, 3), (16, 5), (16, 8), (16, 16), (32, 5), (32, 8),
+# (32, 16), the last with W split at each use), with d_in = 0 (the A tile
+# holds h alone) and an odd H (a padded unit); (d_in, H)
+MMA_CELLS = [(0, 20), (3, 13), (1, 20), (20, 20), (40, 20), (100, 20),
+             (2, 22), (4, 32), (32, 32), (96, 32), (1, 39), (1, 63),
+             (64, 64)]
+
+
+@pytest.mark.parametrize("variant", ["mma", "simt"])
+@pytest.mark.parametrize("din,hid", MMA_CELLS)
+def test_lstm_window_float_every_mma_instance(cuda, din, hid, variant):
+    x, w, b = _b3_case(70, 5, din, hid, cuda)
+    assert _b3_err(_b3_direct(variant, x, w, b), x, w, b) < B3_TOL
+
+
+@pytest.mark.parametrize("shape,want", [((4096, 6, 1, 20), "mma"),
+                                        ((32, 12, 4, 32), "mma"),
+                                        ((70, 3, 100, 128), "simt")])
+def test_lstm_window_float_routing_on_card(cuda, shape, want):
+    x, w, b = _b3_case(*shape, cuda)
+    lstm_f_ops.launches_by_variant = dict.fromkeys(
+        lstm_f_ops.launches_by_variant, 0)
+    got = lstm_window(x, w, b)
+    assert lstm_f_ops.launches_by_variant == {"mma": 0, "simt": 0, want: 1}
+    assert _b3_err(got, x, w, b) < B3_TOL
+
+
+@pytest.mark.parametrize("variant", ["mma", "simt"])
+@pytest.mark.parametrize("bb", [7, 64])
+@pytest.mark.parametrize("B", [1, 15, 17, 200])
+def test_lstm_window_float_ragged_batches(cuda, B, bb, variant):
+    """Ragged 16-window tiles (mma) and blocks (simt); bb changes no bit."""
+    x, w, b = _b3_case(B, 6, 1, 20, cuda)
+    got = _b3_direct(variant, x, w, b, bb)
+    assert _b3_err(got, x, w, b) < B3_TOL
+    assert torch.equal(got, _b3_direct(variant, x, w, b, 128))
+
+
+@pytest.mark.parametrize("variant", ["mma", "simt"])
+def test_lstm_window_float_zero_steps_give_zero(cuda, variant):
+    x, w, b = _b3_case(33, 0, 1, 20, cuda)
+    assert torch.equal(_b3_direct(variant, x, w, b),
+                       torch.zeros(33, 20, device=cuda))
+
+
+@pytest.mark.parametrize("variant", ["mma", "simt"])
+@pytest.mark.parametrize("din,hid", [(1, 20), (4, 32)])
+def test_lstm_window_float_long_window_does_not_drift(cuda, din, hid,
+                                                      variant):
+    """256 steps: several of mma's x chunks, and every step's rounding fed
+    back through h and c."""
+    x, w, b = _b3_case(100, 256, din, hid, cuda)
+    assert _b3_err(_b3_direct(variant, x, w, b), x, w, b) < B3_TOL
+
+
+@pytest.mark.parametrize("variant", ["mma", "simt"])
+@pytest.mark.parametrize("din,hid", [(1, 20), (4, 32)])
+def test_lstm_window_float_saturated_gates(cuda, din, hid, variant):
+    """x scaled by 30: most gates sit in the tails of sigmoid and tanh."""
+    x, w, b = _b3_case(100, 6, din, hid, cuda, x_scale=30.0)
+    assert _b3_err(_b3_direct(variant, x, w, b), x, w, b) < B3_TOL
+
+
+@pytest.mark.parametrize("variant", ["mma", "simt"])
+@pytest.mark.parametrize("din,hid", [(1, 20), (4, 32)])
+def test_lstm_window_float_nan_window_gives_nan_row(cuda, din, hid,
+                                                    variant):
+    """A window whose x holds an Inf and, later, a NaN: its row of h is NaN
+    in both variants, as in the plain version (mma's exponent clamp lets a
+    NaN through), and every other row still matches the plain version."""
+    x, w, b = _b3_case(40, 6, din, hid, cuda)
+    x[17, 1, 0], x[17, 4, din - 1] = float("inf"), float("nan")
+    got, want = _b3_direct(variant, x, w, b), lstm_window_ref(x, w, b)
+    assert torch.isnan(want[17]).all() and torch.isnan(got[17]).all()
+    rest = torch.arange(40, device=cuda) != 17
+    assert torch.isfinite(got[rest]).all()
+    assert (got[rest] - want[rest]).abs().max().item() < B3_TOL
+
+
+@pytest.mark.parametrize("variant", ["mma", "simt"])
+def test_lstm_window_float_saturated_widest_cell_against_f64(cuda, variant):
+    """The widest mma cell, (d_in, H) = (64, 64), with x scaled by 30: the
+    gate sums reach |z| ~ 100, where f32 rounding alone moves h by about
+    1e-5 (chip_smoke.py phase 9 prints the f32 plain version's own
+    distance from the f64 recurrence), so the f32 plain version cannot
+    referee a 1e-5 bar; both variants are held to the f64 plain version
+    within twice that bar."""
+    x, w, b = _b3_case(100, 6, 64, 64, cuda, x_scale=30.0)
+    want = lstm_window_ref(x.double(), w.double(), b.double())
+    got = _b3_direct(variant, x, w, b).double()
+    assert (got - want).abs().max().item() < 2 * B3_TOL
+
+
+def test_lstm_window_float_mufu_activations_match_accurate(cuda):
+    """mma's activations (ex2.approx, rcp.approx and a Newton step) against
+    simt's accurate ones over a dense sweep of [-30, 30]."""
+    z = torch.linspace(-30, 30, 2_000_001, device=cuda)
+    sig_mufu, sig, tanh_mufu, tanh = activation_sweep(z).unbind(1)
+    assert (sig_mufu - sig).abs().max().item() <= 1e-6
+    assert (tanh_mufu - tanh).abs().max().item() <= 1e-6
+    assert (sig - torch.sigmoid(z)).abs().max().item() <= 1e-6
+    assert (tanh - torch.tanh(z)).abs().max().item() <= 1e-6
+
+
+def test_lstm_window_float_mma_launcher_refuses_outside_its_envelope(cuda):
+    """The C launcher itself returns an error for a cell mma has no
+    instance for (the Python launcher raises before it is reached)."""
+    from repro_torch.kernels.lstm_cell import kernel as lstm_f_kernel
+
+    x, w, b = _b3_case(16, 3, 1, 65, cuda)
+    out = torch.empty(16, 65, device=cuda)
+    err = lstm_f_kernel._lib().lstm_cell_launch(
+        x.data_ptr(), w.data_ptr(), b.data_ptr(), out.data_ptr(), 16, 3, 1,
+        65, 128, lstm_f_kernel.VARIANTS["mma"],
+        torch.cuda.current_stream().cuda_stream)
+    assert err != 0
+    with pytest.raises(ValueError, match="mma kernel does not take"):
+        _b3_direct("mma", x, w, b)
 
 
 # the reference's B4 test shapes (M, K, N), then ragged M/K/N, a decode tick

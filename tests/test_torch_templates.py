@@ -25,7 +25,7 @@ from repro.model.rwkv import wkv6_step as j_wkv6_step
 from repro.model.ssm import ssd_reference as j_ssd_reference
 from repro.model.ssm import ssd_step as j_ssd_step
 from repro.quant.ptq import quantize_params_int8 as j_quantize_params_int8
-from repro_torch.kernels.lstm_cell import lstm_window
+from repro_torch.kernels.lstm_cell import lstm_window, lstm_window_cuda
 from repro_torch.kernels.lstm_cell import ops as lstm_ops
 from repro_torch.kernels.mamba2 import ops as ssd_ops
 from repro_torch.kernels.mamba2 import ssd
@@ -91,6 +91,36 @@ def test_lstm_cell_step_matches_reference():
     want = j_lstm_cell_step(*map(jnp.asarray, (w, b, x, h, c)))
     for g, r in zip(got, want):
         assert _err(g, r) < 1e-6
+
+
+# B3's routing between its two CUDA kernels, decided from shapes alone;
+# (d_in, H): mma takes H <= 64 and d_in + H <= 128
+@pytest.mark.parametrize("din,hid,want", [
+    (1, 20, "mma"), (4, 32, "mma"), (0, 20, "mma"), (64, 64, "mma"),
+    (1, 64, "mma"), (100, 28, "mma"), (65, 64, "simt"), (1, 65, "simt"),
+    (3, 100, "simt"), (100, 128, "simt"), (101, 28, "simt")])
+def test_lstm_float_variant_routes_by_shape(din, hid, want):
+    x, w = torch.zeros(2, 6, din), torch.zeros(din + hid, 4 * hid)
+    assert lstm_ops.variant(x, w) == want
+
+
+def test_lstm_float_counts_no_launch_on_the_cpu():
+    x, w, b = map(torch.from_numpy, _lstm_case((20, 6, 1, 20)))
+    assert lstm_ops.variant(x, w) == "mma"
+    before = (lstm_ops.launches, dict(lstm_ops.launches_by_variant))
+    lstm_window(x, w, b)
+    assert (lstm_ops.launches, lstm_ops.launches_by_variant) == before
+
+
+def test_lstm_window_cuda_refuses_what_its_variant_cannot_take():
+    """Raised before any kernel is loaded: no fallback to the other
+    variant."""
+    x, w, b = map(torch.from_numpy, _lstm_case((4, 6, 1, 65)))
+    out = torch.empty(4, 65)
+    with pytest.raises(ValueError, match="mma kernel does not take"):
+        lstm_window_cuda(x, w, b, out, block_b=128, variant="mma")
+    with pytest.raises(ValueError, match="unknown variant"):
+        lstm_window_cuda(x, w, b, out, block_b=128, variant="wgmma")
 
 
 # ---- B4 ---------------------------------------------------------------------
