@@ -94,7 +94,24 @@ where one exists, the PyTorch call that computes the same function:
     4,096 steps, with and without h0 (1e-4, per-step oracle and
     ``wkv6_chunked`` in f64), and at the decay extremes w_log = -30 and
     -1e-4 (both in f64); its passes as for B6;
-13. print the kernels line and the card's name and power limit.
+
+The Elastic Node's toolchain and verification half on both canonical
+designs, through the entry points a user calls, on the card:
+
+13. static analysis (no error diagnostic; each report's SHA-256), the
+    cost model (Table I: 5,237 cycles), emission (``manifest.json`` equal
+    to the checked-in golden manifest byte for byte, every artifact
+    written to a temporary directory and its SHA-256 printed), then
+    ``run_conformance(..., device="cuda")`` over the golden set plus
+    65,536 seeded windows in the three emulator modes and the float
+    oracle: modes bit-exact, oracle 0 LSB, golden match, host ms per mode
+    read from the ``verify.*`` spans, and B1/B2 launches by variant
+    counted around the call (set to 0 just before, read just after); one
+    more such call under ``torch.profiler`` (device busy, B1, B2, copies);
+    every traced edge of those windows inside the static intervals;
+    ``fuzz_template`` for every registered kind at four seeds; and
+    ``canary_check`` on a deployment holding a CUDA ``RTLEmulator``;
+14. print the kernels line and the card's name and power limit.
 
 Usage, from the repository root: ``python3 chip_smoke.py``. Needs one CUDA
 card and ``nvcc``; exits non-zero, printing no result, without them. The
@@ -386,6 +403,190 @@ def randn(gen, *shape, scale: float = 1.0):
 
 def max_err(got, want) -> float:
     return (got.float() - want.float()).abs().max().item()
+
+
+def card_name_and_limit() -> str:
+    """The card's name and power limit as ``nvidia-smi`` gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip()
+
+
+def sha256(data) -> str:
+    import hashlib
+
+    if isinstance(data, str):
+        data = data.encode()
+    return hashlib.sha256(data).hexdigest()
+
+
+def phase_toolchain(ops_by_name: dict, card: str) -> None:
+    """Phase 13: analysis, cost model, emission, conformance with the
+    kernels' launches counted, analysis soundness, fuzzing and the canary,
+    on both canonical designs."""
+    import tempfile
+    import types
+
+    import numpy as np
+    import torch
+
+    from repro_torch.obs import Tracer, find_spans, set_tracer
+    from repro_torch.rtl.analyze import analyze_graph
+    from repro_torch.rtl.emit import emit_graph, write_artifacts
+    from repro_torch.rtl.emulator import RTLEmulator
+    from repro_torch.rtl.oplib import list_templates
+    from repro_torch.rtl.resources import synthesize
+    from repro_torch.verify.conformance import (canary_check,
+                                                fuzz_template,
+                                                run_conformance)
+    from repro_torch.verify.vectors import (canonical_graph, golden_dir,
+                                            load_vectors)
+
+    lstm_ops, mac_ops = ops_by_name["lstm_cell_int"], ops_by_name["mac_int"]
+    rng = np.random.default_rng(SEED + 13)
+    want_cycles = {"elastic-lstm": 5237, "elastic-conv1d": 156}
+    for arch in ("elastic-lstm", "elastic-conv1d"):
+        graph, _, _ = canonical_graph(arch)
+        # -- static analysis and the cost model
+        t0 = time.perf_counter()
+        analysis = analyze_graph(graph)
+        analysis_ms = (time.perf_counter() - t0) * 1e3
+        if analysis.errors:
+            raise AssertionError(f"{arch}: analysis errors\n"
+                                 + analysis.format())
+        syn = synthesize(graph)
+        if syn.resources["cycles"] != want_cycles[arch] or not syn.fits:
+            raise AssertionError(f"{arch}: cost model {syn.resources}")
+        log(f"phase 13 {arch} analysis: {analysis.summary()}, "
+            f"{len(analysis.warnings)} warnings, {analysis_ms:.2f} ms host "
+            f"({card}); report sha256 {sha256(analysis.to_json())}; "
+            f"cost model {syn.resources['cycles']} cycles, "
+            f"{syn.est_latency_s * 1e6:.2f} us at 100 MHz, dsp "
+            f"{syn.resources['dsp']}, bram36 {syn.resources['bram36']}, "
+            f"lut {syn.resources['lut']}")
+        # -- emission
+        arts = emit_graph(graph)
+        golden = os.path.join(ROOT, "tests", "golden",
+                              arch.replace("-", "_") + "_manifest.json")
+        with open(golden) as f:
+            if arts["manifest.json"] != f.read():
+                raise AssertionError(f"{arch}: manifest.json != {golden}")
+        with tempfile.TemporaryDirectory() as tmp:
+            write_artifacts(arts, tmp)
+            for name in sorted(arts):
+                with open(os.path.join(tmp, name), "rb") as f:
+                    log(f"phase 13 {arch} artifact {name} "
+                        f"{sha256(f.read())}")
+        # -- conformance: golden set + 65,536 seeded windows on the card
+        vs = load_vectors(golden_dir(GOLDEN, arch))
+        e = graph.edges[graph.inputs[0]]
+        extra = rng.integers(e.fmt.lo, e.fmt.hi + 1,
+                             (B_SERVE, *e.shape)).astype(np.int32)
+        cells = [n for n in graph.nodes if n.op == "lstm_cell"]
+        n_mac = sum(n.op in ("linear", "conv1d") for n in graph.nodes)
+        # fused: B1 once a cell, B2 once a linear/conv1d node; pallas: B2
+        # once a step of each cell and once a linear/conv1d node
+        want = {"lstm_cell_int": len(cells),
+                "mac_int": 2 * n_mac + sum(n.seq_len for n in cells)}
+        want_routes = {"mma": len(cells), "simt": 0}
+        # a warm-up over the golden set alone, so the timed run below pays
+        # no first-call costs
+        run_conformance(graph, vs, device="cuda")
+        trc = Tracer()
+        for mod in ops_by_name.values():
+            mod.launches = 0
+        lstm_ops.launches_by_variant = dict.fromkeys(
+            lstm_ops.launches_by_variant, 0)
+        prev = set_tracer(trc)
+        try:
+            rep = run_conformance(graph, vs, extra_stimulus=extra,
+                                  device="cuda")
+            torch.cuda.synchronize()
+        finally:
+            set_tracer(prev)
+        counts = {key: mod.launches for key, mod in ops_by_name.items()}
+        launched = {k: n for k, n in counts.items() if n}
+        if launched != {k: n for k, n in want.items() if n} or \
+                lstm_ops.launches_by_variant != want_routes:
+            raise AssertionError(
+                f"{arch} conformance: launches {counts}, B1 by variant "
+                f"{lstm_ops.launches_by_variant}; expected {want}, "
+                f"{want_routes}")
+        if not (rep.passed and rep.modes_bit_exact
+                and rep.oracle_max_lsb == 0 and rep.golden_match is True
+                and rep.n_vectors == vs.n_vectors + B_SERVE):
+            raise AssertionError(f"{arch} conformance:\n{rep.to_json()}")
+        spans = {s.attrs["mode"]: s.duration * 1e3
+                 for s in find_spans(trc.spans, "verify.mode")}
+        for name in ("verify.oracle", "verify.golden_replay",
+                     "verify.conformance"):
+            (s,) = find_spans(trc.spans, name)
+            spans[name.split(".")[1]] = s.duration * 1e3
+        log(f"phase 13 {arch} conformance: {rep.summary()}; launches "
+            f"{json.dumps(launched)}, B1 by variant "
+            f"{json.dumps(lstm_ops.launches_by_variant)}; host ms from the "
+            f"spans at {rep.n_vectors} windows ({card}): "
+            + ", ".join(f"{k} {v:.3f}" for k, v in spans.items()))
+        # -- where one such call spends its time on the card
+        wall, device = profile_ms(functools.partial(
+            run_conformance, graph, vs, extra_stimulus=extra,
+            device="cuda"))
+        busy = sum(device.values())
+        if busy == 0:
+            log(f"phase 13 {arch} profile: device time not measured (the "
+                "profiler saw no GPU activity)")
+        else:
+            b1 = sum(ms for name, ms in device.items() if "lstm_" in name)
+            b2 = sum(ms for name, ms in device.items()
+                     if "mac_int_kernel" in name)
+            copies = sum(ms for name, ms in device.items()
+                         if "Memcpy" in name)
+            log(f"phase 13 {arch} profile, one conformance call: device "
+                f"busy {busy:.4f} ms = "
+                f"{100 * busy / spans['conformance']:.1f}% of the "
+                f"unprofiled call's {spans['conformance']:.3f} ms "
+                f"({wall:.3f} ms with the profiler on); B1 {b1:.4f} ms, B2 "
+                f"{b2:.4f} ms, copies {copies:.4f} ms ({card})")
+        # -- analysis soundness over the same windows, every mode
+        stim = np.concatenate([vs.stimulus, extra])
+        for mode in RTLEmulator.MODES:
+            trace = RTLEmulator(graph, mode=mode, device="cuda") \
+                .run_int(stim).trace
+            for edge, (lo, hi) in analysis.intervals.items():
+                v_lo, v_hi = int(trace[edge].min()), int(trace[edge].max())
+                if not lo <= v_lo <= v_hi <= hi:
+                    raise AssertionError(
+                        f"{arch} {mode}: edge {edge} observed [{v_lo}, "
+                        f"{v_hi}] escapes the static [{lo}, {hi}]")
+        log(f"phase 13 {arch} analysis sound: every edge of "
+            f"{stim.shape[0]} windows in all three modes inside "
+            + ", ".join(f"{k} {list(v)}"
+                        for k, v in sorted(analysis.intervals.items())))
+        # -- the canary on a live CUDA deployment
+        dep = types.SimpleNamespace(emulator=RTLEmulator(graph,
+                                                         device="cuda"))
+        canary = canary_check(dep, vs, n=vs.n_vectors)
+        if not canary.passed:
+            raise AssertionError(f"{arch} canary: {canary.to_dict()}")
+        log(f"phase 13 {arch} canary: {json.dumps(canary.to_dict())}")
+    # -- every registered kind, fuzzed on the card
+    fuzzed = []
+    t0 = time.perf_counter()
+    for kind in list_templates():
+        for seed in range(4):
+            rep = fuzz_template(kind, seed=seed, device="cuda")
+            if rep is None:
+                if kind != "act_lut":
+                    raise AssertionError(f"fuzz {kind}: no probe graph")
+                continue
+            if not rep.passed:
+                raise AssertionError(f"fuzz {kind} seed {seed}:\n"
+                                     + rep.to_json())
+            fuzzed.append(f"{kind}/{seed}")
+    log(f"phase 13 fuzz_template on the card: {len(fuzzed)} reports pass "
+        f"({', '.join(fuzzed)}; act_lut has no standalone compute) in "
+        f"{time.perf_counter() - t0:.2f} s host ({card})")
 
 
 def phase_b3(ops_by_name: dict) -> dict:
@@ -1633,11 +1834,11 @@ def main() -> int:
         kernel_rows.append(phase(ops_by_name))
         torch.cuda.empty_cache()
 
-    # ---- 13. report --------------------------------------------------------
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True, timeout=60).stdout.strip()
+    # ---- 13. toolchain and conformance -------------------------------------
+    smi = card_name_and_limit()
+    phase_toolchain(ops_by_name, smi)
+
+    # ---- 14. report --------------------------------------------------------
     log(smi)                     # the card's name and power limit
     print(json.dumps({"kernels": kernel_rows}))
     print(json.dumps({"ok": True, "device": {

@@ -1,8 +1,24 @@
-"""RTL backend of the port: the fixed-point dataflow IR (``ir``), the
-hardware-template library (``oplib``) and the bit-exact integer emulator
-(``emulator``). Emission, cost and static analysis come with the toolchain
+"""RTL backend of the port (DESIGN.md §3, §9).
+
+Pipeline:  quantized model ──lower──▶ fixed-point dataflow IR (``ir``)
+           ──analyze──▶ static interval/format/resource checks
+           (``analyze``, ``diagnostics``; CLI ``python -m
+           repro_torch.rtl.lint``) ──instantiate──▶ VHDL-like template
+           artifacts (``templates``, ``emit``) ──verify──▶ bit-exact int32
+           emulator (``emulator``) ──cost──▶ XC7S15 resource/cycle model
+           (``resources``).
+
+Every stage is a registry-dispatched walk over the hardware-template (op)
+library (``oplib``): one :class:`~repro_torch.rtl.oplib.HWTemplate` per
+layer kind owns lowering, analysis, emission, emulation and cost. The RTL
+deployment target that strings the stages together comes with the target
 slice.
 """
+from repro_torch.rtl.analyze import (AnalysisContext,  # noqa: F401
+                                     AnalysisError, Interval, analyze_graph)
+from repro_torch.rtl.diagnostics import (RULES, AnalysisReport,  # noqa: F401
+                                         Diagnostic, make_diagnostic)
+from repro_torch.rtl.emit import emit_graph, write_artifacts  # noqa: F401
 from repro_torch.rtl.emulator import (EmulationResult,  # noqa: F401
                                       RTLEmulator, assert_bit_exact,
                                       outputs_by_mode, reference_apply)
@@ -14,4 +30,7 @@ from repro_torch.rtl.ir import (ActApplyNode, ActLUTNode,  # noqa: F401
                                 lower_model, validate_formats)
 from repro_torch.rtl.oplib import (HWTemplate, get_template,  # noqa: F401
                                    list_templates, lowerable_families,
-                                   register_template)
+                                   register_template, unregister_template)
+from repro_torch.rtl.resources import (NodeCost,  # noqa: F401
+                                       ResourceReport, estimate, node_cost,
+                                       synthesize)

@@ -1,8 +1,31 @@
-"""Elastic Node verification half of the port: golden vector sets
-(``vectors``). Conformance reports and the measurement protocol come with
-the verification slice.
+"""Elastic Node verification half of the port (DESIGN.md §10):
+
+* :mod:`repro_torch.verify.vectors`     — deterministic golden
+  stimulus/response sets per design, written and read as portable
+  ``.npz`` + JSON manifest, byte for byte the reference's;
+* :mod:`repro_torch.verify.conformance` — differential execution (all
+  emulator modes mutually bit-exact; int vs float oracle within the
+  wordlength-derived error budget; golden replay) →
+  :class:`ConformanceReport`, template fuzzing and the in-service
+  :func:`canary_check`;
+* :mod:`repro_torch.verify.protocol`    — the measurement procedure
+  (warmup, ``n_runs``, latency/energy tolerance bands against the XC7S15
+  model and the paper's Table I numbers).
+
+The deployment-level entry (``verify_deployment``) comes with the target
+slice, the batched multi-design sweep with the multi-design emulator.
 """
+from repro_torch.verify.conformance import (CanaryResult,  # noqa: F401
+                                            ConformanceReport, canary_check,
+                                            fuzz_template,
+                                            graph_error_budget_lsb,
+                                            run_conformance)
+from repro_torch.verify.protocol import (TABLE1_GOP_PER_J,  # noqa: F401
+                                         TABLE1_LATENCY_US, TABLE1_POWER_MW,
+                                         MeasurementProtocol, ProtocolCheck,
+                                         ProtocolReport, run_protocol)
 from repro_torch.verify.vectors import (GOLDEN_SEED, VectorSet,  # noqa: F401
                                         canonical_graph, canonical_params,
-                                        generate_vectors, golden_dir,
-                                        load_vectors)
+                                        emit_golden, generate_vectors,
+                                        golden_dir, load_vectors,
+                                        save_vectors)

@@ -1,19 +1,22 @@
 """Golden stimulus/response vectors — the portable half of the Elastic Node
-(port of ``repro/verify/vectors.py``; the writer ``save_vectors`` and
-``emit_golden`` come with the verification slice).
+(port of ``repro/verify/vectors.py``).
 
 A vector set is ``vectors.npz`` (``stimulus``/``response`` int32 code
 arrays at the design's input/output Q-formats) plus ``manifest.json``
 (design, formats, shapes, seed, per-array SHA-256). Stimulus comes from a
 seeded numpy PCG64 stream and always leads with the corner rows (all-zero,
 all-min, all-max codes); canonical per-arch designs use numpy-seeded
-weights, so the port reproduces the checked-in sets integer for integer.
+weights; the ``.npz`` is written through a fixed-timestamp zip writer. So
+the port regenerates the checked-in sets byte for byte
+(:func:`emit_golden`).
 """
 from __future__ import annotations
 
 import hashlib
+import io
 import json
 import os
+import zipfile
 from dataclasses import dataclass, field
 from typing import Dict, Optional, Tuple, Union
 
@@ -56,6 +59,25 @@ class VectorSet:
     @property
     def n_vectors(self) -> int:
         return int(self.stimulus.shape[0])
+
+    def stimulus_f(self) -> np.ndarray:
+        """The float values the int stimulus codes represent (exact)."""
+        return self.stimulus.astype(np.float32) / self.in_fmt.scale
+
+    def head(self, n: int) -> "VectorSet":
+        """The first ``n`` rows as a standalone set — the canary slice.
+        The leading rows are the corner patterns (zero, rail-low,
+        rail-high), which exercise every memory's contribution before any
+        random row would."""
+        if n < 1:
+            raise ValueError(f"head(n) needs n >= 1, got {n}")
+        n = min(n, self.n_vectors)
+        return VectorSet(design=self.design,
+                         stimulus=self.stimulus[:n],
+                         response=self.response[:n],
+                         in_fmt=self.in_fmt, out_fmt=self.out_fmt,
+                         seed=self.seed,
+                         meta={**self.meta, "slice": f"head({n})"})
 
 
 def _sha256(a: np.ndarray) -> str:
@@ -115,6 +137,51 @@ def generate_vectors(graph, *, n_random: int = GOLDEN_N_RANDOM,
     return VectorSet(design=graph.name, stimulus=stim, response=resp,
                      in_fmt=in_edge.fmt, out_fmt=out_edge.fmt, seed=seed,
                      meta=meta)
+
+
+# --------------------------------------------------------------------------- #
+# Serialization: deterministic .npz + JSON manifest
+# --------------------------------------------------------------------------- #
+
+
+def _write_npz_deterministic(path: str, arrays: Dict[str, np.ndarray]) -> None:
+    """``np.savez`` minus the nondeterminism: fixed zip timestamps, sorted
+    member order, no compression — same arrays, same bytes, every time."""
+    with zipfile.ZipFile(path, "w", zipfile.ZIP_STORED) as zf:
+        for name in sorted(arrays):
+            buf = io.BytesIO()
+            np.save(buf, np.ascontiguousarray(arrays[name]))
+            info = zipfile.ZipInfo(f"{name}.npy",
+                                   date_time=(1980, 1, 1, 0, 0, 0))
+            zf.writestr(info, buf.getvalue())
+
+
+def save_vectors(vs: VectorSet, out_dir: str) -> Dict[str, str]:
+    """Write ``vectors.npz`` + ``manifest.json``; returns {filename: path}.
+
+    The manifest carries SHA-256 digests of both arrays so a bring-up
+    harness can validate a transfer without trusting the transport.
+    """
+    os.makedirs(out_dir, exist_ok=True)
+    npz_path = os.path.join(out_dir, VECTORS_NPZ)
+    man_path = os.path.join(out_dir, VECTORS_MANIFEST)
+    _write_npz_deterministic(npz_path, {"stimulus": vs.stimulus,
+                                        "response": vs.response})
+    manifest = {
+        "design": vs.design,
+        "format_version": VECTOR_FORMAT_VERSION,
+        "seed": vs.seed,
+        "n_vectors": vs.n_vectors,
+        "stimulus": {"shape": list(vs.stimulus.shape), "dtype": "int32",
+                     "fmt": str(vs.in_fmt), "sha256": _sha256(vs.stimulus)},
+        "response": {"shape": list(vs.response.shape), "dtype": "int32",
+                     "fmt": str(vs.out_fmt), "sha256": _sha256(vs.response)},
+        "meta": vs.meta,
+    }
+    with open(man_path, "w") as f:
+        json.dump(manifest, f, indent=2, sort_keys=True)
+        f.write("\n")
+    return {VECTORS_NPZ: npz_path, VECTORS_MANIFEST: man_path}
 
 
 def load_vectors(in_dir: str) -> VectorSet:
@@ -216,3 +283,16 @@ def schema_for(cfg):
 def golden_dir(root: str, arch: str) -> str:
     """Layout convention for checked-in sets: ``<root>/<arch>/``."""
     return os.path.join(root, arch)
+
+
+def emit_golden(arch: str, root: str, *, seed: int = GOLDEN_SEED,
+                device: Optional[Union[str, torch.device]] = None
+                ) -> VectorSet:
+    """Generate + save the canonical golden set for ``arch`` under
+    ``root/<arch>/``; the one entry point both the snapshot tests and a
+    regeneration run use (so they cannot drift apart). The responses come
+    from the emulator on ``device`` (``None`` means CUDA)."""
+    graph, _, _ = canonical_graph(arch)
+    vs = generate_vectors(graph, seed=seed, device=device)
+    save_vectors(vs, golden_dir(root, arch))
+    return vs

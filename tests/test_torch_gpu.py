@@ -9,13 +9,17 @@ for bit, each of its two variants launched directly and through the
 wrapper; B6/B7 within 1e-4 on y and the final state of the per-step plain version
 and of the chunked forms ``ssd_chunked``/``wkv6_chunked``, also at decay
 extremes), the emulator on CUDA against the golden sets and its own
-plain path, and the LM server with B5 against its plain attention path.
+plain path, the verification half on CUDA (``run_conformance`` with B1/B2
+launches counted, ``fuzz_template`` for every kind, ``emit_golden``,
+``canary_check``, and ``oracle_codes`` under a TF32 global), and the LM
+server with B5 against its plain attention path.
 
 Imports nothing of JAX, so it also runs where JAX is not installed:
 
     PYTHONPATH=src python -m pytest -q -m gpu --noconftest tests/test_torch_gpu.py
 """
 import os
+import types
 
 import numpy as np
 import pytest
@@ -53,10 +57,13 @@ from repro_torch.model.rwkv import wkv6_chunked
 from repro_torch.model.ssm import ssd_chunked
 from repro_torch.quant.fixedpoint import FxpFormat
 from repro_torch.quant.ptq import Int8Params, quantize_params_int8
-from repro_torch.rtl.emulator import RTLEmulator, assert_bit_exact
-from repro_torch.rtl.ir import lower_model
+from repro_torch.rtl.emulator import (RTLEmulator, assert_bit_exact,
+                                      reference_apply)
+from repro_torch.rtl.ir import Edge, Graph, LinearNode, lower_model
 from repro_torch.runtime.server import Server, ServerConfig
 from repro_torch.verify import vectors as tvec
+from repro_torch.verify.conformance import (canary_check, fuzz_template,
+                                            oracle_codes, run_conformance)
 
 pytestmark = pytest.mark.gpu
 
@@ -854,3 +861,107 @@ def test_ssd_and_wkv6_refuse_widths_the_kernels_lack(cuda):
     r = torch.zeros((1, 16, 1, 65), device=cuda)
     with pytest.raises(ValueError, match="N <= 64"):
         wkv6(r, r, r, -torch.ones_like(r), torch.zeros((1, 65), device=cuda))
+
+
+# --------------------------------------------------------------------------- #
+# The verification half on the card
+# --------------------------------------------------------------------------- #
+
+
+@pytest.mark.parametrize("arch", ["elastic-lstm", "elastic-conv1d"])
+def test_run_conformance_on_card(cuda, arch):
+    """Golden set plus 4,096 seeded windows, no device given (CUDA): modes
+    bit-exact, oracle 0 LSB, golden match; ``fused`` launches B1 once per
+    cell and B2 once per linear/conv1d node, ``pallas`` B2 once per LSTM
+    step and once per linear/conv1d node."""
+    graph, _, _ = tvec.canonical_graph(arch)
+    vs = tvec.load_vectors(tvec.golden_dir(GOLDEN_ROOT, arch))
+    e = graph.edges[graph.inputs[0]]
+    extra = np.random.default_rng(13).integers(
+        e.fmt.lo, e.fmt.hi + 1, (4096, *e.shape)).astype(np.int32)
+    cells = [n for n in graph.nodes if n.op == "lstm_cell"]
+    macs = sum(n.op in ("linear", "conv1d") for n in graph.nodes)
+    b1, b2 = lstm_ops.launches, mac_ops.launches
+    rep = run_conformance(graph, vs, extra_stimulus=extra)
+    assert rep.passed, rep.to_json()
+    assert rep.modes_bit_exact and rep.oracle_max_lsb == 0
+    assert rep.golden_match is True and rep.n_vectors == 16 + 4096
+    assert lstm_ops.launches - b1 == len(cells)
+    assert mac_ops.launches - b2 == \
+        2 * macs + sum(n.seq_len for n in cells)
+
+
+@pytest.mark.parametrize("kind", ["act_apply", "act_lut", "conv1d",
+                                  "elementwise", "linear", "lstm_cell"])
+def test_fuzz_template_on_card(cuda, kind):
+    for seed in (0, 1, 2):
+        rep = fuzz_template(kind, seed=seed)
+        if kind == "act_lut":
+            assert rep is None
+            continue
+        assert rep.passed and rep.n_vectors == 24, rep.to_json()
+
+
+@pytest.mark.parametrize("arch", ["elastic-lstm", "elastic-conv1d"])
+def test_emit_golden_on_card(cuda, arch, tmp_path):
+    tvec.emit_golden(arch, str(tmp_path))
+    for name in (tvec.VECTORS_NPZ, tvec.VECTORS_MANIFEST):
+        want = open(os.path.join(GOLDEN_ROOT, arch, name), "rb").read()
+        assert (tmp_path / arch / name).read_bytes() == want, name
+
+
+@pytest.mark.parametrize("setting", ["fp32_precision", "allow_tf32"])
+def test_oracle_codes_ignore_a_tf32_global(cuda, setting):
+    """A linear layer with 14-bit input codes (more significant bits than
+    TF32 keeps) inside the §4 envelope (|acc| < 2**22): with TF32 switched
+    on globally the plain float oracle moves, ``oracle_codes`` does not —
+    it equals the exact integer path — and the global is left as it was,
+    whether it was set through the per-backend setting or the legacy
+    flag."""
+    in_fmt, w_fmt, out_fmt = FxpFormat(14, 8), FxpFormat(6, 4), \
+        FxpFormat(16, 8)
+    K, N = 16, 64
+    rng = np.random.default_rng(23)
+    g = Graph(name="tf32_probe")
+    g.edges["x"] = Edge("x", (K,), in_fmt)
+    g.inputs = ["x"]
+    g.add(LinearNode(name="lin", op="linear", inputs=["x"], outputs=["y"],
+                     weight=(rng.standard_normal((K, N)) * 0.6)
+                     .astype(np.float32),
+                     bias=(rng.standard_normal(N) * 0.1).astype(np.float32),
+                     w_fmt=w_fmt, in_fmt=in_fmt, out_fmt=out_fmt),
+          Edge("y", (N,), out_fmt))
+    g.outputs = ["y"]
+    x = rng.integers(in_fmt.lo, in_fmt.hi + 1, (8192, K)).astype(np.int32)
+    exact = RTLEmulator(g, mode="jnp", device=cuda).run_int(x).outputs \
+        .cpu().numpy().astype(np.int64)
+    xf = x.astype(np.float32) / in_fmt.scale
+    mm = torch.backends.cuda.matmul
+    prev = getattr(mm, setting)
+    setattr(mm, setting, "tf32" if setting == "fp32_precision" else True)
+    try:
+        got = oracle_codes(g, xf)
+        loose = torch.round(reference_apply(g, xf) * out_fmt.scale) \
+            .cpu().numpy().astype(np.int64)
+        assert mm.fp32_precision == "tf32"
+    finally:
+        setattr(mm, setting, prev)
+    np.testing.assert_array_equal(got, exact)
+    assert not np.array_equal(loose, exact), \
+        "TF32 did not move the unscoped oracle: this probe shows nothing"
+
+
+@pytest.mark.parametrize("arch", ["elastic-lstm", "elastic-conv1d"])
+def test_canary_check_on_card(cuda, arch):
+    graph, _, _ = tvec.canonical_graph(arch)
+    vs = tvec.load_vectors(tvec.golden_dir(GOLDEN_ROOT, arch))
+    em = RTLEmulator(graph, device=cuda)
+    res = canary_check(types.SimpleNamespace(emulator=em), vs, n=16)
+    assert res.passed and res.path == "int" and res.n == 16
+    res = canary_check(lambda x: reference_apply(graph, x), vs, n=16)
+    assert res.passed and res.path == "float"
+    name = next(n.name for n in graph.nodes if n.op in ("linear", "conv1d"))
+    w = em.prepared(name)["w" if "w" in em.prepared(name) else "w_mat"]
+    w.view(-1)[0] ^= 1 << 5
+    assert not canary_check(types.SimpleNamespace(emulator=em), vs,
+                            n=16).passed

@@ -42,7 +42,9 @@ def test_importing_the_port_loads_neither_jax_nor_repro():
             "repro_torch.kernels.lstm_cell, repro_torch.kernels.quant_matmul, "
             "repro_torch.kernels.mamba2, repro_torch.kernels.rwkv6, "
             "repro_torch.quant.ptq, repro_torch.model.ssm, "
-            "repro_torch.model.rwkv; "
+            "repro_torch.model.rwkv, repro_torch.energy, "
+            "repro_torch.core.report, repro_torch.rtl.lint, "
+            "repro_torch.verify.conformance, repro_torch.verify.protocol; "
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'repro.')) or m == 'repro'); "
             "assert not bad, bad")
