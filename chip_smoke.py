@@ -111,7 +111,28 @@ designs, through the entry points a user calls, on the card:
     every traced edge of those windows inside the static intervals;
     ``fuzz_template`` for every registered kind at four seeds; and
     ``canary_check`` on a deployment holding a CUDA ``RTLEmulator``;
-14. print the kernels line and the card's name and power limit.
+
+The paper's loop, closed on the card (Stage-1 QAT training, the target
+registry, ``RTLTarget``, ``Creator``, ``Workflow``):
+
+14. ``Workflow.run`` of ``repro_torch.launch.elastic_workflow`` for both
+    canonical designs on the card, with the example's settings (120 AdamW
+    steps of batch 256 an iteration, knobs from Q4.2, 4 iterations,
+    ``verify=True``, ``analyze="error"``) under a requirement no design
+    meets, so the widening runs Q4 -> Q8 -> Q12 -> Q16 and the 12- and
+    16-bit designs send B1 to ``simt``: every iteration prints its
+    formats, losses, cycles, estimated and measured latency, conformance,
+    B1 (by variant) and B2 launches in stage 3 and in verify, and host ms
+    per stage from the spans; it fails if a Stage-1 parameter or batch is
+    not on the card, an iteration's conformance fails, stage 3 launches no
+    B1 (``elastic-lstm``) or no B2, or ``elastic-lstm``'s run leaves a B1
+    variant unlaunched. Then 20 float and 10 QAT training steps on the card
+    and on the CPU from one init (float params within 1e-5; QAT's
+    difference and its lowered integer weights that differ printed), and
+    one QAT step at batch 256 and 65,536 timed (host clock around a
+    synchronised step) and profiled (device busy, device activities);
+15. print the kernels line (B1's and B2's rows also carry the loop's
+    launches, ``workflow_launches``) and the card's name and power limit.
 
 Usage, from the repository root: ``python3 chip_smoke.py``. Needs one CUDA
 card and ``nvcc``; exits non-zero, printing no result, without them. The
@@ -1166,6 +1187,287 @@ def phase_b7(ops_by_name: dict) -> dict:
             "bound_ms": bnd, "bound_by": by, "library_ms": None}
 
 
+# the paper's loop (phase 14): a requirement no design meets, so the
+# example's widening runs its whole sweep, Q4 -> Q8 -> Q12 -> Q16, and one
+# run drives both of B1's variants (its 12- and 16-bit designs take 9-bit
+# activations, which only simt holds). The example's own requirement (eval
+# loss <= 0.01) is met at Q8.5 for elastic-lstm and at Q4.2 for
+# elastic-conv1d, so its loop would stop before simt; each iteration prints
+# whether it was met.
+LOOP_ITERS = 4
+LOOP_KNOBS = {"bits": 4, "frac": 2}
+QAT_TIMED_BATCHES = (256, B_SERVE)
+CARD_VS_CPU_TOL = 1e-5                 # float params after 20 AdamW steps
+
+
+def stage_launch_tracer(lstm_ops, mac_ops):
+    """A tracer that also reads B1's launches by variant and B2's launches
+    at the start and end of every ``workflow.stage3`` and
+    ``workflow.verify`` span (host-side counters, so no synchronise), to
+    split a loop's launches by stage."""
+    import contextlib
+
+    from repro_torch.obs import Tracer
+
+    class StageLaunches(Tracer):
+        STAGES = ("workflow.stage3", "workflow.verify")
+
+        def __init__(self):
+            super().__init__()
+            self.by_stage = []         # (span name, launches in it)
+
+        @staticmethod
+        def read():
+            return {**lstm_ops.launches_by_variant, "B2": mac_ops.launches}
+
+        def span(self, name, **attrs):
+            inner = super().span(name, **attrs)
+            return self._counted(name, inner) if name in self.STAGES \
+                else inner
+
+        @contextlib.contextmanager
+        def _counted(self, name, inner):
+            before = self.read()
+            with inner as s:
+                yield s
+            after = self.read()
+            self.by_stage.append(
+                (name, {k: after[k] - before[k] for k in after}))
+
+    return StageLaunches()
+
+
+def qat_step_fn(batch_size: int, device):
+    """One Stage-1 QAT step of elastic-lstm at Q8.6 (the example's loss,
+    gradient and AdamW update) on ``batch_size`` traffic windows."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.convert import to_torch
+    from repro_torch.data.pipeline import TrafficConfig, traffic_flow_batch
+    from repro_torch.launch import elastic_workflow as ew
+    from repro_torch.model.layers import value_and_grad
+    from repro_torch.optim.adamw import adamw_update, init_opt_state
+    from repro_torch.quant.fixedpoint import FxpFormat
+    from repro_torch.quant.qat import QATConfig, make_qat_loss
+    from repro_torch.verify.vectors import canonical_params, schema_for
+
+    cfg = get_config("elastic-lstm")
+    loss = make_qat_loss(cfg, QATConfig(weight_fmt=FxpFormat(8, 6),
+                                        act_fmt=FxpFormat(8, 4)))
+    grad_fn = value_and_grad(lambda p, b: loss(p, b)[0])
+    batch = {k: torch.as_tensor(v, device=device) for k, v in
+             traffic_flow_batch(TrafficConfig(batch=batch_size), 0).items()}
+    state = {"p": to_torch(canonical_params(schema_for(cfg)), device)}
+    state["o"] = init_opt_state(state["p"])
+
+    def step():
+        _, g = grad_fn(state["p"], batch)
+        state["p"], state["o"], _ = adamw_update(g, state["o"], state["p"],
+                                                 ew.OPT)
+
+    return step
+
+
+def profile_kernels(fn):
+    """One ``fn()`` under ``torch.profiler``: host-clock ms (profiler on),
+    device busy ms and the count of device activities (kernels, copies,
+    fills) it launched."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    busy = sum(e.time_range.elapsed_us() for e in dev) / 1e3
+    return wall * 1e3, busy, len(dev)
+
+
+def phase_loop(ops_by_name: dict, card: str) -> dict:
+    """Phase 14: the paper's loop on the card — ``Workflow.run`` of the
+    launcher for both canonical designs, B1/B2 counted by stage; Stage 1 on
+    the card against the CPU; one QAT step timed and profiled. Returns the
+    loop's launches of B1 and B2."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.convert import to_torch
+    from repro_torch.core.types import (SHAPES_LSTM, SMOKE_MESH,
+                                        ParallelismConfig)
+    from repro_torch.core.workflow import Requirement
+    from repro_torch.data.pipeline import TrafficConfig, traffic_flow_batch
+    from repro_torch.launch import elastic_workflow as ew
+    from repro_torch.model.layers import tree_leaves, tree_map
+    from repro_torch.model.lm import Stepper
+    from repro_torch.obs import find_spans, set_tracer
+    from repro_torch.optim.adamw import init_opt_state
+    from repro_torch.rtl.backend import RTL_TARGET
+    from repro_torch.rtl.ir import lower_model
+    from repro_torch.verify.vectors import canonical_params, schema_for
+
+    lstm_ops, mac_ops = ops_by_name["lstm_cell_int"], ops_by_name["mac_int"]
+    never = Requirement(max_eval_loss=-1.0)        # a loss is never < 0
+    train = ew.train
+    seen = {"tensors": 0}
+
+    def train_on_card(loss_fn, params, batch, steps):
+        """``ew.train`` that first checks every parameter and batch tensor
+        of Stage 1 is on the card."""
+        for t in tree_leaves(params) + tree_leaves(batch):
+            if not t.is_cuda:
+                raise AssertionError(f"stage 1: a tensor of shape "
+                                     f"{tuple(t.shape)} is on {t.device}")
+            seen["tensors"] += 1
+        return train(loss_fn, params, batch, steps)
+
+    loop_launches = {}
+    for arch in ("elastic-lstm", "elastic-conv1d"):
+        wf = ew.build_workflow(arch, device="cuda", verify=True)
+        trc = stage_launch_tracer(lstm_ops, mac_ops)
+        seen["tensors"] = 0
+        for mod in ops_by_name.values():
+            mod.launches = 0
+        lstm_ops.launches_by_variant = dict.fromkeys(
+            lstm_ops.launches_by_variant, 0)
+        prev = set_tracer(trc)
+        ew.train = train_on_card
+        t0 = time.perf_counter()
+        try:
+            hist = wf.run(never, ew.optimizer, dict(LOOP_KNOBS),
+                          max_iters=LOOP_ITERS)
+            torch.cuda.synchronize()
+        finally:
+            ew.train = train
+            set_tracer(prev)
+        wall = time.perf_counter() - t0
+        counts = {key: mod.launches for key, mod in ops_by_name.items()}
+        variants = dict(lstm_ops.launches_by_variant)
+        loop_launches[arch] = {"B1": counts["lstm_cell_int"],
+                               "B2": counts["mac_int"], **variants}
+        others = {k: n for k, n in counts.items()
+                  if n and k not in ("lstm_cell_int", "mac_int")}
+        if len(hist) != LOOP_ITERS or others:
+            raise AssertionError(f"{arch} loop: {len(hist)} iterations, "
+                                 f"other kernels launched {others}")
+        stage = {name: [] for name in trc.STAGES}
+        for name, n in trc.by_stage:
+            stage[name].append(n)
+        spans = {name: [s.duration * 1e3 for s in find_spans(trc.spans,
+                                                              name)]
+                 for name in ("workflow.run_once", "workflow.stage1",
+                              "workflow.stage2", "workflow.stage3",
+                              "workflow.verify", "workflow.analyze")}
+        for rec in hist:
+            it = rec.iteration
+            s3, sv = stage["workflow.stage3"][it], stage["workflow.verify"][it]
+            opts = RTL_TARGET.options_from_knobs(rec.knobs)
+            conf = rec.conformance
+            if not (conf is not None and conf.passed):
+                raise AssertionError(f"{arch} iteration {it}: conformance "
+                                     f"{conf and conf.to_json()}")
+            b1_s3 = s3["mma"] + s3["simt"]
+            if s3["B2"] == 0 or (arch == "elastic-lstm" and b1_s3 == 0):
+                raise AssertionError(f"{arch} iteration {it}: stage 3 "
+                                     f"launched {s3}")
+            log(f"phase 14 {arch} iteration {it}: design "
+                f"{rec.design.weight_fmt}/{rec.design.act_fmt}, RTL "
+                f"w {opts.w_fmt} act {opts.act_fmt} state {opts.state_fmt}; "
+                f"train loss {rec.design.train_loss:.6f}, eval loss "
+                f"{rec.design.eval_loss:.6f} (the example's requirement "
+                f"{'met' if ew.REQUIREMENT.satisfied(rec.design, rec.measurement) else 'not met'}); "
+                f"{rec.synthesis.resources['cycles']} cycles, latency "
+                f"estimated {rec.synthesis.est_latency_s * 1e6:.2f} us vs "
+                f"measured {rec.measurement.latency_s * 1e6:.2f} us "
+                f"(est_vs_meas {json.dumps(rec.est_vs_meas)}); emulator "
+                f"run p50 {rec.measurement.latency_p50_s * 1e3:.3f} ms "
+                f"host; conformance: {conf.summary()}; launches stage 3 "
+                f"{json.dumps(s3)}, verify {json.dumps(sv)}; host ms "
+                + ", ".join(f"{name.split('.')[1]} {v[it]:.1f}"
+                            for name, v in spans.items()) + f" ({card})")
+        if arch == "elastic-lstm" and not (variants["mma"] and
+                                           variants["simt"]):
+            raise AssertionError(f"{arch} loop: B1 by variant {variants}")
+        stage1 = sum(spans["workflow.stage1"])
+        total = sum(spans["workflow.run_once"])
+        log(f"phase 14 {arch} Workflow.run: {LOOP_ITERS} iterations in "
+            f"{wall:.2f} s host, stage 1 {100 * stage1 / total:.1f}% of "
+            f"run_once's {total:.1f} ms; launches B1 "
+            f"{counts['lstm_cell_int']} ({json.dumps(variants)}), B2 "
+            f"{counts['mac_int']}; {seen['tensors']} stage-1 tensors "
+            "checked on the card")
+
+    # -- Stage 1 on the card against the CPU, from one init
+    cfg = get_config("elastic-lstm")
+    init = canonical_params(schema_for(cfg), seed=SEED + 14)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        st = Stepper(cfg, SHAPES_LSTM["train_batch"], SMOKE_MESH,
+                     ParallelismConfig(), opt_cfg=ew.OPT)
+        step = st.train_fn()
+        p = to_torch(init, dev)
+        o = init_opt_state(p)
+        for s in range(20):
+            b = {k: torch.as_tensor(v, device=dev) for k, v in
+                 traffic_flow_batch(TrafficConfig(batch=256), s).items()}
+            p, o, _ = step(p, o, b)
+        q, _, _ = ew.lstm_train_fn({"bits": 8, "frac": 6}, device=dev,
+                                   steps=10, params=to_torch(init, dev))
+        out[dev] = (p, q)
+    float_err = max((a.cpu() - b).abs().max().item() for a, b in zip(
+        tree_leaves(out["cuda"][0]), tree_leaves(out["cpu"][0])))
+    qat_err = max((a.cpu() - b).abs().max().item() for a, b in zip(
+        tree_leaves(out["cuda"][1]), tree_leaves(out["cpu"][1])))
+    opts = RTL_TARGET.options_from_knobs({"bits": 8, "frac": 6})
+    graphs = [lower_model(cfg, tree_map(lambda t: t.cpu().numpy(),
+                                        out[dev][1]),
+                          w_fmt=opts.w_fmt, act_fmt=opts.act_fmt,
+                          state_fmt=opts.state_fmt)
+              for dev in ("cuda", "cpu")]
+    differ = total = 0
+    for a, b in zip(*(g.nodes for g in graphs)):
+        for what in ("weight_int", "bias_int"):
+            if hasattr(a, what):
+                wa, wb = getattr(a, what)(), getattr(b, what)()
+                differ += int(np.count_nonzero(wa != wb))
+                total += wa.size
+    log(f"phase 14 Stage 1 card vs CPU from one init: 20 float AdamW steps "
+        f"max |param diff| {float_err:.3g} (bar {CARD_VS_CPU_TOL}); 10 QAT "
+        f"steps (Q8.6) max |param diff| {qat_err:.3g}, lowered integer "
+        f"weights differing {differ} of {total}; iso_key equal "
+        f"{graphs[0].iso_key() == graphs[1].iso_key()}")
+    if float_err > CARD_VS_CPU_TOL:
+        raise AssertionError(f"float training card vs CPU {float_err:.3g} "
+                             f"> {CARD_VS_CPU_TOL}")
+
+    # -- one QAT train step, timed and profiled
+    for batch in QAT_TIMED_BATCHES:
+        step = qat_step_fn(batch, "cuda")
+        for _ in range(3):
+            step()
+        torch.cuda.synchronize()
+        samples = []
+        for _ in range(10):
+            t0 = time.perf_counter()
+            step()
+            torch.cuda.synchronize()
+            samples.append((time.perf_counter() - t0) * 1e3)
+        wall, busy, n_kernels = profile_kernels(step)
+        log(f"phase 14 QAT train step (elastic-lstm, Q8.6, loss + grad + "
+            f"AdamW) at batch {batch}: host ms median "
+            f"{sorted(samples)[len(samples) // 2]:.3f} (min {min(samples):.3f}, "
+            f"max {max(samples):.3f}, 10 synchronised steps); profiled step: "
+            f"device busy {busy:.3f} ms of {wall:.3f} ms host (profiler on), "
+            f"{n_kernels} device activities ({card})")
+    return loop_launches
+
+
 def main() -> int:
     import torch
 
@@ -1838,7 +2140,14 @@ def main() -> int:
     smi = card_name_and_limit()
     phase_toolchain(ops_by_name, smi)
 
-    # ---- 14. report --------------------------------------------------------
+    # ---- 14. the paper's loop ----------------------------------------------
+    loop = phase_loop(ops_by_name, smi)
+    for row in kernel_rows:
+        key = {"lstm_cell_int": "B1", "mac_int": "B2"}.get(row["name"])
+        if key is not None:
+            row["workflow_launches"] = sum(n[key] for n in loop.values())
+
+    # ---- 15. report --------------------------------------------------------
     log(smi)                     # the card's name and power limit
     print(json.dumps({"kernels": kernel_rows}))
     print(json.dumps({"ok": True, "device": {

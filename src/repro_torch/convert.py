@@ -61,12 +61,9 @@ def _convert(tree, schema, path: str):
 
 def params_from_jax(tree, cfg: ModelConfig):
     """The reference's parameter pytree for ``cfg`` -> the port's dict."""
-    if cfg.family == "dense":
-        from repro_torch.model.transformer import param_schema as schema_for
-    else:
-        from repro_torch.verify.vectors import schema_for
+    from repro_torch.model.transformer import param_schema
 
-    return _convert(tree, schema_for(cfg), "")
+    return _convert(tree, param_schema(cfg), "")
 
 
 def int8_params_from_jax(ip) -> Int8Params:

@@ -1,11 +1,12 @@
 """Configuration dataclasses: the paper's two model families and the dense
 LM family.
 
-Port of ``ModelConfig``/``LSTMConfig``/``Conv1dConfig``, ``ShapeConfig``,
-``MeshConfig`` and ``ParallelismConfig`` from ``repro/core/types.py``. The
-LM zoo's other sub-configs (MoE, SSM, RWKV, encoder, frontends) wait for
-the slices that port those families; ``ParallelismConfig`` keeps only the
-knobs that the port's one-card dense path reads.
+Port of ``ModelConfig``/``LSTMConfig``/``Conv1dConfig``, ``ShapeConfig``
+with the shape tables, ``MeshConfig`` and ``ParallelismConfig`` from
+``repro/core/types.py``. The LM zoo's other sub-configs (MoE, SSM, RWKV,
+encoder, frontends) wait for the slices that port those families;
+``ParallelismConfig`` keeps only the knobs that the port's one-card dense
+path reads.
 """
 from __future__ import annotations
 
@@ -103,6 +104,18 @@ class ModelConfig:
     def with_(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
 
+    # Rough parameter counts (used by the energy model / MODEL_FLOPS).
+    def param_count(self) -> int:
+        from repro_torch.model.layers import param_count
+        from repro_torch.model.transformer import param_schema
+
+        return param_count(param_schema(self))
+
+    def active_param_count(self) -> int:
+        """Params touched per token: all of them for the port's families
+        (the reference's MoE discount comes with the MoE family)."""
+        return self.param_count()
+
 
 def torch_dtype(name: str) -> torch.dtype:
     """``"bfloat16"``/``"float32"``/... -> the torch dtype of that name."""
@@ -118,6 +131,53 @@ class ShapeConfig:
     kind: str                      # "train" | "prefill" | "decode"
     seq_len: int
     global_batch: int
+
+    @property
+    def tokens(self) -> int:
+        return self.seq_len * self.global_batch
+
+
+SHAPES = {
+    "train_4k": ShapeConfig("train_4k", "train", 4_096, 256),
+    "prefill_32k": ShapeConfig("prefill_32k", "prefill", 32_768, 32),
+    "decode_32k": ShapeConfig("decode_32k", "decode", 32_768, 128),
+    "long_500k": ShapeConfig("long_500k", "decode", 524_288, 1),
+}
+
+# Paper's own workload: one LSTM inference (time-series window).
+SHAPES_LSTM = {
+    "infer_1": ShapeConfig("infer_1", "prefill", 6, 1),
+    "train_batch": ShapeConfig("train_batch", "train", 6, 64),
+}
+
+# TCN-style sensor workload: one conv1d inference (multichannel window).
+SHAPES_CONV1D = {
+    "infer_1": ShapeConfig("infer_1", "prefill", 16, 1),
+    "train_batch": ShapeConfig("train_batch", "train", 16, 64),
+}
+
+
+def shape_table_for(cfg: ModelConfig) -> dict:
+    """The {name: ShapeConfig} table this arch family draws from."""
+    if cfg.family == "lstm":
+        return SHAPES_LSTM
+    if cfg.family == "conv1d":
+        return SHAPES_CONV1D
+    return SHAPES
+
+
+def shapes_for(cfg: ModelConfig) -> Tuple[str, ...]:
+    """Which assigned shapes run for this arch (skips documented in
+    DESIGN.md)."""
+    if cfg.family in ("lstm", "conv1d"):
+        return tuple(shape_table_for(cfg))
+    return ("train_4k", "prefill_32k", "decode_32k")
+
+
+def skipped_shapes_for(cfg: ModelConfig) -> Tuple[str, ...]:
+    if cfg.family in ("lstm", "conv1d"):
+        return ()
+    return ("long_500k",)
 
 
 @dataclass(frozen=True)

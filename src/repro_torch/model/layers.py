@@ -97,6 +97,24 @@ def init_params(schema, generator: torch.Generator,
                     schema, is_leaf=is_pspec)
 
 
+def value_and_grad(fn: Callable, has_aux: bool = False):
+    """``jax.value_and_grad`` for a function of a parameter tree:
+    ``(params, *args) -> (fn(params, *args), grads)``, ``grads`` with the
+    tree's structure, by ``torch.autograd.grad`` on detached leaves (the
+    caller's tensors are not touched); the value comes back detached."""
+
+    def wrapped(params, *args):
+        p = tree_map(lambda t: t.detach().requires_grad_(True), params)
+        out = fn(p, *args)
+        value = out[0] if has_aux else out
+        it = iter(torch.autograd.grad(value, tree_leaves(p)))
+        grads = tree_map(lambda _: next(it), p)
+        return tree_map(lambda t: t.detach() if isinstance(
+            t, torch.Tensor) else t, out), grads
+
+    return wrapped
+
+
 def param_count(schema) -> int:
     return sum(math.prod(s.shape) for s in tree_leaves(schema, is_pspec))
 

@@ -1,13 +1,15 @@
 """The paper's own accelerator workload: LSTM time-series predictor.
 
-Port of the schema half of ``repro/model/lstm.py`` (ref [11], Table I:
-``hidden=20`` cell, window of 6 lags, one dense output). The cell is
-gate-fused: one (in+hidden) × 4·hidden matrix, gate order i, f, g, o.
-:func:`lstm_cell_step` is one float step of that cell (the oracle of the
-float LSTM-window kernel); the stacked float forward waits for the training
-slice.
+Port of ``repro/model/lstm.py`` (ref [11], Table I: ``hidden=20`` cell,
+window of 6 lags, one dense output). The cell is gate-fused: one
+(in+hidden) × 4·hidden matrix, gate order i, f, g, o.
+:func:`lstm_cell_step` is one float step of that cell (also the oracle of
+the float LSTM-window kernel); :func:`lstm_apply` is the stacked float
+forward that Stage 1 trains.
 """
 from __future__ import annotations
+
+from typing import Optional, Tuple
 
 import torch
 
@@ -40,6 +42,27 @@ def lstm_cell_step(w: torch.Tensor, b: torch.Tensor, x_t: torch.Tensor,
     c_new = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
     h_new = torch.sigmoid(o) * torch.tanh(c_new)
     return h_new, c_new
+
+
+def lstm_apply(p, x: torch.Tensor, cfg: ModelConfig,
+               state: Optional[Tuple] = None) -> Tuple[torch.Tensor, Tuple]:
+    """Runs the stacked LSTM over the window ``x`` (B, S, in_features) f32;
+    returns (pred (B, out), ((h, c) per layer))."""
+    c = cfg.lstm
+    B, S, _ = x.shape
+    h_states = []
+    seq = x
+    for li, cell in enumerate(p["cells"]):
+        h = seq.new_zeros((B, c.hidden)) if state is None else state[li][0]
+        cc = seq.new_zeros((B, c.hidden)) if state is None else state[li][1]
+        outs = []
+        for t in range(S):  # unrolled: window is 6 — exact cost accounting
+            h, cc = lstm_cell_step(cell["w"], cell["b"], seq[:, t], h, cc)
+            outs.append(h)
+        seq = torch.stack(outs, dim=1)
+        h_states.append((h, cc))
+    pred = seq[:, -1] @ p["head_w"] + p["head_b"]
+    return pred, tuple(h_states)
 
 
 def lstm_flops(cfg: ModelConfig) -> int:

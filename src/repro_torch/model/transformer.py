@@ -55,6 +55,14 @@ def _stack(n: int, tree):
 
 
 def param_schema(cfg: ModelConfig):
+    if cfg.family == "lstm":
+        from repro_torch.model.lstm import lstm_schema
+
+        return lstm_schema(cfg)
+    if cfg.family == "conv1d":
+        from repro_torch.model.conv1d import conv1d_schema
+
+        return conv1d_schema(cfg)
     sch: Dict[str, Any] = {"embed": embed_schema(cfg)}
     for gi, (kind, count) in enumerate(group_structure(cfg)):
         sch[f"g{gi}"] = _stack(count, block_schema(cfg, kind))

@@ -2,8 +2,10 @@
 ``repro/obs/trace.py`` and ``repro/obs/metrics.py``, which import no JAX).
 
 The ``RunTrace`` artifact and ``capture`` of ``repro/obs/export.py`` wait
-for the slice that ports the workflow. Metric namespaces used so far:
-``server.*`` (the batched LM server).
+for the operations slice (ROADMAP A9); a caller records spans by installing
+a ``Tracer`` with ``set_tracer``. Metric namespaces used so far:
+``server.*`` (the batched LM server), ``rtl.emulator.dispatch.<mode>``
+(emulator runs) and ``measure.latency_s.rtl`` (``RTLExecutable.measure``).
 """
 from repro_torch.obs.metrics import (Counter, Gauge, Histogram,  # noqa: F401
                                      MetricsRegistry, get_metrics,

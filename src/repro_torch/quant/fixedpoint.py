@@ -1,12 +1,14 @@
 """Fixed-point (Q-format) quantization — the paper's core optimization.
 
 Port of ``repro/quant/fixedpoint.py``: Q(total_bits, frac_bits) with
-round-half-even and saturation, and the integer-domain requant that the
-emulator and both CUDA kernels share. ``torch.round`` rounds half to even,
-like ``jnp.round``, so codes agree integer for integer.
+round-half-even and saturation, the integer-domain requant that the
+emulator and both CUDA kernels share, and the straight-through fake-quant
+that makes the same graph trainable (QAT). ``torch.round`` rounds half to
+even, like ``jnp.round``, so codes agree integer for integer.
 """
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 
 import torch
@@ -30,6 +32,14 @@ class FxpFormat:
     @property
     def hi(self) -> int:
         return 2 ** (self.total_bits - 1) - 1
+
+    @property
+    def resolution(self) -> float:
+        return 1.0 / self.scale
+
+    @property
+    def max_value(self) -> float:
+        return self.hi / self.scale
 
     def __str__(self) -> str:
         return f"Q{self.total_bits}.{self.frac_bits}"
@@ -74,3 +84,49 @@ def fxp_requant_int(v: torch.Tensor, from_frac: int,
     else:
         q = v
     return torch.clamp(q, fmt.lo, fmt.hi)
+
+
+class _FxpFakeQuant(torch.autograd.Function):
+    """Round-half-even and saturate in the forward; in the backward a
+    straight-through gradient, masked to zero where ``x * scale`` lies
+    outside ``[lo, hi]`` (inclusive at both ends, taken before rounding),
+    as the reference's ``custom_vjp`` does."""
+
+    @staticmethod
+    def forward(ctx, x, scale: float, lo: float, hi: float):
+        xs = x * scale
+        ctx.save_for_backward((xs >= lo) & (xs <= hi))
+        return torch.clamp(torch.round(xs), lo, hi) / scale
+
+    @staticmethod
+    def backward(ctx, g):
+        (inside,) = ctx.saved_tensors
+        return torch.where(inside, g, 0.0), None, None, None
+
+
+def fxp_fake_quant(x: torch.Tensor, scale: float, lo: float,
+                   hi: float) -> torch.Tensor:
+    """Dequantized ``clip(round(x * scale), lo, hi) / scale`` with the
+    saturation-masked straight-through gradient."""
+    return _FxpFakeQuant.apply(x, scale, lo, hi)
+
+
+def fake_quant(x: torch.Tensor, fmt: FxpFormat) -> torch.Tensor:
+    return fxp_fake_quant(x.to(torch.float32), fmt.scale, float(fmt.lo),
+                          float(fmt.hi))
+
+
+def pick_frac_bits(x, total_bits: int) -> int:
+    """Largest frac_bits such that amax still fits (power-of-two scale)."""
+    amax = float(torch.as_tensor(x).abs().max())
+    if amax == 0.0:
+        return total_bits - 1
+    int_bits = max(0, math.ceil(math.log2(amax + 1e-12) + 1e-9) + 1)
+    return max(0, min(total_bits - 1, total_bits - 1 - int_bits))
+
+
+def quant_error(x, fmt: FxpFormat) -> float:
+    """RMS quantization error — reported in the creator's stage-1 report."""
+    x = torch.as_tensor(x).to(torch.float32)
+    return float(torch.sqrt(torch.mean(torch.square(x - fxp_quantize(x,
+                                                                   fmt)))))

@@ -29,6 +29,10 @@ bit-exactness contract:
 
 ``device=None`` means ``"cuda"``, and a host without CUDA raises. On
 ``device="cpu"`` the kernels' wrappers run their plain versions.
+
+Each run counts ``rtl.emulator.dispatch.<mode>`` in the metrics registry
+and, when a tracer is enabled, records an ``rtl.emulator.dispatch`` span,
+as the reference does.
 """
 from __future__ import annotations
 
@@ -39,6 +43,7 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.obs import get_metrics, get_tracer
 from repro_torch.quant.fixedpoint import fxp_to_int
 from repro_torch.rtl.ir import Graph
 from repro_torch.rtl.oplib import get_template
@@ -118,6 +123,7 @@ class RTLEmulator:
 
     def _count_dispatch(self, mode: str) -> None:
         self.dispatch_counts[mode] = self.dispatch_counts.get(mode, 0) + 1
+        get_metrics().counter(f"rtl.emulator.dispatch.{mode}").inc()
 
     def _as_int(self, x_int) -> torch.Tensor:
         return torch.as_tensor(x_int, device=self.device)
@@ -125,6 +131,12 @@ class RTLEmulator:
     def run_int(self, x_int) -> EmulationResult:
         x_int = self._as_int(x_int)
         self._count_dispatch(self.mode)
+        trc = get_tracer()
+        if trc.enabled:                      # hoisted guard: skip the attrs
+            with trc.span("rtl.emulator.dispatch", mode=self.mode,
+                          shape=str(tuple(x_int.shape)),
+                          design=self.graph.name):
+                return self._result(self._execute(x_int, self.mode))
         return self._result(self._execute(x_int, self.mode))
 
     def _quantize(self, x) -> torch.Tensor:
@@ -166,7 +178,9 @@ class RTLEmulator:
         hoisted device constants."""
         mode = "jnp" if self.mode == "jnp" else "pallas"
         self._count_dispatch("per_step")
-        return self._result(self._execute(self._as_int(x_int), mode))
+        with get_tracer().span("rtl.emulator.dispatch", mode="per_step",
+                               design=self.graph.name):
+            return self._result(self._execute(self._as_int(x_int), mode))
 
     def run_per_step(self, x) -> EmulationResult:
         return self.run_int_per_step(self._quantize(x))

@@ -12,14 +12,16 @@
   (warmup, ``n_runs``, latency/energy tolerance bands against the XC7S15
   model and the paper's Table I numbers).
 
-The deployment-level entry (``verify_deployment``) comes with the target
-slice, the batched multi-design sweep with the multi-design emulator.
+:func:`verify_deployment` is the deployment-level entry that
+``Deployment.verify`` calls. The batched multi-design sweep comes with the
+multi-design emulator.
 """
 from repro_torch.verify.conformance import (CanaryResult,  # noqa: F401
                                             ConformanceReport, canary_check,
                                             fuzz_template,
                                             graph_error_budget_lsb,
-                                            run_conformance)
+                                            run_conformance,
+                                            verify_deployment)
 from repro_torch.verify.protocol import (TABLE1_GOP_PER_J,  # noqa: F401
                                          TABLE1_LATENCY_US, TABLE1_POWER_MW,
                                          MeasurementProtocol, ProtocolCheck,

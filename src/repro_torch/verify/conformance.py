@@ -306,3 +306,79 @@ def canary_check(dep, vectors: VectorSet, *, n: int = 4) -> CanaryResult:
                         n_mismatch=int(np.count_nonzero(diff)),
                         max_diff=int(diff.max()) if diff.size else 0,
                         path=path)
+
+
+# --------------------------------------------------------------------------- #
+# Deployment-level entry (what Deployment.verify calls)
+# --------------------------------------------------------------------------- #
+
+
+def _leaves(out) -> List[np.ndarray]:
+    """A deployment's answer (a tensor, an array, or nested tuples, lists
+    and dicts of them) as host float32 arrays, in tree order."""
+    from repro_torch.model.layers import tree_leaves
+
+    return [np.asarray(_host(leaf), np.float32)
+            for leaf in tree_leaves(out)]
+
+
+def verify_deployment(dep, args=None, *, model: str, model_flops: float,
+                      hw=None, protocol=None, oracle=None,
+                      modes: Sequence[str] = DEFAULT_MODES,
+                      vectors: Optional[VectorSet] = None
+                      ) -> ConformanceReport:
+    """Run any :class:`~repro_torch.core.target.Deployment` through the
+    Elastic Node conformance protocol; the uniform body behind
+    ``Deployment.verify``.
+
+    RTL deployments (anything carrying a lowered ``graph``) get the full
+    differential check over golden vectors, on the deployment's own
+    ``device``, plus the measurement protocol. Host-executed deployments get
+    the measurement protocol plus, when an ``oracle`` callable is provided,
+    a float comparison of the deployed executable against it.
+    """
+    from repro_torch.verify.protocol import run_protocol
+
+    graph = getattr(dep, "graph", None)
+    if graph is not None:
+        device = getattr(dep, "device", None)
+        vs = vectors if vectors is not None else generate_vectors(
+            graph, device=device)
+        rep = run_conformance(graph, vs, modes=modes,
+                              target=dep.target or "rtl",
+                              replay_golden=vectors is not None,
+                              device=device)
+        if args is None:
+            args = (vs.stimulus_f()[:1],)
+    else:
+        rep = ConformanceReport(design=model, target=dep.target or "xla")
+        if oracle is not None and args is not None:
+            got, want = _leaves(dep(*args)), _leaves(oracle(*args))
+            err, tol, shapes_ok = 0.0, 0.0, len(got) == len(want)
+            for a, b in zip(got, want):
+                if a.shape != b.shape:
+                    shapes_ok = False
+                    break
+                if a.size:
+                    err = max(err, float(np.max(np.abs(a - b))))
+                    tol = max(tol, 1e-4 * max(1.0,
+                                              float(np.max(np.abs(b)))))
+            if not shapes_ok or err > tol:
+                rep.passed = False
+                rep.notes.append("deployed executable deviates from oracle "
+                                 f"by {err:g} (tol {tol:g})"
+                                 if shapes_ok else
+                                 "deployed executable and oracle disagree "
+                                 "on output structure")
+            else:
+                rep.notes.append(f"oracle agreement: max|Δ|={err:g} "
+                                 f"<= {tol:g}")
+    if args is not None:
+        prot = run_protocol(dep, args, model=model, model_flops=model_flops,
+                            hw=hw, protocol=protocol)
+        rep.protocol = prot.to_dict()
+        if not prot.passed:
+            rep.passed = False
+            rep.notes.append("measurement protocol failed: " + "; ".join(
+                c.name for c in prot.checks if c.enforced and not c.passed))
+    return rep

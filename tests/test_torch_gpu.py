@@ -11,8 +11,11 @@ and of the chunked forms ``ssd_chunked``/``wkv6_chunked``, also at decay
 extremes), the emulator on CUDA against the golden sets and its own
 plain path, the verification half on CUDA (``run_conformance`` with B1/B2
 launches counted, ``fuzz_template`` for every kind, ``emit_golden``,
-``canary_check``, and ``oracle_codes`` under a TF32 global), and the LM
-server with B5 against its plain attention path.
+``canary_check``, and ``oracle_codes`` under a TF32 global), the LM
+server with B5 against its plain attention path, and the paper's loop on
+the card (the QAT and float window losses and gradients against the CPU,
+``RTLExecutable.measure``, ``verify_deployment``, the measurement protocol
+on a real ``RTLExecutable``, one ``Workflow.run_once``).
 
 Imports nothing of JAX, so it also runs where JAX is not installed:
 
@@ -965,3 +968,133 @@ def test_canary_check_on_card(cuda, arch):
     w.view(-1)[0] ^= 1 << 5
     assert not canary_check(types.SimpleNamespace(emulator=em), vs,
                             n=16).passed
+
+
+# --------------------------------------------------------------------------- #
+# Stage 1 and the paper's loop on the card
+# --------------------------------------------------------------------------- #
+
+
+def _traffic(device, batch=256):
+    from repro_torch.data.pipeline import TrafficConfig, traffic_flow_batch
+
+    return {k: torch.as_tensor(v, device=device) for k, v in
+            traffic_flow_batch(TrafficConfig(batch=batch), 0).items()}
+
+
+@pytest.mark.parametrize("qat", [True, False])
+def test_window_loss_and_grads_card_vs_cpu(cuda, qat):
+    """The QAT loss (hard activations, the workflow's) and the float window
+    loss with their gradients, on the card against the CPU, within 1e-5:
+    under QAT every gate product is a sum of grid values, exact in f32 on
+    both devices, so only the batch reductions of the backward differ."""
+    from repro_torch.model.layers import tree_leaves, value_and_grad
+    from repro_torch.model.lm import make_loss_fn
+    from repro_torch.quant.qat import QATConfig, make_qat_loss
+
+    cfg = get_config("elastic-lstm")
+    params = tvec.canonical_params(tvec.schema_for(cfg), seed=4)
+    if qat:
+        loss = make_qat_loss(cfg, QATConfig())
+    else:
+        loss = make_loss_fn(cfg, SMOKE_MESH, ParallelismConfig())
+    out = {}
+    for dev in ("cpu", cuda):
+        (value, _), grads = value_and_grad(loss, has_aux=True)(
+            to_torch(params, dev), _traffic(dev))
+        out[str(dev)] = [value] + tree_leaves(grads)
+    for a, b in zip(out["cpu"], out["cuda"]):
+        assert b.is_cuda and (a - b.cpu()).abs().max().item() <= 1e-5
+
+
+def _deployment(arch, device=None):
+    from repro_torch.rtl.backend import translate_rtl
+
+    cfg = get_config(arch)
+    params = tvec.canonical_params(tvec.schema_for(cfg))
+    return translate_rtl(cfg, params, device=device)
+
+
+def _flops(arch):
+    from repro_torch.model.conv1d import conv1d_flops
+    from repro_torch.model.lstm import lstm_flops
+
+    cfg = get_config(arch)
+    return float(lstm_flops(cfg) if cfg.family == "lstm"
+                 else conv1d_flops(cfg))
+
+
+def test_rtl_executable_measure_on_card(cuda):
+    """``RTLExecutable.measure`` with no device given (CUDA): 20 timed runs,
+    the warmup run outside the samples, B1 and B2 launched by every run."""
+    from repro_torch.obs import MetricsRegistry, set_metrics
+
+    syn, dep = _deployment("elastic-lstm")
+    assert dep.device.type == "cuda"
+    x = torch.zeros((8, 6, 1), device=cuda)
+    reg = MetricsRegistry()
+    prev = set_metrics(reg)
+    b1, b2 = lstm_ops.launches, mac_ops.launches
+    try:
+        rep = dep.measure((x,), model="elastic-lstm",
+                          model_flops=_flops("elastic-lstm"))
+    finally:
+        set_metrics(prev)
+    assert rep.n_runs == 20 and rep.latency_s == syn.est_latency_s
+    assert reg.histogram("measure.latency_s.rtl").count == 20
+    assert reg.counter("rtl.emulator.dispatch.fused").value == 21
+    assert lstm_ops.launches - b1 == 21 and mac_ops.launches - b2 == 21
+    assert 0 < rep.latency_p50_s <= rep.latency_p99_s
+
+
+@pytest.mark.parametrize("arch", ["elastic-lstm", "elastic-conv1d"])
+def test_verify_deployment_on_card(cuda, arch):
+    """``Deployment.verify`` of a CUDA RTLExecutable: conformance over the
+    design's generated vectors on the card and the measurement protocol."""
+    _, dep = _deployment(arch)
+    b1, b2 = lstm_ops.launches, mac_ops.launches
+    rep = dep.verify(model=arch, model_flops=_flops(arch))
+    assert rep.passed, rep.to_json()
+    assert rep.modes_bit_exact and rep.oracle_max_lsb == 0
+    assert rep.protocol["passed"] and rep.protocol["n_runs"] == 20
+    assert mac_ops.launches > b2
+    assert (lstm_ops.launches > b1) == (arch == "elastic-lstm")
+
+
+@pytest.mark.parametrize("arch", ["elastic-lstm", "elastic-conv1d"])
+def test_protocol_on_a_real_rtl_executable(cuda, arch):
+    """The measurement protocol on a CUDA RTLExecutable in place of a stub
+    deployment: the emulator runs, and the cycle model's latency, energy
+    and (for Table I's design) the paper's bands all hold."""
+    from repro_torch.verify import MeasurementProtocol, run_protocol
+
+    _, dep = _deployment(arch)
+    graph = tvec.canonical_graph(arch)[0]
+    vs = tvec.load_vectors(tvec.golden_dir(GOLDEN_ROOT, arch))
+    b2 = mac_ops.launches
+    rep = run_protocol(dep, (torch.as_tensor(vs.stimulus_f(), device=cuda),),
+                       model=arch, model_flops=_flops(arch))
+    assert rep.passed and rep.n_runs == 20 and rep.platform == \
+        "rtl-emulator(xc7s15)"
+    names = {c.name for c in rep.checks}
+    assert {"latency_vs_cycle_model", "energy_vs_cycle_model"} <= names
+    assert ("gop_per_j_vs_table1" in names) == (arch == "elastic-lstm")
+    proto = MeasurementProtocol()              # warmup runs + timed runs
+    assert mac_ops.launches - b2 == (proto.warmup + proto.n_runs) * sum(
+        n.op in ("linear", "conv1d") for n in graph.nodes)
+
+
+def test_workflow_run_once_on_card(cuda):
+    """One trip around the loop on the card: Stage 1 trains there, the
+    deployed design's emulator runs there, conformance passes."""
+    from repro_torch.launch import elastic_workflow as ew
+    from repro_torch.model.layers import tree_leaves
+
+    wf = ew.build_workflow("elastic-lstm", verify=True, train_steps=3)
+    params, _, _ = wf.train_fn({"bits": 8, "frac": 6})
+    assert all(p.is_cuda for p in tree_leaves(params))
+    b1 = dict(lstm_ops.launches_by_variant)
+    rec = wf.run_once({"bits": 12, "frac": 8})
+    assert rec.conformance.passed and rec.analysis.passed
+    assert lstm_ops.launches_by_variant["simt"] > b1["simt"]
+    assert rec.synthesis.resources["cycles"] == 5237

@@ -44,7 +44,11 @@ def test_importing_the_port_loads_neither_jax_nor_repro():
             "repro_torch.quant.ptq, repro_torch.model.ssm, "
             "repro_torch.model.rwkv, repro_torch.energy, "
             "repro_torch.core.report, repro_torch.rtl.lint, "
-            "repro_torch.verify.conformance, repro_torch.verify.protocol; "
+            "repro_torch.verify.conformance, repro_torch.verify.protocol, "
+            "repro_torch.data, repro_torch.optim, repro_torch.quant.qat, "
+            "repro_torch.core.target, repro_torch.core.registry, "
+            "repro_torch.core.creator, repro_torch.core.workflow, "
+            "repro_torch.rtl.backend, repro_torch.launch.elastic_workflow; "
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'repro.')) or m == 'repro'); "
             "assert not bad, bad")
