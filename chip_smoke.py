@@ -116,7 +116,8 @@ The paper's loop, closed on the card (Stage-1 QAT training, the target
 registry, ``RTLTarget``, ``Creator``, ``Workflow``):
 
 14. ``Workflow.run`` of ``repro_torch.launch.elastic_workflow`` for both
-    canonical designs on the card, with the example's settings (120 AdamW
+    canonical designs on the card on the RTL target (``build_workflow(...,
+    target="rtl")``), with the example's settings (120 AdamW
     steps of batch 256 an iteration, knobs from Q4.2, 4 iterations,
     ``verify=True``, ``analyze="error"``) under a requirement no design
     meets, so the widening runs Q4 -> Q8 -> Q12 -> Q16 and the 12- and
@@ -131,8 +132,29 @@ registry, ``RTLTarget``, ``Creator``, ``Workflow``):
     difference and its lowered integer weights that differ printed), and
     one QAT step at batch 256 and 65,536 timed (host clock around a
     synchronised step) and profiled (device busy, device activities);
-15. print the kernels line (B1's and B2's rows also carry the loop's
-    launches, ``workflow_launches``) and the card's name and power limit.
+
+The host target (``TorchTarget``, the reference's ``"xla"``: the step's
+torch program counted by ``energy/cost.py`` on ``meta``, reported through
+the roofline and the 8-channel meter, timed on the card):
+
+15. run in two parts. While phase 6's Yi-9B weights are on the card (after
+    phase 7): ``Creator().translate(..., target="xla")`` of a 2,048-token
+    prefill (B5) and of a decode tick of 4 slots over 4,096 positions,
+    half filled; each step is counted again on the card's tensors and the
+    counts must equal the ``meta`` ones op for op; one deployed call must
+    launch B5 ``sm90`` 48 times (the prefill) or not at all (the decode);
+    then ``measure`` (2 warmup, 20 synchronised runs) prints the roofline
+    row, p50/p99, the whole-step share of peak (``model_flops / (989e12 x
+    p50)``) and the peak device memory beside the counted bytes, and one
+    more call under ``torch.profiler`` its device busy time. After
+    phase 14: ``python -m repro_torch.launch.elastic_workflow --verify``
+    (the host target, the example's settings) for both designs, each
+    iteration's host deployment counted, timed on the card and verified,
+    the final RTL translate's conformance passing, B1/B2 counted around
+    the run;
+16. print the kernels line (B1's and B2's rows also carry the loop's
+    launches, ``workflow_launches``; B5's the host target's,
+    ``host_target_launches``) and the card's name and power limit.
 
 Usage, from the repository root: ``python3 chip_smoke.py``. Needs one CUDA
 card and ``nvcc``; exits non-zero, printing no result, without them. The
@@ -1329,7 +1351,8 @@ def phase_loop(ops_by_name: dict, card: str) -> dict:
 
     loop_launches = {}
     for arch in ("elastic-lstm", "elastic-conv1d"):
-        wf = ew.build_workflow(arch, device="cuda", verify=True)
+        wf = ew.build_workflow(arch, device="cuda", verify=True,
+                               target="rtl")
         trc = stage_launch_tracer(lstm_ops, mac_ops)
         seen["tensors"] = 0
         for mod in ops_by_name.values():
@@ -1468,6 +1491,177 @@ def phase_loop(ops_by_name: dict, card: str) -> dict:
     return loop_launches
 
 
+# the host target's Yi-9B cells (phase 15): one 2,048-token prefill (the
+# reference's prefill_32k x 32 would need about 103 GB of K/V cache alone)
+# and one decode tick of the serving run's 4 slots over 4,096 positions,
+# half of them filled
+HOST_PREFILL = ("prefill_2k", "prefill", 2048, 1)
+HOST_DECODE = ("decode_4k", "decode", MAX_LEN, SLOTS)
+HOST_RUNS, HOST_WARMUP = 20, 2
+
+
+def host_deploy(cfg, params, shape, args_fn, flash_ops, card: str) -> dict:
+    """Phase 15, one Yi-9B cell through the host target: translate (the
+    step counted on ``meta``), the same step counted again on the card's
+    tensors (equal counts asserted), one deployed call (B5 launches
+    counted), then ``measure`` and one profiled call; prints the report's
+    roofline row, p50/p99, the whole-step share of the card's peak, the
+    peak device memory beside the counted bytes and the device busy time.
+    Returns B5's launches, the p50 and the share."""
+    import torch
+
+    from repro_torch.core.creator import Creator
+    from repro_torch.core.target import model_flops_estimate
+    from repro_torch.core.types import ParallelismConfig, ShapeConfig
+    from repro_torch.energy.cost import count_step
+    from repro_torch.energy.roofline import HEADER, roofline
+
+    cr = Creator()
+    st = cr.build(cfg, ShapeConfig(*shape), par=ParallelismConfig(
+        compute_dtype="bfloat16", attn_impl="flash"))
+    syn, dep = cr.translate(st, target="xla", params=params)
+    args = args_fn(st)
+    with torch.inference_mode():
+        on_card = count_step(dep.fn, args)
+    keys = ("flops", "bytes_accessed", "argument_bytes", "output_bytes",
+            "temp_bytes")
+    counted = {k: getattr(syn, k) for k in keys}
+    got = {k: getattr(on_card, k) for k in keys}
+    if got != counted or on_card.as_text() != dep.ops_text:
+        raise AssertionError(f"{cfg.name} {shape[0]}: counts on the card "
+                             f"{got} != counts on meta {counted}")
+    torch.cuda.synchronize()
+    flash_ops.launches = 0
+    flash_ops.launches_by_variant = dict.fromkeys(
+        flash_ops.launches_by_variant, 0)
+    out = dep(*args)
+    torch.cuda.synchronize()
+    per_call = flash_ops.launches
+    logits = out[0]
+    if not torch.isfinite(logits).all() or tuple(logits.shape) != (
+            shape[3], cfg.padded_vocab):
+        raise AssertionError(f"{cfg.name} {shape[0]}: logits "
+                             f"{tuple(logits.shape)}, finite "
+                             f"{bool(torch.isfinite(logits).all())}")
+    want = cfg.n_layers if shape[1] == "prefill" else 0
+    if per_call != want or flash_ops.launches_by_variant["simt"]:
+        raise AssertionError(f"{cfg.name} {shape[0]}: B5 launched "
+                             f"{per_call} times a call "
+                             f"({flash_ops.launches_by_variant}), expected "
+                             f"{want}, all sm90")
+    del out, logits
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    mf = model_flops_estimate(cfg, st.shape)
+    meas = dep.measure(args, model=cfg.name, model_flops=mf,
+                       n_runs=HOST_RUNS, warmup=HOST_WARMUP)
+    peak = torch.cuda.max_memory_allocated() - base
+    wall, device = profile_ms(lambda: dep(*args))
+    busy = sum(device.values())
+    b5_dev = sum(t for name, t in device.items() if "flash_fwd" in name)
+    top = sorted(device.items(), key=lambda kv: -kv[1])[:4]
+    rep = roofline(arch=cfg.name, shape=shape[0], mesh="1dev", n_devices=1,
+                   cost={"flops": syn.flops,
+                         "bytes accessed": syn.bytes_accessed},
+                   hlo_text=dep.ops_text, model_flops=mf, hw=dep.hw)
+    share = mf / (dep.hw.peak_flops * meas.latency_p50_s)
+    log(f"phase 15 {cfg.name} {shape[0]} host target, roofline:\n"
+        f"  {HEADER}\n  {rep.row()}")
+    log(f"phase 15 {cfg.name} {shape[0]}: counted {syn.flops:.6e} FLOP "
+        f"(model_flops_estimate {mf:.6e}, useful_ratio "
+        f"{rep.useful_ratio:.4f}), {syn.bytes_accessed:.6e} bytes accessed "
+        f"(eager), bottleneck {syn.bottleneck}, estimate "
+        f"{syn.est_latency_s * 1e3:.4f} ms; counts on the card equal counts "
+        f"on meta ({len(dep.ops_text.splitlines())} ops); B5 launches a "
+        f"call {per_call}; measured p50 {meas.latency_p50_s * 1e3:.4f} ms, "
+        f"p99 {meas.latency_p99_s * 1e3:.4f} ms, mean "
+        f"{meas.latency_s * 1e3:.4f} ms ({HOST_RUNS} synchronised runs after "
+        f"{HOST_WARMUP} warmup); whole-step share of peak "
+        f"{share:.4f} (model_flops / (989e12 x p50)); peak device memory "
+        f"above the inputs {peak / 2**30:.3f} GiB beside counted temp "
+        f"{syn.temp_bytes / 2**30:.3f} GiB + output "
+        f"{syn.output_bytes / 2**30:.3f} GiB (inputs "
+        f"{syn.argument_bytes / 2**30:.3f} GiB); translate "
+        f"{syn.compile_seconds:.2f} s ({card})")
+    log(f"phase 15 {cfg.name} {shape[0]} profile, one deployed call: "
+        + (f"device busy {busy:.3f} ms of {wall:.3f} ms host clock "
+           f"(profiler on), B5 {b5_dev:.3f} ms; " + "; ".join(
+               f"{name[:60]} {ms:.3f} ms" for name, ms in top)
+           if busy else "device time not measured (the profiler saw no "
+           "GPU activity)"))
+    return {"b5_launches": flash_ops.launches, "p50_ms":
+            meas.latency_p50_s * 1e3, "share": share}
+
+
+def phase_host_loop(ops_by_name: dict, card: str) -> None:
+    """Phase 15, the paper's default loop: ``python -m
+    repro_torch.launch.elastic_workflow --verify`` (the host target) for
+    both canonical designs on the card, with the example's settings. Each
+    iteration's host deployment is counted in stage 2, timed in stage 3 and
+    verified; the final RTL translate and its conformance launch B1 and
+    B2, counted around the run."""
+    import contextlib
+    import io
+
+    import torch
+
+    from repro_torch.launch import elastic_workflow as ew
+
+    built = []
+    build = ew.build_workflow
+
+    def keep(*a, **k):
+        built.append(build(*a, **k))
+        return built[-1]
+
+    for arch in ("lstm", "conv1d"):
+        for mod in ops_by_name.values():
+            mod.launches = 0
+        built.clear()
+        ew.build_workflow = keep
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        try:
+            with contextlib.redirect_stdout(out):
+                rc = ew.main(["--verify", "--arch", arch])
+            torch.cuda.synchronize()
+        finally:
+            ew.build_workflow = build
+        wall = time.perf_counter() - t0
+        counts = {key: mod.launches for key, mod in ops_by_name.items()}
+        (wf,) = built
+        text = out.getvalue()
+        if rc != 0 or wf.target != "xla" or "conformance: " not in text \
+                or " PASS " not in text.split("conformance: ")[-1]:
+            raise AssertionError(f"{arch} host loop: rc {rc}, target "
+                                 f"{wf.target}:\n{text[-2000:]}")
+        if counts["mac_int"] == 0 or (arch == "lstm"
+                                      and counts["lstm_cell_int"] == 0):
+            raise AssertionError(f"{arch} host loop: launches {counts}")
+        for rec in wf.history:
+            conf, syn, meas = rec.conformance, rec.synthesis, rec.measurement
+            if not (conf is not None and conf.passed and conf.target
+                    == "xla" and meas.platform == torch.cuda
+                    .get_device_name(0)):
+                raise AssertionError(f"{arch} iteration {rec.iteration}: "
+                                     f"{conf and conf.to_json()} on "
+                                     f"{meas.platform}")
+            log(f"phase 15 elastic-{arch} host iteration {rec.iteration}: "
+                f"{rec.design.weight_fmt}, eval loss "
+                f"{rec.design.eval_loss:.6f}; counted {syn.flops:.0f} FLOP, "
+                f"{syn.bytes_accessed:.0f} bytes, bottleneck "
+                f"{syn.bottleneck}, estimate {syn.est_latency_s * 1e9:.2f} "
+                f"ns; measured p50 {meas.latency_p50_s * 1e3:.4f} ms, p99 "
+                f"{meas.latency_p99_s * 1e3:.4f} ms on {meas.platform}; "
+                f"verify {conf.summary()}")
+        log(f"phase 15 elastic-{arch} launcher --verify (host target): "
+            f"{len(wf.history)} iterations, final RTL translate and "
+            f"conformance pass, {wall:.2f} s host; launches "
+            + json.dumps({k: n for k, n in counts.items() if n})
+            + f" ({card})")
+
+
 def main() -> int:
     import torch
 
@@ -1499,7 +1693,7 @@ def main() -> int:
                                              mac_int_ref)
     from repro_torch.kernels.mac_int import ops as mac_ops
     from repro_torch.model.conv1d import conv1d_frames
-    from repro_torch.model.layers import param_count
+    from repro_torch.model.layers import is_pspec, param_count, tree_map
     from repro_torch.model.lm import (Stepper, make_decode_step,
                                       make_prefill_step)
     from repro_torch.model.transformer import pad_cache
@@ -2028,6 +2222,27 @@ def main() -> int:
     log(f"phase 7 bf16 full depth: worst rel rms {worst_rel:.3e} <= bound "
         f"sqrt(48) * 2^-7 = {bf16_bound:.3e}; first tokens agree on "
         f"{agree}/{len(prompts)}")
+
+    # ---- 15, first part. the host target: Yi-9B deployed ------------------
+    smi = card_name_and_limit()
+
+    def decode_args(st):
+        cache = tree_map(lambda s: torch.zeros(s.shape, dtype=s.dtype,
+                                               device="cuda"),
+                         st.cache_schema(), is_leaf=is_pspec)
+        for layer in cache["layers"]:          # half of every slot filled
+            layer["pos"].fill_(MAX_LEN // 2)
+        last = torch.tensor([[p[-1]] for p in prompts[:SLOTS]],
+                            dtype=torch.int32, device="cuda")
+        return params, last, cache
+
+    host = {"prefill": host_deploy(
+        yi, params, HOST_PREFILL, lambda st: (params, {"tokens": torch.tensor(
+            [prompts[5]], dtype=torch.int32, device="cuda")}), flash_ops,
+        smi)}
+    host["decode"] = host_deploy(yi, params, HOST_DECODE, decode_args,
+                                 flash_ops, smi)
+    torch.cuda.empty_cache()
     del params
     torch.cuda.empty_cache()
     yi4 = yi.with_(n_layers=4)
@@ -2120,6 +2335,7 @@ def main() -> int:
         "source": "src/repro_torch/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention/kernel.py:26",
         "launches": yi_launches,
+        "host_target_launches": host["prefill"]["b5_launches"],
         "max_abs_err": max(b5_err.values()), "ms": k_ms, "plain_ms": p_ms,
         "bound_ms": bnd, "bound_by": by, "library_ms": l_ms})
 
@@ -2137,7 +2353,6 @@ def main() -> int:
         torch.cuda.empty_cache()
 
     # ---- 13. toolchain and conformance -------------------------------------
-    smi = card_name_and_limit()
     phase_toolchain(ops_by_name, smi)
 
     # ---- 14. the paper's loop ----------------------------------------------
@@ -2147,7 +2362,10 @@ def main() -> int:
         if key is not None:
             row["workflow_launches"] = sum(n[key] for n in loop.values())
 
-    # ---- 15. report --------------------------------------------------------
+    # ---- 15, second part. the paper's default loop on the host target ------
+    phase_host_loop(ops_by_name, smi)
+
+    # ---- 16. report --------------------------------------------------------
     log(smi)                     # the card's name and power limit
     print(json.dumps({"kernels": kernel_rows}))
     print(json.dumps({"ok": True, "device": {

@@ -7,5 +7,6 @@ uniform Deployment artifact.
 """
 from repro_torch.core.target import (DEFAULT_N_RUNS,  # noqa: F401
                                      Deployment, Target, TargetOptions,
+                                     TorchDeployment, TorchOptions,
                                      get_target, list_targets,
                                      register_lazy_target, register_target)

@@ -26,8 +26,8 @@ import torch
 from repro_torch.core import registry
 from repro_torch.core.report import MeasurementReport, SynthesisReport
 from repro_torch.core.target import (DEFAULT_N_RUNS, Deployment,
-                                     TargetOptions, get_target,
-                                     model_flops_estimate)
+                                     TargetOptions, TorchDeployment,
+                                     get_target, model_flops_estimate)
 from repro_torch.core.types import (SMOKE_MESH, MeshConfig, ModelConfig,
                                     ParallelismConfig, ShapeConfig)
 from repro_torch.energy.hw import H100_SXM, HWSpec
@@ -59,7 +59,7 @@ class Creator:
     # ------------------------------------------------------------------ #
     # Stage 2: translate (= synthesize) + estimation report
     # ------------------------------------------------------------------ #
-    def translate(self, st: Stepper, *, target="rtl",
+    def translate(self, st: Stepper, *, target="xla",
                   options: Optional[TargetOptions] = None,
                   params=None, kind: Optional[str] = None,
                   model_flops: Optional[float] = None,
@@ -67,10 +67,9 @@ class Creator:
                   **rtl_formats) -> Tuple[SynthesisReport, Deployment]:
         """Press the button: returns (SynthesisReport, Deployment).
 
-        ``target`` is a registered target name (see
-        :func:`repro_torch.core.target.list_targets`) or a Target instance;
-        the reference's default, its XLA host target, is not ported yet
-        (ROADMAP A7b), so the default here is ``"rtl"``.
+        ``target`` is a registered target name (``"xla"``, the host
+        target, or ``"rtl"``; see
+        :func:`repro_torch.core.target.list_targets`) or a Target instance.
         Target-specific knobs ride in ``options`` — the target's options
         dataclass (e.g. ``RTLOptions(w_fmt=..., emulator_mode=...)``);
         ``None`` means the target's defaults. ``params`` are the trained
@@ -127,16 +126,14 @@ class Creator:
     def measure(self, fn, args, *, model: str, model_flops: float,
                 n_runs: int = DEFAULT_N_RUNS, hw: Optional[HWSpec] = None
                 ) -> MeasurementReport:
-        """Thin wrapper over :meth:`Deployment.measure`. The reference also
-        wraps a raw callable into its host deployment; the port's host
-        target waits for ROADMAP A7b, so a callable raises."""
-        if not isinstance(fn, Deployment):
-            raise NotImplementedError(
-                "Creator.measure of a raw callable needs the torch host "
-                "target (ROADMAP A7b); pass a Deployment")
-        return fn.measure(tuple(args), model=model, model_flops=model_flops,
-                          n_runs=n_runs,
-                          hw=hw or getattr(fn, "hw", self.hw))
+        """Thin wrapper over :meth:`Deployment.measure`: a raw callable is
+        wrapped into a :class:`TorchDeployment` on the Creator's HWSpec and
+        device."""
+        dep = fn if isinstance(fn, Deployment) else TorchDeployment(
+            fn=fn, hw=hw or self.hw, device=self.device)
+        return dep.measure(tuple(args), model=model,
+                           model_flops=model_flops, n_runs=n_runs,
+                           hw=hw or getattr(dep, "hw", self.hw))
 
     def measure_rtl(self, exe, x, *, model: str, model_flops: float,
                     hw: Optional[HWSpec] = None,

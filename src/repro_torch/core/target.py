@@ -15,25 +15,31 @@ Two abstractions (DESIGN.md §8):
   documented ``n_runs`` default for every target), savable, verifiable, and
   carrying ``target``/``cycles`` metadata.
 
-Targets register by name (:func:`register_target`); the RTL target is a
-lazy entry so ``repro_torch.rtl.backend`` imports only when first
-requested. The reference's host target (``XLATarget``/``XLADeployment``)
-and ``Deployment.guarded`` are not ported yet: the torch host target needs
-the FLOP and byte counting of ROADMAP A10 (A7b), and the guarded wrapper
-comes with the resilience layer (A9).
+Targets register by name (:func:`register_target`): the host target
+(:class:`TorchTarget`) eagerly, the RTL target as a lazy entry so
+``repro_torch.rtl.backend`` imports only when first requested.
+``Deployment.guarded`` comes with the resilience layer (ROADMAP A9).
 """
 from __future__ import annotations
 
 import dataclasses
 import importlib
-from dataclasses import dataclass
-from typing import (Any, Dict, Optional, Protocol, Tuple, Type, Union,
-                    runtime_checkable)
+import json
+import os
+import time
+from dataclasses import dataclass, field
+from typing import (Any, Callable, Dict, Optional, Protocol, Tuple, Type,
+                    Union, runtime_checkable)
 
 import torch
 
 from repro_torch.core.report import MeasurementReport, SynthesisReport
-from repro_torch.energy.hw import HWSpec
+from repro_torch.device import resolve_device
+from repro_torch.energy.cost import count_step
+from repro_torch.energy.hw import H100_SXM, HWSpec
+from repro_torch.energy.meter import channel_report
+from repro_torch.energy.roofline import roofline
+from repro_torch.obs import get_metrics, get_tracer, percentile
 
 #: The single documented stage-3 measurement default, shared by every
 #: target.
@@ -80,6 +86,24 @@ class TargetOptions:
             model_flops=(self.model_flops if self.model_flops is not None
                          else model_flops),
             device=self.device if self.device is not None else device)
+
+
+@dataclass(frozen=True)
+class TorchOptions(TargetOptions):
+    """Options for the host target.
+
+    ``kind`` overrides the stepper shape's program kind
+    ("train" | "prefill" | "decode"); ``None`` uses ``stepper.shape.kind``.
+    """
+
+    kind: Optional[str] = None
+
+    _KINDS = (None, "train", "prefill", "decode")
+
+    def __post_init__(self):
+        if self.kind not in self._KINDS:
+            raise ValueError("TorchOptions.kind must be one of "
+                             f"{self._KINDS[1:]} or None, got {self.kind!r}")
 
 
 # --------------------------------------------------------------------------- #
@@ -144,6 +168,98 @@ class Deployment:
         return verify_deployment(self, args, model=model,
                                  model_flops=model_flops, hw=hw,
                                  protocol=protocol, oracle=oracle)
+
+
+def _sync(device: torch.device) -> None:
+    """Wait for the device: a CUDA call returns before the work is done."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+@dataclass
+class TorchDeployment(Deployment):
+    """The host target's deployment: a torch step function run on
+    ``device`` (``None`` means CUDA, or raise), timed on the host clock,
+    with duty-1 power from the HWSpec.
+
+    A prefill or decode step runs under ``torch.inference_mode()``, so no
+    activation is kept for a backward pass; a train step (``kind ==
+    "train"``) runs with autograd. ``ops_text`` is the counted op list
+    (:meth:`repro_torch.energy.cost.StepCost.as_text`), ``cost`` the
+    step's ``flops``, ``bytes_accessed``, ``wire_bytes`` and the roofline's
+    ``est_latency_s``.
+    """
+
+    fn: Optional[Callable] = None
+    hw: HWSpec = H100_SXM
+    ops_text: str = ""
+    cost: Dict[str, float] = field(default_factory=dict)
+    device: Optional[Union[str, torch.device]] = None
+    kind: Optional[str] = None
+
+    target = "xla"
+
+    def __post_init__(self):
+        self.device = resolve_device(self.device)
+
+    def __call__(self, *args):
+        with torch.inference_mode(self.kind != "train"):
+            return self.fn(*args)
+
+    def bind_step(self, fn) -> "TorchDeployment":
+        """Run ``fn`` instead of the translated step, keeping the
+        translate-time metadata (op list, cost) on the new artifact."""
+        return dataclasses.replace(self, fn=fn)
+
+    def measure(self, args, *, model: str, model_flops: float,
+                n_runs: int = DEFAULT_N_RUNS, warmup: int = 1,
+                hw: Optional[HWSpec] = None) -> MeasurementReport:
+        """Time ``n_runs`` calls, each on the host clock around a run that
+        ends in a device synchronise, so the report carries real p50/p99
+        percentiles, not just the mean. The ``warmup`` calls run first and
+        never enter the samples: the first call on a fresh machine builds
+        the CUDA kernels it launches.
+
+        A decode step writes the new token's K/V into the cache it is given
+        in place and leaves that cache's positions as they were, so every
+        run times the same position: the same work each time, as the
+        reference's donated cache gives it."""
+        hw = hw or self.hw
+        n_runs = max(1, n_runs)
+        samples = []
+        with get_tracer().span("xla.measure", model=model, n_runs=n_runs,
+                               warmup=warmup):
+            for _ in range(max(0, warmup)):     # excluded from percentiles
+                self(*args)
+                _sync(self.device)
+            for _ in range(n_runs):
+                t0 = time.perf_counter()
+                self(*args)
+                _sync(self.device)
+                samples.append(time.perf_counter() - t0)
+        hist = get_metrics().histogram("measure.latency_s.xla")
+        for s in samples:
+            hist.observe(s)
+        lat = sum(samples) / n_runs
+        energy = hw.energy_j(lat)
+        platform = (torch.cuda.get_device_name(self.device)
+                    if self.device.type == "cuda" else self.device.type)
+        return MeasurementReport(
+            model=model, platform=platform, latency_s=lat,
+            power_w=hw.active_w, energy_j=energy,
+            gop_per_j=(model_flops / 1e9) / energy if energy else 0.0,
+            n_runs=n_runs, target=self.target,
+            latency_p50_s=percentile(samples, 50),
+            latency_p99_s=percentile(samples, 99))
+
+    def save(self, build_dir: str) -> None:
+        """Artifacts for this substrate: the op list plus a manifest."""
+        os.makedirs(build_dir, exist_ok=True)
+        with open(os.path.join(build_dir, "module.ops.txt"), "w") as f:
+            f.write(self.ops_text)
+        with open(os.path.join(build_dir, "deployment.json"), "w") as f:
+            json.dump({"target": self.target, "hw": self.hw.name,
+                       "cost": self.cost}, f, indent=2)
 
 
 # --------------------------------------------------------------------------- #
@@ -223,4 +339,117 @@ def get_target(name) -> Target:
                      f"registered targets: {list_targets()}")
 
 
+# --------------------------------------------------------------------------- #
+# The host target
+# --------------------------------------------------------------------------- #
+
+
+def _meta(tree):
+    """A tree of ``meta`` tensors with the shapes and dtypes of ``tree``'s
+    tensors or :class:`~repro_torch.model.layers.PSpec` leaves."""
+    from repro_torch.model.layers import is_pspec, tree_map
+
+    return tree_map(
+        lambda s: torch.empty(s.shape, dtype=s.dtype, device="meta"),
+        tree, is_leaf=is_pspec)
+
+
+def abstract_inputs(st, kind: str, params=None) -> tuple:
+    """The arguments of ``kind``'s step of the stepper ``st`` as ``meta``
+    tensors: params from ``params`` where given (shapes and dtypes only),
+    else from the schema; the batch from
+    :func:`~repro_torch.model.lm.input_specs`, the cache from the cache
+    schema, the optimizer state zeros beside the params."""
+    from repro_torch.model.lm import input_specs
+    from repro_torch.optim.adamw import init_opt_state
+
+    p = _meta(params if params is not None else st.schema)
+    batch = {name: torch.empty(shape, dtype=dtype, device="meta")
+             for name, (shape, dtype) in input_specs(
+                 st.cfg, dataclasses.replace(st.shape, kind=kind)).items()}
+    if kind == "train":
+        return p, init_opt_state(p), batch
+    if kind == "prefill":
+        return p, batch
+    return p, batch["tokens"], _meta(st.cache_schema())
+
+
+class TorchTarget:
+    """The host-executed target: the stepper's torch step run on the card,
+    reported through the roofline and the 8-channel meter of its counted
+    program (the Vivado-estimation analogue).
+
+    Registered under the reference's name for its host target, ``"xla"``,
+    so ``Workflow(target="xla")``, ``--target xla`` and the reports'
+    ``target`` read as the reference's do; no XLA runs. Translating counts
+    the step (:func:`repro_torch.energy.cost.count_step`) on ``meta``
+    tensors built from the schema, the reference's abstract lowering:
+    nothing executes and no second copy of the weights is made.
+    """
+
+    name = "xla"
+    default_hw = H100_SXM
+    options_cls = TorchOptions
+    requires_stepper = False
+
+    def options_from_knobs(self, knobs: Dict[str, Any]) -> TorchOptions:
+        return TorchOptions()
+
+    def translate(self, cfg, params, st, options: TorchOptions
+                  ) -> Tuple[SynthesisReport, TorchDeployment]:
+        """Count ``kind``'s step of ``st`` on ``meta`` inputs (``params``,
+        where given, lend only their shapes and dtypes) and report it on
+        ``options.hw``. ``compile_seconds`` is this call's wall time; the
+        kernels the step launches are built at its first call, which a
+        measurement's warmup absorbs."""
+        hw = options.hw or self.default_hw
+        kind = options.kind or st.shape.kind
+        device = resolve_device(options.device)
+        model_flops = options.model_flops
+        if model_flops is None:
+            model_flops = model_flops_estimate(st.cfg, st.shape)
+        trc = get_tracer()
+        t0 = time.perf_counter()
+        with trc.span("xla.lower", arch=st.cfg.name, kind=kind):
+            fn = {"train": st.train_fn, "prefill": st.prefill_fn,
+                  "decode": st.decode_fn}[kind]()
+            with torch.inference_mode(kind != "train"):
+                cost = count_step(fn, abstract_inputs(st, kind, params))
+        with trc.span("xla.compile", arch=st.cfg.name, kind=kind):
+            rep = roofline(arch=st.cfg.name, shape=st.shape.name,
+                           mesh="1dev", n_devices=1,
+                           cost=cost.cost_analysis(),
+                           hlo_text=cost.as_text(),
+                           model_flops=model_flops, hw=hw)
+            ch = channel_report(cost.work, cost.op_counts, hw)
+        compile_s = time.perf_counter() - t0
+
+        peak = (cost.argument_bytes + cost.temp_bytes + cost.output_bytes
+                - cost.alias_bytes)
+        est_latency = rep.step_s
+        est_energy = ch.total_joules + hw.idle_w * est_latency
+        syn = SynthesisReport(
+            model=st.cfg.name, target=hw.name,
+            argument_bytes=cost.argument_bytes,
+            output_bytes=cost.output_bytes, temp_bytes=cost.temp_bytes,
+            fits=peak <= hw.hbm_bytes, utilization=peak / hw.hbm_bytes,
+            flops=rep.flops_per_device, bytes_accessed=rep.bytes_per_device,
+            wire_bytes=rep.wire_bytes_per_device,
+            est_latency_s=est_latency,
+            est_power_w=est_energy / est_latency if est_latency else 0.0,
+            est_energy_j=est_energy,
+            est_gop_per_j=(rep.model_flops / 1e9) / est_energy
+            if est_energy else 0.0,
+            bottleneck=rep.bottleneck, channels=ch.seconds,
+            channel_joules=ch.joules, compile_seconds=compile_s,
+            backend=self.name)
+        dep = TorchDeployment(
+            fn=fn, hw=hw, ops_text=cost.as_text(), device=device, kind=kind,
+            cost={"flops": syn.flops, "bytes_accessed": syn.bytes_accessed,
+                  "wire_bytes": syn.wire_bytes,
+                  "est_latency_s": syn.est_latency_s})
+        return syn, dep
+
+
+TORCH_TARGET = register_target(TorchTarget())
 register_lazy_target("rtl", "repro_torch.rtl.backend", "RTL_TARGET")

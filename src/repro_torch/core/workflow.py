@@ -17,21 +17,26 @@ that artifact. Target-specific knob mapping lives on the target
 (``Target.options_from_knobs``), overridable per-workflow via
 ``options_from_knobs``. The older spellings (``backend=``,
 ``fmt_builder=``) still construct but emit a ``DeprecationWarning`` and
-forward. Not ported yet: the no-stepper branch (a step function measured on
-the torch host target, ROADMAP A7b) and the chaos stage (``resilience=``,
-ROADMAP A9).
+forward. Not ported yet: the chaos stage (``resilience=``, ROADMAP A9).
 """
 from __future__ import annotations
 
 import dataclasses
+import time
 import warnings
 from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
+import torch
+
 from repro_torch.core.creator import Creator
 from repro_torch.core.report import (DesignReport, MeasurementReport,
                                      SynthesisReport, compare)
-from repro_torch.core.target import TargetOptions, get_target
+from repro_torch.core.target import (TargetOptions, TorchDeployment,
+                                     get_target)
+from repro_torch.energy.cost import StepCost, count_step
+from repro_torch.energy.meter import channel_report
+from repro_torch.energy.roofline import roofline
 from repro_torch.obs import get_tracer
 
 
@@ -80,15 +85,18 @@ class Workflow:
       train_fn(knobs)  -> (params, DesignReport, apply_fn)
       step_builder(knobs, params) -> (fn, args, model_flops)   # deployable
       stepper_builder(knobs) -> Stepper                        # to lower
-    ``target`` names a registered deployment target; ``options_from_knobs``
-    overrides the target's own knob→options mapping.
+    ``target`` names a registered deployment target; targets that must
+    lower the real model graph (e.g. "rtl") additionally need
+    ``stepper_builder``, the host target ("xla") without it counts and
+    times the step function itself. ``options_from_knobs`` overrides the
+    target's own knob→options mapping.
     """
 
     creator: Creator
     train_fn: Callable[[Dict[str, Any]], Tuple[Any, DesignReport, Any]]
     step_builder: Callable[[Dict[str, Any], Any], Tuple[Any, tuple, float]]
     stepper_builder: Optional[Callable[[Dict[str, Any]], Any]] = None
-    target: str = "rtl"
+    target: str = "xla"
     options_from_knobs: Optional[
         Callable[[Dict[str, Any]], TargetOptions]] = None
     #: run the Elastic Node conformance stage (Deployment.verify) after
@@ -166,15 +174,21 @@ class Workflow:
                     raise ValueError(f"target {tgt.name!r} needs "
                                      "stepper_builder (the model to lower)")
                 else:
-                    raise NotImplementedError(
-                        "a Workflow without stepper_builder measures the "
-                        "step function on the torch host target (ROADMAP "
-                        "A7b), not ported yet")
+                    syn, cost = self._synth_from_fn(fn, args, model_flops,
+                                                    model=design.model)
+                    dep = TorchDeployment(
+                        fn=None, hw=self.creator.hw,
+                        device=self.creator.device, ops_text=cost.as_text(),
+                        cost={"flops": syn.flops,
+                              "bytes_accessed": syn.bytes_accessed,
+                              "wire_bytes": syn.wire_bytes,
+                              "est_latency_s": syn.est_latency_s})
                 s2.set_attrs(model=design.model,
                              compile_seconds=syn.compile_seconds)
             # Stage 3 — deploy + measure through the uniform Deployment
-            # artifact. Self-executing targets (the RTL emulator) ignore
-            # the bound step function and measure themselves.
+            # artifact. Host-executed targets time the step function;
+            # self-executing targets (the RTL emulator) ignore the bound
+            # step function and measure themselves.
             with trc.span("workflow.stage3", stage="deploy/measure") as s3:
                 dep = dep.bind_step(fn) if fn is not None else dep
                 meas = dep.measure(args, model=design.model,
@@ -220,6 +234,46 @@ class Workflow:
                 "no 'analyze' field — only graph-lowering targets "
                 "support the static-verifier gate")
         return dataclasses.replace(options, analyze=self.analyze)
+
+    def _synth_from_fn(self, fn, args, model_flops, *, model: str = "wf",
+                       arch: Optional[str] = None
+                       ) -> Tuple[SynthesisReport, StepCost]:
+        """Stage 2 of a step function with no stepper: count one call of
+        ``fn(*args)`` on its real arguments, run as stage 3 runs it (under
+        ``torch.inference_mode()``), and report it on the Creator's
+        HWSpec; ``fits`` reads the intermediates' peak alone."""
+        arch = arch or model                 # attribute history to the model
+        trc = get_tracer()
+        t0 = time.perf_counter()             # monotonic: this is a duration
+        with trc.span("xla.lower", arch=arch, kind="step_fn"):
+            with torch.inference_mode():
+                cost = count_step(fn, args)
+        with trc.span("xla.compile", arch=arch, kind="step_fn"):
+            hw = self.creator.hw
+            rep = roofline(arch=arch, shape="wf", mesh="1dev", n_devices=1,
+                           cost=cost.cost_analysis(),
+                           hlo_text=cost.as_text(),
+                           model_flops=model_flops, hw=hw)
+            ch = channel_report(cost.work, cost.op_counts, hw)
+        dt = time.perf_counter() - t0
+        est_latency = max(rep.step_s, 1e-12)
+        est_energy = ch.total_joules + hw.idle_w * est_latency
+        syn = SynthesisReport(
+            model=model, target=hw.name,
+            argument_bytes=cost.argument_bytes,
+            output_bytes=cost.output_bytes, temp_bytes=cost.temp_bytes,
+            fits=cost.temp_bytes <= hw.hbm_bytes,
+            utilization=cost.temp_bytes / hw.hbm_bytes,
+            flops=rep.flops_per_device,
+            bytes_accessed=rep.bytes_per_device,
+            wire_bytes=rep.wire_bytes_per_device,
+            est_latency_s=est_latency,
+            est_power_w=est_energy / est_latency,
+            est_energy_j=est_energy,
+            est_gop_per_j=(model_flops / 1e9) / est_energy if est_energy else 0,
+            bottleneck=rep.bottleneck, channels=ch.seconds,
+            channel_joules=ch.joules, compile_seconds=dt)
+        return syn, cost
 
     def run(self, requirement: Requirement,
             optimizer: Callable[[List[WorkflowRecord]],

@@ -6,8 +6,8 @@ so the cost model and the measurement protocol compare like for like with
 the reference. In place of the reference's TPU entry the port carries the
 card it runs on, ``H100_SXM``: peak and bandwidth from NVIDIA's data sheet,
 ``active_w`` the 700 W power limit ``nvidia-smi`` reports for it; the idle
-power is an assumption (marked), used only for energy-style reporting.
-Nothing defaults to it yet.
+power is an assumption (marked), used only for energy-style reporting. It
+is the default spec of ``Creator``, the host target and the roofline.
 """
 from __future__ import annotations
 

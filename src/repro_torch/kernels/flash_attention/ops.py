@@ -10,6 +10,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import reports
 from repro_torch.kernels.flash_attention.kernel import (DTYPES,
                                                         flash_attention_cuda)
 from repro_torch.kernels.flash_attention.ref import attention_ref
@@ -68,6 +69,24 @@ def _check(q, k, v) -> None:
                          f"{tuple(k.shape)}")
 
 
+def causal_pairs(sq: int, sk: int) -> int:
+    """(query, key) pairs a causal attention of ``sq`` queries over ``sk``
+    keys scores: key j <= query i, as the plain version masks."""
+    n = min(sq, sk)
+    return n * (n + 1) // 2 + (sq - n) * sk
+
+
+def attention_flops(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool = True) -> int:
+    """The two products of the function: 4 · hd per scored (query, key)
+    pair of each (batch, head)."""
+    B, sq, H, hd = q.shape
+    sk = k.shape[1]
+    pairs = causal_pairs(sq, sk) if causal else sq * sk
+    return 4 * B * H * hd * pairs
+
+
+@reports("flash_attention", attention_flops)
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True) -> torch.Tensor:
     """q/k/v: (B, S, H, hd) (K/V already GQA-repeated). Returns
@@ -75,12 +94,17 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     On a CUDA tensor this launches the kernel :func:`variant` names, for
     every S and every hd <= 256 (the kernels mask ragged tiles themselves),
-    and raises if it fails; on a CPU tensor it runs the plain version.
+    and raises if it fails; on a CPU tensor it runs the plain version; on
+    a ``meta`` tensor it returns the empty result.
     """
     global launches
     _check(q, k, v)
     if q.device.type == "cpu":
-        return attention_ref(q, k, v, causal)
+        # in the kernel's layout, so the caller's reshape is a view on
+        # every device
+        return attention_ref(q, k, v, causal).contiguous()
+    if q.device.type == "meta":
+        return torch.empty(q.shape, dtype=q.dtype, device=q.device)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: no kernel for device {q.device}")
     name = variant(q, k, v)

@@ -3,6 +3,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import reports
 from repro_torch.kernels.lstm_cell.kernel import lstm_window_cuda, mma_takes
 from repro_torch.kernels.lstm_cell.ref import lstm_window_ref
 
@@ -41,6 +42,8 @@ def _check(x, w, b, block_b: int) -> None:
         raise ValueError(f"lstm_window: block_b must be >= 1, got {block_b}")
 
 
+@reports("lstm_window", lambda x, w, b, **_: 2 * x.shape[0] * x.shape[1]
+         * w.shape[0] * w.shape[1])
 def lstm_window(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, *,
                 block_b: int = 128) -> torch.Tensor:
     """(B, S, d_in) × fused gate weights -> final hidden (B, hidden).
@@ -50,12 +53,15 @@ def lstm_window(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, *,
     block (fewer if shared memory is short), ``mma`` its fixed tiles of 16
     windows and ignores ``block_b``; the result does not depend on it, and
     the ragged last tile is masked, not padded. On a CPU tensor the plain
-    version runs.
+    version runs; on a ``meta`` tensor the empty result comes back.
     """
     global launches
     _check(x, w, b, block_b)
     if x.device.type == "cpu":
         return lstm_window_ref(x, w, b)
+    if x.device.type == "meta":
+        return torch.empty((x.shape[0], w.shape[1] // 4), dtype=x.dtype,
+                           device=x.device)
     if x.device.type != "cuda":
         raise ValueError(f"lstm_window: no kernel for device {x.device}")
     out = torch.empty((x.shape[0], w.shape[1] // 4), dtype=x.dtype,

@@ -3,6 +3,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import reports
 from repro_torch.kernels.lstm_cell_int.kernel import (CellSpec,
                                                       lstm_window_int_cuda,
                                                       mma_takes)
@@ -55,6 +56,8 @@ def _check(x, w, b, sig_table, tanh_table, spec: CellSpec) -> None:
                          "shifts in [0, 32) and state precision >= act")
 
 
+@reports("lstm_window_int", lambda x, w, *_, spec: 2 * x.shape[0]
+         * spec.seq_len * w.shape[0] * w.shape[1])
 def lstm_window_int(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
                     sig_table: torch.Tensor, tanh_table: torch.Tensor,
                     *, spec: CellSpec) -> torch.Tensor:
@@ -63,12 +66,15 @@ def lstm_window_int(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     x holds ``spec.act_fmt`` codes and w ``spec.w_fmt`` codes (the
     emulator's are so by construction). One kernel launch per window batch
     on a CUDA tensor, the one :func:`variant` names; the plain version on a
-    CPU tensor.
+    CPU tensor; the empty result on a ``meta`` tensor.
     """
     global launches
     _check(x, w, b, sig_table, tanh_table, spec)
     if x.device.type == "cpu":
         return lstm_window_int_ref(x, w, b, sig_table, tanh_table, spec=spec)
+    if x.device.type == "meta":
+        return torch.empty((x.shape[0], spec.seq_len, spec.hidden),
+                           dtype=torch.int32, device=x.device)
     if x.device.type != "cuda":
         raise ValueError(f"lstm_window_int: no kernel for device {x.device}")
     out = torch.empty((x.shape[0], spec.seq_len, spec.hidden),

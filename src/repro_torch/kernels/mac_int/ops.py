@@ -3,6 +3,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import reports
 from repro_torch.kernels.mac_int.kernel import mac_int_cuda
 from repro_torch.kernels.mac_int.ref import mac_int_ref
 
@@ -31,18 +32,23 @@ def _check(xh, w, b, shift, lo, hi) -> None:
         raise ValueError(f"mac_int: bad clip range [{lo}, {hi}]")
 
 
+@reports("mac_int", lambda xh, w, b, **_: 2 * xh.shape[0] * xh.shape[1]
+         * w.shape[1])
 def mac_int_op(xh: torch.Tensor, w: torch.Tensor, b: torch.Tensor, *,
                shift: int, lo: int, hi: int) -> torch.Tensor:
     """(B, K) int32 @ (K, N) int32 + b, requantized by ``shift`` and clipped
     to [lo, hi]: one template invocation, (B, N) int32.
 
     On a CUDA tensor this launches the kernel; on a CPU tensor it runs the
-    plain version.
+    plain version; on a ``meta`` tensor it returns the empty result.
     """
     global launches
     _check(xh, w, b, shift, lo, hi)
     if xh.device.type == "cpu":
         return mac_int_ref(xh, w, b, shift=shift, lo=lo, hi=hi)
+    if xh.device.type == "meta":
+        return torch.empty((xh.shape[0], w.shape[1]), dtype=torch.int32,
+                           device=xh.device)
     if xh.device.type != "cuda":
         raise ValueError(f"mac_int: no kernel for device {xh.device}")
     out = torch.empty((xh.shape[0], w.shape[1]), dtype=torch.int32,

@@ -6,6 +6,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from repro_torch.kernels import reports
 from repro_torch.kernels.mamba2.kernel import MAX_DIM, ssd_cuda
 from repro_torch.kernels.mamba2.ref import ssd_reference
 
@@ -41,6 +42,8 @@ def _check(x, dt, A, Bm, Cm, h0, chunk: int) -> None:
                          f"{min(chunk, S)}")
 
 
+@reports("ssd", lambda x, dt, A, Bm, *_, **__: 4 * x.numel()
+         * Bm.shape[-1])
 def ssd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
         Bm: torch.Tensor, Cm: torch.Tensor, h0: Optional[torch.Tensor] = None,
         *, chunk: int = 128) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -51,7 +54,11 @@ def ssd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     reference's wrapper asks; the result does not depend on it. On a CUDA
     tensor one call launches the kernel's three passes (chunk states, the
     carry over the chunks from ``h0``, the output) in chunks of its own; on
-    a CPU tensor the per-step plain version runs.
+    a CPU tensor the per-step plain version runs; on a ``meta`` tensor the
+    empty results come back.
+
+    Its work: each step and head reads the (P, N) state into y and folds
+    x and B into it, 4 · P · N FLOPs a (batch, step, head).
     """
     global launches
     _check(x, dt, A, Bm, Cm, h0, chunk)
@@ -59,10 +66,14 @@ def ssd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     if x.device.type == "cpu":
         return ssd_reference(x, dtf, Af, Bm, Cm,
                              h0=None if h0 is None else h0.float())
-    if x.device.type != "cuda":
-        raise ValueError(f"ssd: no kernel for device {x.device}")
     Bsz, S, H, P = x.shape
     N = Bm.shape[-1]
+    if x.device.type == "meta":
+        return (torch.empty(x.shape, dtype=x.dtype, device=x.device),
+                torch.empty((Bsz, H, P, N), dtype=torch.float32,
+                            device=x.device))
+    if x.device.type != "cuda":
+        raise ValueError(f"ssd: no kernel for device {x.device}")
     if P > MAX_DIM or N > MAX_DIM:
         raise ValueError(f"ssd: the CUDA kernel takes P, N <= {MAX_DIM}, "
                          f"got P={P}, N={N}")

@@ -3,6 +3,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import reports
 from repro_torch.kernels.quant_matmul.kernel import (quant_matmul_cuda,
                                                      rows_readable,
                                                      tma_readable)
@@ -77,6 +78,8 @@ def _check(x, wq, w_scale, blocks) -> None:
                          f"{blocks}")
 
 
+@reports("quant_matmul", lambda x, wq, *_, **__: 2 * x.shape[0]
+         * x.shape[1] * wq.shape[1])
 def quant_matmul(x: torch.Tensor, wq: torch.Tensor, w_scale: torch.Tensor,
                  *, block_m: int = 128, block_n: int = 128,
                  block_k: int = 128, use_ref: bool = False) -> torch.Tensor:
@@ -85,7 +88,8 @@ def quant_matmul(x: torch.Tensor, wq: torch.Tensor, w_scale: torch.Tensor,
     The activations are quantized per tensor (:func:`quantize_act`, plain
     torch, as the reference does outside its kernel). On a CUDA tensor one
     kernel launch computes the int32 product and the rescale; on a CPU
-    tensor, or with ``use_ref=True`` on either, the plain version does.
+    tensor, or with ``use_ref=True`` on either, the plain version does; on
+    a ``meta`` tensor the empty result comes back.
     The kernel is the one :func:`variant` names. ``block_m/n/k`` are the
     reference's TPU tiling; the CUDA kernels tile as they need and read
     zeros past the ragged edges, which gives the same result for every
@@ -96,6 +100,9 @@ def quant_matmul(x: torch.Tensor, wq: torch.Tensor, w_scale: torch.Tensor,
     xq, xs = quantize_act(x)
     if use_ref or x.device.type == "cpu":
         return quant_matmul_ref(xq, wq, xs, w_scale)
+    if x.device.type == "meta":
+        return torch.empty((x.shape[0], wq.shape[1]), dtype=torch.float32,
+                           device=x.device)
     if x.device.type != "cuda":
         raise ValueError(f"quant_matmul: no kernel for device {x.device}")
     M, N = xq.shape[0], wq.shape[1]

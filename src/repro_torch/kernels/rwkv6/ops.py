@@ -6,6 +6,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from repro_torch.kernels import reports
 from repro_torch.kernels.rwkv6.kernel import MAX_DIM, SUB, wkv6_cuda
 from repro_torch.kernels.rwkv6.ref import wkv6_reference
 
@@ -38,6 +39,7 @@ def _check(r, k, v, w_log, u, h0, chunk: int) -> None:
                          f"and the chunk a multiple of {SUB}")
 
 
+@reports("wkv6", lambda r, *_, **__: 4 * r.numel() * r.shape[-1])
 def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
          w_log: torch.Tensor, u: torch.Tensor,
          h0: Optional[torch.Tensor] = None, *, chunk: int = 128
@@ -50,7 +52,11 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     reference's wrapper asks; the result does not depend on it. On a CUDA
     tensor one call launches the kernel's three passes (chunk states, the
     carry over the chunks from ``h0``, the output) in chunks of its own; on
-    a CPU tensor the per-step plain version runs.
+    a CPU tensor the per-step plain version runs; on a ``meta`` tensor the
+    empty results come back.
+
+    Its work: each step and head reads the (N, N) state into y and folds
+    k and v into it, 4 · N · N FLOPs a (batch, step, head).
     """
     global launches
     _check(r, k, v, w_log, u, h0, chunk)
@@ -58,9 +64,13 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     h0f = None if h0 is None else h0.float()
     if r.device.type == "cpu":
         return wkv6_reference(r, k, v, wf, u, h0=h0f)
+    B, S, H, N = r.shape
+    if r.device.type == "meta":
+        return (torch.empty(r.shape, dtype=r.dtype, device=r.device),
+                torch.empty((B, H, N, N), dtype=torch.float32,
+                            device=r.device))
     if r.device.type != "cuda":
         raise ValueError(f"wkv6: no kernel for device {r.device}")
-    B, S, H, N = r.shape
     if N > MAX_DIM:
         raise ValueError(f"wkv6: the CUDA kernel takes N <= {MAX_DIM}, "
                          f"got N={N}")

@@ -5,21 +5,24 @@ feedback loop widening the fixed-point format until the requirement is met
 
     PYTHONPATH=src python -m repro_torch.launch.elastic_workflow --verify
     PYTHONPATH=src python -m repro_torch.launch.elastic_workflow --arch conv1d
+    PYTHONPATH=src python -m repro_torch.launch.elastic_workflow --target rtl
     PYTHONPATH=src python -m repro_torch.launch.elastic_workflow \\
         --device cpu --train-steps 2 --max-iters 1
 
 ``--arch`` picks the workload: the paper's traffic-flow LSTM (QAT-trained)
 or the TCN-style depthwise conv1d sensor stack. Stage 1 trains on
-``--device`` (default: CUDA, raising without it); stages 2 and 3 run
+``--device`` (default: CUDA, raising without it). ``--target`` picks where
+stages 2 and 3 run: the host target ``xla`` (the default, as in the
+reference) counts the batch-1 step's torch program for its roofline and
+8-channel estimate and times the step on the device; ``rtl`` runs them
 against the *generated accelerator*: template artifacts are emitted and the
 bit-exact emulator, on the same device (kernels B1 and B2 on CUDA), runs
-the design while its cycle schedule provides the measurement. The script
-finishes by "pressing the button" — translating the final design to RTL
-artifacts (written to ``--build-dir`` when given).
+the design while its cycle schedule provides the measurement. Whatever the
+target, the script finishes by "pressing the button" — translating the
+final design to RTL artifacts (written to ``--build-dir`` when given).
 
-The RTL target is the only one until the torch host target lands (ROADMAP
-A7b); the chaos scenario (``--chaos``) waits for the resilience layer
-(ROADMAP A9).
+The chaos scenario (``--chaos``) waits for the resilience layer (ROADMAP
+A9).
 """
 from __future__ import annotations
 
@@ -195,26 +198,36 @@ def optimizer(history):
 
 
 def build_workflow(arch: str, *, device: Device = None, verify: bool = False,
-                   train_steps: int = TRAIN_STEPS) -> Workflow:
-    """The RTL workflow of ``arch`` on ``device``: stage 1 trains there and
-    the deployed design's emulator runs there."""
+                   train_steps: int = TRAIN_STEPS,
+                   target: str = "xla") -> Workflow:
+    """The workflow of ``arch`` on ``device`` for ``target``, with the
+    example's settings: stage 1 trains there and the deployment runs
+    there, the host target's step or the RTL design's emulator. Only
+    ``rtl`` lowers a stepper, on the XC7S15, with the static verifier
+    gating at ``"error"``."""
     dev = resolve_device(device)
-    cfg = get_config(arch)
-    creator = Creator(hw=XC7S15, device=dev)
+    rtl = target == "rtl"
+    creator = Creator(hw=XC7S15, device=dev) if rtl else Creator(device=dev)
     train_fn, step_builder = BUILDERS[arch]
-    infer_shape = shape_table_for(cfg)[shapes_for(cfg)[0]]   # "infer_1"
     return Workflow(
         creator=creator,
         train_fn=functools.partial(train_fn, device=dev, steps=train_steps),
         step_builder=functools.partial(step_builder, device=dev),
-        stepper_builder=lambda knobs: creator.build(cfg, infer_shape),
-        target="rtl", verify=verify, analyze="error")
+        stepper_builder=functools.partial(_stepper, creator, arch)
+        if rtl else None,
+        target=target, verify=verify, analyze="error" if rtl else None)
+
+
+def _stepper(creator: Creator, arch: str, knobs=None):
+    """The batch-1 inference stepper of ``arch`` (shape ``infer_1``)."""
+    cfg = get_config(arch)
+    return creator.build(cfg, shape_table_for(cfg)[shapes_for(cfg)[0]])
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--target", "--backend", dest="target",
-                    choices=list_targets(), default="rtl",
+                    choices=list_targets(), default="xla",
                     help="registered deployment target (--backend is the "
                          "legacy spelling)")
     ap.add_argument("--arch", default="lstm",
@@ -259,7 +272,7 @@ def main(argv=None) -> int:
 
     cfg = get_config(arch)
     wf = build_workflow(arch, device=dev, verify=args.verify,
-                        train_steps=args.train_steps)
+                        train_steps=args.train_steps, target=args.target)
     hist = wf.run(REQUIREMENT, optimizer, {"bits": 4, "frac": 2},
                   max_iters=args.max_iters)
     print(f"\n{'it':>3} {'fmt':>7} {'eval':>8} {'est_ms':>8} {'meas_ms':>8} "
@@ -281,10 +294,11 @@ def main(argv=None) -> int:
     # --- "press the button": translate the final design to RTL ----------- #
     best = hist[-1].knobs
     params, _, _ = wf.train_fn(best)
-    rtl = get_target(args.target)
-    st = wf.stepper_builder(best)
-    syn, dep = wf.creator.translate(st, target=rtl, params=params,
-                                    options=rtl.options_from_knobs(best))
+    rtl = get_target("rtl")
+    creator_rtl = Creator(hw=XC7S15, device=dev)
+    syn, dep = creator_rtl.translate(_stepper(creator_rtl, arch),
+                                     target=rtl, params=params,
+                                     options=rtl.options_from_knobs(best))
     if hist[-1].analysis is not None:
         print(f"\nstatic analysis: {hist[-1].analysis.summary()}")
     print(f"\nRTL translate [{arch}]: {syn.n_artifacts} artifacts, "

@@ -272,9 +272,11 @@ class CanaryResult:
 
 
 def _host(a) -> np.ndarray:
-    """A deployment's answer as a host numpy array."""
+    """A deployment's answer as a host numpy array (bf16, which numpy
+    lacks, widened to f32)."""
     if isinstance(a, torch.Tensor):
-        return a.detach().cpu().numpy()
+        a = a.detach().cpu()
+        return (a.float() if a.dtype == torch.bfloat16 else a).numpy()
     return np.asarray(a)
 
 

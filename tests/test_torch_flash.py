@@ -72,6 +72,14 @@ def test_plain_version_rounds_weights_to_v_dtype():
     assert torch.equal(attention_ref(q, k, v, True), want)
 
 
+class _Elsewhere(torch.Tensor):
+    """A CPU tensor that reports a device the port has no kernel for."""
+
+    @property
+    def device(self):
+        return torch.device("xpu")
+
+
 def test_wrapper_checks_and_refuses_other_devices():
     q, k, v = map(torch.from_numpy, _qkv((1, 8, 2, 16), 4))
     with pytest.raises(ValueError, match="GQA-repeated"):
@@ -83,9 +91,14 @@ def test_wrapper_checks_and_refuses_other_devices():
     with pytest.raises(ValueError, match="hd <= 256"):
         big = torch.zeros(1, 2, 1, 272)
         flash_attention(big, big, big)
-    meta = [t.to("meta") for t in (q, k, v)]
-    with pytest.raises(ValueError, match="no kernel for device meta"):
-        flash_attention(*meta)
+    # a meta tensor computes nothing: the empty result comes back, with the
+    # kernel's shape, dtype and layout
+    out = flash_attention(*(t.to("meta") for t in (q, k, v)))
+    assert (out.device.type, out.shape, out.dtype) == ("meta", q.shape,
+                                                       q.dtype)
+    assert out.is_contiguous()
+    with pytest.raises(ValueError, match="no kernel for device xpu"):
+        flash_attention(*(t.as_subclass(_Elsewhere) for t in (q, k, v)))
 
 
 # ---- routing between the kernel's two variants ------------------------------

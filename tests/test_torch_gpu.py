@@ -15,7 +15,10 @@ launches counted, ``fuzz_template`` for every kind, ``emit_golden``,
 server with B5 against its plain attention path, and the paper's loop on
 the card (the QAT and float window losses and gradients against the CPU,
 ``RTLExecutable.measure``, ``verify_deployment``, the measurement protocol
-on a real ``RTLExecutable``, one ``Workflow.run_once``).
+on a real ``RTLExecutable``, one ``Workflow.run_once``), and the host
+target (a deployment measured on the card with synchronised runs, a step's
+counts on the card equal to its counts on ``meta``, B5 launched once a
+layer by a deployed prefill).
 
 Imports nothing of JAX, so it also runs where JAX is not installed:
 
@@ -1090,7 +1093,8 @@ def test_workflow_run_once_on_card(cuda):
     from repro_torch.launch import elastic_workflow as ew
     from repro_torch.model.layers import tree_leaves
 
-    wf = ew.build_workflow("elastic-lstm", verify=True, train_steps=3)
+    wf = ew.build_workflow("elastic-lstm", verify=True, train_steps=3,
+                           target="rtl")
     params, _, _ = wf.train_fn({"bits": 8, "frac": 6})
     assert all(p.is_cuda for p in tree_leaves(params))
     b1 = dict(lstm_ops.launches_by_variant)
@@ -1098,3 +1102,87 @@ def test_workflow_run_once_on_card(cuda):
     assert rec.conformance.passed and rec.analysis.passed
     assert lstm_ops.launches_by_variant["simt"] > b1["simt"]
     assert rec.synthesis.resources["cycles"] == 5237
+
+
+# --------------------------------------------------------------------------- #
+# The host target on the card
+# --------------------------------------------------------------------------- #
+
+
+def test_host_deployment_measures_on_card(cuda):
+    """A host deployment with no device named runs on the card: its
+    measurement synchronises every run and names the card."""
+    from repro_torch.core.creator import Creator
+    from repro_torch.core.types import SHAPES_LSTM
+    from repro_torch.obs import MetricsRegistry, set_metrics
+
+    cfg = get_config("elastic-lstm")
+    cr = Creator()
+    st = cr.build(cfg, SHAPES_LSTM["infer_1"])
+    syn, dep = cr.translate(st)
+    assert dep.device == cuda and dep.target == "xla"
+    params = st.init()
+    batch = {"x": torch.randn(1, 6, 1, device=cuda),
+             "y": torch.zeros(1, 1, device=cuda)}
+    reg = MetricsRegistry()
+    prev = set_metrics(reg)
+    try:
+        rep = dep.measure((params, batch), model=cfg.name,
+                          model_flops=_flops("elastic-lstm"), warmup=2)
+    finally:
+        set_metrics(prev)
+    assert rep.platform == torch.cuda.get_device_name(cuda)
+    assert rep.n_runs == 20 and reg.histogram(
+        "measure.latency_s.xla").count == 20
+    assert 0 < rep.latency_p50_s <= rep.latency_p99_s
+    pred, _ = dep(params, batch)
+    assert pred.is_cuda and pred.shape == (1, 1)
+
+
+def _yi_smoke_args(kind, device):
+    from repro_torch.model.layers import tree_map
+
+    yi = get_config("yi-9b", smoke=True)
+    shape = ShapeConfig("s", kind, 128, 2)
+    st = Stepper(yi, shape, SMOKE_MESH, ParallelismConfig(
+        compute_dtype="bfloat16", attn_impl="flash"))
+    params = st.init(device=device, dtype_override=torch.bfloat16)
+    gen = torch.Generator(device=device).manual_seed(0)
+    tokens = torch.randint(0, yi.vocab_size, (2, 1 if kind == "decode"
+                                              else 128), generator=gen,
+                           dtype=torch.int32, device=device)
+    if kind == "prefill":
+        return st, (params, {"tokens": tokens})
+    cache = tree_map(lambda s: torch.zeros(s.shape, dtype=s.dtype,
+                                           device=device),
+                     st.cache_schema(), is_leaf=lambda s: hasattr(s, "init"))
+    return st, (params, tokens, cache)
+
+
+@pytest.mark.parametrize("kind", ["prefill", "decode"])
+def test_counts_on_card_equal_counts_on_meta(cuda, kind):
+    from repro_torch.energy.cost import count_step
+    from repro_torch.model.layers import tree_map
+
+    st, args = _yi_smoke_args(kind, cuda)
+    fn = st.prefill_fn() if kind == "prefill" else st.decode_fn()
+    with torch.inference_mode():
+        on_card = count_step(fn, args)
+        on_meta = count_step(fn, tree_map(lambda t: t.to("meta"), args))
+    assert on_card == on_meta
+
+
+def test_deployed_smoke_prefill_launches_b5_once_a_layer(cuda):
+    from repro_torch.core.creator import Creator
+
+    st, args = _yi_smoke_args("prefill", cuda)
+    syn, dep = Creator().translate(st, params=args[0])
+    assert dep.ops_text.count("flash_attention") == st.cfg.n_layers
+    before = dict(flash_ops.launches_by_variant)
+    logits, cache = dep(*args)
+    torch.cuda.synchronize()
+    assert flash_ops.launches_by_variant["sm90"] - before["sm90"] == \
+        st.cfg.n_layers
+    assert flash_ops.launches_by_variant["simt"] == before["simt"]
+    assert torch.isfinite(logits).all() and logits.shape == (
+        2, st.cfg.padded_vocab)

@@ -531,19 +531,26 @@ def test_lstm_and_quant_matmul_refuse_bad_operands():
         quant_matmul(a, w.to(torch.int8), torch.ones(79))
 
 
+class _Elsewhere(torch.Tensor):
+    """A CPU tensor that reports a device the port has no kernel for."""
+
+    @property
+    def device(self):
+        return torch.device("xpu")
+
+
 def test_wrappers_refuse_devices_without_a_kernel():
-    """A tensor that is on neither the CPU nor CUDA raises: no wrapper
-    falls back to its plain version."""
-    meta = torch.device("meta")
-    x, w, b = (t.to(meta) for t in map(torch.from_numpy,
-                                       _lstm_case((4, 6, 1, 20))))
-    with pytest.raises(ValueError, match="no kernel"):
-        lstm_window(x, w, b)
-    case = tuple(t.to(meta) for t in map(_t, _wkv_case((1, 16, 1, 4),
-                                                       False)[:5]))
-    with pytest.raises(ValueError, match="no kernel"):
-        wkv6(*case)
-    case = tuple(t.to(meta) for t in map(_t, _ssd_case((1, 16, 1, 4, 4),
-                                                       False)[:5]))
-    with pytest.raises(ValueError, match="no kernel"):
-        ssd(*case)
+    """A tensor that is on neither the CPU, CUDA nor ``meta`` raises: no
+    wrapper falls back to its plain version. On ``meta``, which computes
+    nothing, each returns its empty result."""
+    lstm = tuple(map(torch.from_numpy, _lstm_case((4, 6, 1, 20))))
+    wkv = tuple(map(_t, _wkv_case((1, 16, 1, 4), False)[:5]))
+    scan = tuple(map(_t, _ssd_case((1, 16, 1, 4, 4), False)[:5]))
+    for fn, case in ((lstm_window, lstm), (wkv6, wkv), (ssd, scan)):
+        want = fn(*case)
+        got = fn(*(t.to("meta") for t in case))
+        for g, w in zip(*(x if isinstance(x, tuple) else (x,)
+                          for x in (got, want))):
+            assert (g.device.type, g.shape) == ("meta", w.shape)
+        with pytest.raises(ValueError, match="no kernel for device xpu"):
+            fn(*(t.as_subclass(_Elsewhere) for t in case))

@@ -94,16 +94,16 @@ def _design(arch):
 
 
 def test_target_registry():
-    assert ttarget.list_targets() == ["rtl"]
+    assert ttarget.list_targets() == ["rtl", "xla"]
     tgt = ttarget.get_target("rtl")
     assert tgt is tbackend.RTL_TARGET and isinstance(tgt, ttarget.Target)
     assert ttarget.get_target(tgt) is tgt
     assert (tgt.name, tgt.default_hw, tgt.options_cls,
             tgt.requires_stepper) == ("rtl", thw.XC7S15, tbackend.RTLOptions,
                                       True)
-    with pytest.raises(ValueError, match=r"unknown target 'xla'; "
-                       r"registered targets: \['rtl'\]"):
-        ttarget.get_target("xla")
+    with pytest.raises(ValueError, match=r"unknown target 'hls'; "
+                       r"registered targets: \['rtl', 'xla'\]"):
+        ttarget.get_target("hls")
     with pytest.raises(ValueError, match="already registered"):
         ttarget.register_target(tgt)
     with pytest.raises(ValueError, match="already registered"):
@@ -154,7 +154,8 @@ def test_translate_on_a_clockless_spec_lands_on_the_fpga():
     assert dep.device == torch.device("cpu") and dep.cycles == 5237
     # a spec with a clock is kept
     fast = dataclasses.replace(thw.XC7S15, name="xc7s15-200", clock_hz=200e6)
-    syn2, dep2 = tcreator.Creator(hw=fast, device="cpu").translate(st)
+    syn2, dep2 = tcreator.Creator(hw=fast, device="cpu").translate(
+        st, target="rtl")
     assert dep2.hw is fast and syn2.target == "xc7s15-200"
     # the reference falls back the same way from its clock-less default
     jcr = jcreator.Creator()
@@ -213,8 +214,9 @@ def test_creator_deprecated_spellings_and_measure():
     x = np.zeros((2, 16, 3), np.float32)
     meas = cr.measure(dep, (x,), model="m", model_flops=1.0, n_runs=3)
     assert meas.n_runs == 3 and meas.target == "rtl"
-    with pytest.raises(NotImplementedError, match="A7b"):
-        cr.measure(lambda v: v, (x,), model="m", model_flops=1.0)
+    raw = cr.measure(lambda v: v, (x,), model="m", model_flops=1.0,
+                     n_runs=2)
+    assert (raw.target, raw.n_runs, raw.power_w) == ("xla", 2, 0.071)
     with pytest.warns(DeprecationWarning, match="measure_rtl"):
         old = cr.measure_rtl(dep, x, model="m", model_flops=1.0, n_runs=3)
     assert old.latency_s == meas.latency_s
@@ -255,9 +257,14 @@ def test_workflow_spellings_and_unported_branches():
     assert wf.target == "rtl"
     with pytest.warns(DeprecationWarning, match="fmt_builder"):
         wf = tworkflow.Workflow(
-            creator=cr, train_fn=None, step_builder=None,
+            creator=cr, train_fn=None, step_builder=None, target="rtl",
             fmt_builder=lambda k: {"w_fmt": tfxp.FxpFormat(k["bits"], 4)})
     assert wf.options_from_knobs({"bits": 6}).w_fmt == tfxp.FxpFormat(6, 4)
+    with pytest.warns(DeprecationWarning, match="fmt_builder"):
+        wf = tworkflow.Workflow(           # ignored off RTL, as before
+            creator=cr, train_fn=None, step_builder=None,
+            fmt_builder=lambda k: {"w_fmt": tfxp.FxpFormat(k["bits"], 4)})
+    assert wf.target == "xla" and wf.options_from_knobs is None
     with pytest.raises(NotImplementedError, match="A9"):
         tworkflow.Workflow(creator=cr, train_fn=None, step_builder=None,
                            resilience=object())
@@ -265,7 +272,8 @@ def test_workflow_spellings_and_unported_branches():
     rep = treport.DesignReport(**_design("elastic-lstm"))
     wf = tworkflow.Workflow(
         creator=cr, train_fn=lambda k: (tp, rep, None),
-        step_builder=functools.partial(tew.lstm_step_builder, device="cpu"))
+        step_builder=functools.partial(tew.lstm_step_builder, device="cpu"),
+        target="rtl")
     with pytest.raises(ValueError, match="needs stepper_builder"):
         wf.run_once(KNOBS)
     with pytest.raises(ValueError, match="no 'analyze' field"):
@@ -378,7 +386,7 @@ def loop(request):
         jrec = jwf.run_once(dict(KNOBS))
     jspans = cap.trace.spans
 
-    twf = tew.build_workflow(arch, device="cpu", verify=True)
+    twf = tew.build_workflow(arch, device="cpu", verify=True, target="rtl")
     trep = treport.DesignReport(**_design(arch))
     tcr = _keeping(tcreator.Creator)(hw=twf.creator.hw,
                                      device=twf.creator.device)
