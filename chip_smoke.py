@@ -31,8 +31,10 @@ kernels B1 and B2:
    ROM gather can conflict on a bank) and B2 and their plain versions at
    the serving shape (CUDA events around CUDA-graph replays) beside B1's
    three bounds (bytes, int32 multiply-adds, elementwise work), the
-   emulator's windows/s, and the device busy share of one emulator run
-   and B1's part of it (``torch.profiler``).
+   emulator's windows/s and host ms per run on a warm program (each run
+   one CUDA Graph replay of the walk) beside the same walk run eagerly,
+   and the device busy share of one replay and B1's part of it
+   (``torch.profiler``).
 
 The dense-LM server on full-width ``yi-9b`` (all 48 layers, seeded random
 bf16 weights drawn on the card), with kernel B5 (flash attention) for
@@ -152,9 +154,26 @@ the roofline and the 8-channel meter, timed on the card):
     iteration's host deployment counted, timed on the card and verified,
     the final RTL translate's conformance passing, B1/B2 counted around
     the run;
-16. print the kernels line (B1's and B2's rows also carry the loop's
-    launches, ``workflow_launches``; B5's the host target's,
-    ``host_target_launches``) and the card's name and power limit.
+16. the accelerator farm: ``python -m repro_torch.serving.loadgen --arch
+    lstm,conv1d --requests 4096 --wave 128 --replicas 2 --warm`` in
+    process (``loadgen.run``), both designs at two window lengths each,
+    two replicas each, every dispatch a CUDA Graph replay of a replica's
+    program: no request failed, ``admitted == done + expired``, B1 (by
+    variant) and B2 launched once a dispatch for each node they serve
+    (counted against the members' dispatch counts), 64 sampled answers
+    equal to per-request ``jnp`` runs bit for bit; windows/s and p50/p99;
+17. multi-design emulation: K = 8 isomorphic candidates of each canonical
+    design (``canonical_graph(arch, seed=k)``) at 65,536 windows through
+    ``MultiDesignEmulator``, one CUDA Graph of the 8 ``fused`` walks:
+    equal to ``run_int_sequential`` and to every design's ``jnp`` walk,
+    one replay launching B1 and B2 8 times per node; the replay timed
+    against 8 sequential runs on warm programs; captures and the shared
+    LRU's stats; ``run_conformance_batch`` passing every design;
+18. print the kernels line (B1's and B2's rows also carry the loop's
+    launches, ``workflow_launches``, the farm's, ``farm_launches``, and
+    one multi-design replay's of each design, ``multi_launches``; B5's the
+    host target's, ``host_target_launches``) and the card's name and power
+    limit.
 
 Usage, from the repository root: ``python3 chip_smoke.py``. Needs one CUDA
 card and ``nvcc``; exits non-zero, printing no result, without them. The
@@ -1662,6 +1681,214 @@ def phase_host_loop(ops_by_name: dict, card: str) -> None:
             + f" ({card})")
 
 
+# the farm (phase 16): the loadgen CLI's flags, in process
+FARM_ARGV = ("--arch", "lstm,conv1d", "--requests", "4096", "--wave", "128",
+             "--replicas", "2", "--warm")
+FARM_SAMPLES = 64
+# multi-design emulation (phase 17): K isomorphic candidates of each design
+MULTI_K = 8
+
+
+def phase_farm(lstm_ops, mac_ops, card: str) -> dict:
+    """Phase 16: ``python -m repro_torch.serving.loadgen`` (FARM_ARGV) in
+    process on the card; every admitted request done or expired, none
+    failed; B1 and B2 launched once per dispatch of each node they serve;
+    64 sampled answers equal per-request ``jnp`` runs bit for bit. Returns
+    the launches of B1 (by variant) and B2 over the CLI's run."""
+    import numpy as np
+    import torch
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.obs import Tracer, find_spans, set_tracer
+    from repro_torch.rtl.emulator import RTLEmulator
+    from repro_torch.serving import loadgen, pad_window
+
+    args = loadgen.parse_args(list(FARM_ARGV))
+    lstm_ops.launches = 0
+    lstm_ops.launches_by_variant = dict.fromkeys(
+        lstm_ops.launches_by_variant, 0)
+    mac_ops.launches = 0
+    t0 = time.perf_counter()
+    report, farm = loadgen.run(args)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launched = {**lstm_ops.launches_by_variant, "B2": mac_ops.launches}
+    for line in loadgen.summary(report):
+        log(f"phase 16 {line.strip()}")
+    bad = loadgen.failures(report)
+    st = farm.stats()
+    if bad or st.failed or st.admitted != st.done + st.expired:
+        raise AssertionError(f"farm: {bad}; stats {st.to_dict()}")
+    # each member's emulator counts its dispatches: B1 once per lstm_cell
+    # and B2 once per linear/conv1d node in each
+    want = {"mma": 0, "simt": 0, "B2": 0}
+    dispatches = {}
+    for family, pool in farm.pools.items():
+        for reps in pool.members.values():
+            for exe in reps:
+                n = exe.emulator.dispatch_counts.get("fused", 0)
+                dispatches[family] = dispatches.get(family, 0) + n
+                for node in exe.graph.nodes:
+                    if node.op == "lstm_cell":
+                        spec = exe.emulator.prepared(node.name)["spec"]
+                        want[lstm_ops.variant(spec)] += n
+                    elif node.op in ("linear", "conv1d"):
+                        want["B2"] += n
+    if launched != want or launched["mma"] == 0 or launched["B2"] == 0:
+        raise AssertionError(f"farm launches {launched}, expected {want}")
+    captures = sum(exe.emulator.trace_count for pool in farm.pools.values()
+                   for reps in pool.members.values() for exe in reps)
+    log(f"phase 16 farm launches over the CLI's two passes: B1 by variant "
+        f"{json.dumps({k: launched[k] for k in ('mma', 'simt')})}, B2 "
+        f"{launched['B2']}, in {sum(dispatches.values())} dispatches "
+        f"({json.dumps(dispatches)}): B1 1 a lstm dispatch, B2 1 a lstm "
+        f"and 3 a conv1d dispatch; {captures} CUDA Graph captures; "
+        f"{wall:.2f} s host for both passes ({card})")
+    # 64 sampled answers against per-request runs of the plain path
+    rng = np.random.default_rng(SEED + 16)
+    done = [r for r in farm.requests.values() if r.status == "done"]
+    plain = {}
+    for i in rng.choice(len(done), FARM_SAMPLES, replace=False):
+        req = done[int(i)]
+        exe = farm.pools[req.design].members[req.bucket_len][req.member]
+        em = plain.setdefault(id(exe), RTLEmulator(exe.graph, mode="jnp"))
+        solo = em.run(pad_window(req.window, req.bucket_len)[None])
+        if not np.array_equal(req.result, solo.outputs_f.cpu().numpy()[0]):
+            raise AssertionError(f"farm request {req.rid} != its solo run")
+    # where a dispatch's time goes: one more pass of 1,024 requests on the
+    # warm farm under the tracer (host clock by span), then one under the
+    # profiler's CUDA activities only (device busy)
+    spec = loadgen.TrafficSpec(archs=("lstm", "conv1d"), n_requests=1024,
+                               wave=128, seed=SEED + 1)
+    pools = list(farm.pools.values())
+    trc = Tracer()
+    prev = set_tracer(trc)
+    try:
+        t0 = time.perf_counter()
+        loadgen.run_loadgen(farm, pools, spec)
+        traced = time.perf_counter() - t0
+    finally:
+        set_tracer(prev)
+    by_span = {name: sum(sp.duration for sp in find_spans(trc.spans, name))
+               for name in ("serving.tick", "serving.dispatch",
+                            "rtl.emulator.dispatch")}
+    n_disp = len(find_spans(trc.spans, "serving.dispatch"))
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        loadgen.run_loadgen(farm, pools, spec)
+        torch.cuda.synchronize()
+        profiled = time.perf_counter() - t0
+    busy = sum(e.time_range.elapsed_us() for e in prof.events()
+               if e.device_type == DeviceType.CUDA) / 1e3
+    ms = {k: v * 1e3 / n_disp for k, v in by_span.items()}
+    log(f"phase 16 farm, where a dispatch's host time goes ({spec.n_requests}"
+        f" requests, {n_disp} dispatches, traced pass {traced * 1e3:.1f} ms):"
+        f" per dispatch {ms['serving.tick']:.3f} ms of ticks"
+        f" = member call {ms['serving.dispatch']:.3f} ms (of it the "
+        f"emulator's run {ms['rtl.emulator.dispatch']:.3f} ms) + the rest "
+        f"of the tick (queue, batcher, routing, the answer's copy to the "
+        f"host, accounting) "
+        f"{ms['serving.tick'] - ms['serving.dispatch']:.3f} ms; submitting "
+        f"and the report {(traced - by_span['serving.tick']) * 1e3:.1f} ms "
+        f"of the pass; device busy {busy:.3f} ms of a {profiled * 1e3:.1f} "
+        f"ms pass under the profiler ({100 * busy / (profiled * 1e3):.1f}%)"
+        f" ({card})")
+    lat = report["stats"]["latency_s"]
+    log(f"phase 16 farm: {FARM_SAMPLES} sampled answers = per-request jnp "
+        f"runs bit for bit; reported pass {report['submitted']} requests, "
+        f"{report['throughput_windows_per_s']:.0f} windows/s, latency p50 "
+        f"{report['latency_p50_s'] * 1e3:.3f} ms, p99 "
+        f"{report['latency_p99_s'] * 1e3:.3f} ms (host clock; both passes' "
+        f"histogram: p50 {lat.get('p50', 0) * 1e3:.3f}, p99 "
+        f"{lat.get('p99', 0) * 1e3:.3f} ms), batch fill "
+        f"{json.dumps(report['stats']['batch_fill'])} ({card})")
+    return launched
+
+
+def phase_multi(lstm_ops, mac_ops, card: str) -> dict:
+    """Phase 17: K = MULTI_K isomorphic candidates of each canonical
+    design at B_SERVE windows through ``MultiDesignEmulator`` (one CUDA
+    Graph of the K ``fused`` walks): equal to ``run_int_sequential`` and
+    to each design's ``jnp`` walk; ``run_conformance_batch`` passes every
+    design; one replay timed against K sequential runs on warm programs.
+    Returns the launches one replay of each design's program made."""
+    import numpy as np
+    import torch
+
+    from repro_torch.rtl.emulator import RTLEmulator
+    from repro_torch.rtl.multi import MultiDesignEmulator
+    from repro_torch.verify.conformance import run_conformance_batch
+    from repro_torch.verify.vectors import canonical_graph
+
+    def host_ms(fn, reps: int = 5) -> float:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / reps * 1e3
+
+    rng = np.random.default_rng(SEED + 17)
+    replay = {"mma": 0, "simt": 0, "B2": 0}
+    for arch in ("elastic-lstm", "elastic-conv1d"):
+        graphs = [canonical_graph(arch, seed=s)[0] for s in range(MULTI_K)]
+        multi = MultiDesignEmulator(graphs)
+        edge = graphs[0].edges[graphs[0].inputs[0]]
+        x = rng.integers(edge.fmt.lo, edge.fmt.hi + 1,
+                         (B_SERVE, *edge.shape)).astype(np.int32)
+        got = multi.run_int(x)                   # builds: capture
+        torch.cuda.synchronize()
+        seq = multi.run_int_sequential(x)        # the K fused programs
+        if not np.array_equal(got.outputs.cpu().numpy(), seq):
+            raise AssertionError(f"{arch}: multi != run_int_sequential")
+        for k, g in enumerate(graphs):
+            want = RTLEmulator(g, mode="jnp").run_int_per_step(x).outputs
+            if not torch.equal(got.outputs[k], want):
+                raise AssertionError(f"{arch}: multi design {k} != jnp")
+        lstm_ops.launches_by_variant = dict.fromkeys(
+            lstm_ops.launches_by_variant, 0)
+        mac_ops.launches = 0
+        again = multi.run_int(x)                 # one replay
+        torch.cuda.synchronize()
+        one = {**lstm_ops.launches_by_variant, "B2": mac_ops.launches}
+        cells = sum(n.op == "lstm_cell" for n in graphs[0].nodes)
+        macs = sum(n.op in ("linear", "conv1d") for n in graphs[0].nodes)
+        if one != {"mma": MULTI_K * cells, "simt": 0,
+                   "B2": MULTI_K * macs} or \
+                not torch.equal(again.outputs, got.outputs):
+            raise AssertionError(f"{arch}: one replay launched {one}")
+        for k in replay:
+            replay[k] += one[k]
+        xs = torch.as_tensor(x, device="cuda")
+        t_multi = host_ms(lambda: multi.run_int(xs))
+        t_seq = host_ms(lambda: [em.run_int(xs) for em in multi.emulators])
+        log(f"phase 17 {arch} K={MULTI_K} x {B_SERVE} windows: = "
+            f"run_int_sequential and every design's jnp walk; one replay "
+            f"launches {json.dumps(one)}; one replay {t_multi:.3f} ms against "
+            f"{MULTI_K} sequential warm runs {t_seq:.3f} ms "
+            f"({t_seq / t_multi:.2f}x; host clock, int codes on the card); "
+            f"captures: multi {multi.trace_count}, per-design "
+            f"{sum(em.trace_count for em in multi.emulators)}; shared LRU "
+            f"{json.dumps(multi.programs.stats())} ({card})")
+        t0 = time.perf_counter()
+        reps = run_conformance_batch(graphs)
+        dt = time.perf_counter() - t0
+        if not all(r.passed and r.modes[0] == "vmap-jnp" for r in reps):
+            raise AssertionError(f"{arch} run_conformance_batch: "
+                                 + "; ".join(r.summary() for r in reps))
+        log(f"phase 17 {arch} run_conformance_batch: {len(reps)} designs "
+            f"pass over {reps[0].n_vectors} vectors (vmap-jnp vs "
+            f"{', '.join(reps[0].modes[1:])}: "
+            f"{json.dumps(reps[0].mode_max_diff)}) in {dt * 1e3:.1f} ms host "
+            f"({card})")
+        del multi, got, again
+        torch.cuda.empty_cache()
+    return replay
+
+
 def main() -> int:
     import torch
 
@@ -1992,7 +2219,7 @@ def main() -> int:
             if not torch.equal(y, ref.outputs):
                 raise AssertionError(f"{arch}: fused != plain path")
         for mode in RTLEmulator.MODES:
-            assert_bit_exact(graph, reqs[4], mode)       # vs float oracle
+            assert_bit_exact(graph, reqs[4], mode=mode)  # vs float oracle
         log(f"phase 4 served {arch}: {len(reqs)} requests, "
             f"{sum(map(len, reqs))} windows; = solo runs, plain path and "
             "float oracle")
@@ -2089,25 +2316,41 @@ def main() -> int:
         "launches": launches["mac_int"], "max_abs_err": errs["mac_int"],
         "ms": k_ms, "plain_ms": p_ms, "bound_ms": bnd, "bound_by": by,
         "library_ms": None})
+    def host_ms(fn, reps: int = 10) -> float:
+        """Host ms of one synchronised ``fn()``, after a warm-up call."""
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / reps * 1e3
+
     for arch, (graph, _, _) in served.items():
         x = requests(graph, (B_SERVE,))[0]
         run_ms = {}
         for mode in ("fused", "jnp"):
             em = RTLEmulator(graph, mode=mode)
-            em.run(x)
             torch.cuda.synchronize()
-            reps = 10
             t0 = time.perf_counter()
-            for _ in range(reps):
-                em.run(x)
+            em.run(x)                            # builds: warm-up + capture
             torch.cuda.synchronize()
-            dt = (time.perf_counter() - t0) / reps
-            run_ms[mode] = dt * 1e3
-            log(f"phase 5 emulator {arch} {mode}: {B_SERVE / dt:.0f} "
-                f"windows/s ({dt * 1e3:.3f} ms per {B_SERVE}-window run, "
-                "host clock, float windows in)")
-        wall, device = profile_ms(functools.partial(
-            RTLEmulator(graph, mode="fused").run, x))
+            build = (time.perf_counter() - t0) * 1e3
+            # a warm program: each run is one CUDA Graph replay; beside it
+            # the same walk run eagerly, a launch at a time, as the
+            # emulator ran before it had programs
+            run_ms[mode] = host_ms(functools.partial(em.run, x))
+            eager = host_ms(lambda: em._result(em._execute(em._quantize(x),
+                                                           em.mode)))
+            log(f"phase 5 emulator {arch} {mode}: "
+                f"{B_SERVE / run_ms[mode] * 1e3:.0f} windows/s "
+                f"({run_ms[mode]:.3f} ms per {B_SERVE}-window run on a warm "
+                f"program, {em.trace_count} capture; the eager walk "
+                f"{eager:.3f} ms; the first run, which builds the program, "
+                f"{build:.3f} ms; host clock, float windows in)")
+        em = RTLEmulator(graph, mode="fused")
+        em.run(x)                                # build: capture outside
+        wall, device = profile_ms(functools.partial(em.run, x))
         busy = sum(device.values())
         if busy == 0:
             log(f"phase 5 profile {arch} fused: device time not measured "
@@ -2115,7 +2358,8 @@ def main() -> int:
             continue
         top = sorted(device.items(), key=lambda kv: -kv[1])[:6]
         b1_dev = sum(t for name, t in device.items() if "lstm_" in name)
-        log(f"phase 5 profile {arch} fused, one {B_SERVE}-window run: "
+        log(f"phase 5 profile {arch} fused, one {B_SERVE}-window run "
+            "(a replay): "
             f"device busy {busy:.4f} ms = {100 * busy / run_ms['fused']:.1f}% "
             f"of the unprofiled run ({wall:.3f} ms with the profiler on); "
             f"B1 {b1_dev:.4f} ms = {100 * b1_dev / busy:.1f}% of busy; "
@@ -2365,7 +2609,20 @@ def main() -> int:
     # ---- 15, second part. the paper's default loop on the host target ------
     phase_host_loop(ops_by_name, smi)
 
-    # ---- 16. report --------------------------------------------------------
+    # ---- 16. the accelerator farm ------------------------------------------
+    farm = phase_farm(lstm_ops, mac_ops, smi)
+
+    # ---- 17. multi-design emulation ----------------------------------------
+    multi = phase_multi(lstm_ops, mac_ops, smi)
+    for row in kernel_rows:
+        if row["name"] == "lstm_cell_int":
+            row["farm_launches"] = farm["mma"] + farm["simt"]
+            row["multi_launches"] = multi["mma"] + multi["simt"]
+        elif row["name"] == "mac_int":
+            row["farm_launches"] = farm["B2"]
+            row["multi_launches"] = multi["B2"]
+
+    # ---- 18. report --------------------------------------------------------
     log(smi)                     # the card's name and power limit
     print(json.dumps({"kernels": kernel_rows}))
     print(json.dumps({"ok": True, "device": {

@@ -134,11 +134,12 @@ class RTLExecutable(Deployment):
         return self.emulator.run_many(xs)
 
     def holds_program(self, shape, dtype) -> bool:
-        """The serving router's affinity probe reads the emulator's program
-        cache, which comes with the multi-design emulator (ROADMAP A8)."""
-        raise NotImplementedError(
-            "RTLExecutable.holds_program needs the emulator's program cache "
-            "(rtl/program_cache.py, ROADMAP A8)")
+        """Serving-router affinity probe: does the emulator already hold a
+        program for this float input ``(shape, dtype)``? Float inputs
+        quantize to int32 before dispatch, so the emulator key is
+        ``(shape, int32)``. ``dataclasses.replace(exe)`` re-runs
+        ``__post_init__``: each replica owns a fresh emulator and cache."""
+        return self.emulator.has_program(shape, torch.int32)
 
     @property
     def cycles(self) -> int:

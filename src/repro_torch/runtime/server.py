@@ -11,12 +11,14 @@
     reference donates buffers.
 
 Sampling stays on the host with numpy (greedy or temperature), so greedy
-tokens compare one for one with the reference's. The deprecated
-``DeploymentPool`` shim of the reference waits for the serving slice.
+tokens compare one for one with the reference's. ``DeploymentPool`` here
+is the reference's deprecated import site of
+:class:`repro_torch.serving.DeploymentPool`, kept as a warning shim.
 """
 from __future__ import annotations
 
 import time
+import warnings
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Union
 
@@ -29,6 +31,9 @@ from repro_torch.model.layers import tree_map
 from repro_torch.model.lm import make_decode_step, make_prefill_step
 from repro_torch.model.transformer import pad_cache
 from repro_torch.obs import MetricsRegistry, get_tracer
+# PoolStats is re-exported from its new home so old imports keep working
+from repro_torch.serving.pool import DeploymentPool as _ServingPool
+from repro_torch.serving.pool import PoolStats  # noqa: F401  (compat re-export)
 
 
 @dataclass
@@ -271,3 +276,33 @@ class Server:
                                                   key=lambda r: r.rid))
         return DrainResult(sorted(self.requests.values(),
                                   key=lambda r: r.rid), self.stats())
+
+
+class DeploymentPool(_ServingPool):
+    """Deprecated import site for the health-aware pool.
+
+    The pool lives in :mod:`repro_torch.serving.pool`, rebuilt on the
+    shared serving primitives (admission queue + router); this subclass
+    keeps the old constructor and ``run_until_drained`` spellings alive as
+    thin forwarding shims. Import :class:`repro_torch.serving.DeploymentPool`
+    and call :meth:`~repro_torch.serving.pool.DeploymentPool.drain`
+    instead.
+    """
+
+    def __init__(self, members, *, max_queue: int = 64,
+                 max_wait_ticks: Optional[int] = None,
+                 metrics: Optional[MetricsRegistry] = None):
+        warnings.warn(
+            "repro_torch.runtime.server.DeploymentPool moved to "
+            "repro_torch.serving.DeploymentPool (and run_until_drained() "
+            "to drain()); this forwarding shim will be removed",
+            DeprecationWarning, stacklevel=2)
+        super().__init__(members, max_queue=max_queue,
+                         max_wait_ticks=max_wait_ticks, metrics=metrics)
+
+    def run_until_drained(self, max_ticks: int = 10_000) -> PoolStats:
+        warnings.warn(
+            "DeploymentPool.run_until_drained() is deprecated; use "
+            "repro_torch.serving.DeploymentPool.drain()",
+            DeprecationWarning, stacklevel=2)
+        return self.drain(max_ticks)

@@ -13,14 +13,15 @@
   model and the paper's Table I numbers).
 
 :func:`verify_deployment` is the deployment-level entry that
-``Deployment.verify`` calls. The batched multi-design sweep comes with the
-multi-design emulator.
+``Deployment.verify`` calls; :func:`run_conformance_batch` is the batched
+sweep over K isomorphic candidates (:mod:`repro_torch.rtl.multi`).
 """
 from repro_torch.verify.conformance import (CanaryResult,  # noqa: F401
                                             ConformanceReport, canary_check,
                                             fuzz_template,
                                             graph_error_budget_lsb,
                                             run_conformance,
+                                            run_conformance_batch,
                                             verify_deployment)
 from repro_torch.verify.protocol import (TABLE1_GOP_PER_J,  # noqa: F401
                                          TABLE1_LATENCY_US, TABLE1_POWER_MW,

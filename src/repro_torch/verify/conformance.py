@@ -224,6 +224,72 @@ def run_conformance(graph, vectors: Optional[VectorSet] = None, *,
     return rep
 
 
+def run_conformance_batch(graphs, *,
+                          modes: Sequence[str] = DEFAULT_MODES,
+                          stimulus: Optional[np.ndarray] = None,
+                          device: Device = None) -> List[ConformanceReport]:
+    """Differential conformance over K program-isomorphic candidates in
+    one batched sweep on ``device`` — the DSE feasibility oracle
+    (DESIGN.md §15).
+
+    The base path runs every design at once: one dispatch through
+    :class:`~repro_torch.rtl.multi.MultiDesignEmulator` (on CUDA one CUDA
+    Graph of the K designs' ``fused`` walks; labelled ``"vmap-jnp"`` as in
+    the reference). Each per-design sequential mode then cross-checks its
+    candidate through a *shared* :class:`~repro_torch.rtl.program_cache.
+    ProgramLRU` — isomorphic designs share the program, so each mode
+    builds once for all K, not once per candidate. Reports mirror
+    :func:`run_conformance`: mutual bit-exactness (the design axis vs every
+    sequential mode) plus the float oracle within the declared LSB budget,
+    one report per design.
+    """
+    from repro_torch.rtl.emulator import RTLEmulator
+    from repro_torch.rtl.multi import MultiDesignEmulator
+    from repro_torch.rtl.program_cache import ProgramLRU
+
+    graphs = list(graphs)
+    multi = MultiDesignEmulator(graphs, device=device)  # checks isomorphism
+    if stimulus is None:
+        stimulus = generate_vectors(graphs[0], device=device).stimulus
+    stim = np.asarray(stimulus, np.int32)
+    in_fmt = graphs[0].edges[graphs[0].inputs[0]].fmt
+
+    batched = multi.run_int(stim).outputs.cpu().numpy() \
+        .astype(np.int64)                                # (K, B, ...)
+    shared = {m: ProgramLRU(4) for m in modes}
+    reports: List[ConformanceReport] = []
+    for kidx, g in enumerate(graphs):
+        rep = ConformanceReport(design=g.name, target="rtl",
+                                modes=("vmap-jnp",) + tuple(modes))
+        rep.n_vectors = int(stim.shape[0])
+        base = batched[kidx]
+        for m in modes:
+            em = RTLEmulator(g, mode=m, programs=shared[m], device=device)
+            out = em.run_int(stim).outputs.cpu().numpy().astype(np.int64)
+            diff = int(np.max(np.abs(out - base))) if base.size else 0
+            rep.mode_max_diff[f"vmap-jnp-vs-{m}"] = diff
+            if diff != 0:
+                rep.modes_bit_exact = False
+                rep.notes.append(
+                    f"sequential mode {m!r} diverges from the vmapped "
+                    f"design axis by up to {diff} codes")
+        ref_int = oracle_codes(g, stim.astype(np.float32) / in_fmt.scale,
+                               device=device)
+        rep.error_budget_lsb = graph_error_budget_lsb(g)
+        rep.oracle_max_lsb = float(np.max(np.abs(base - ref_int))) \
+            if base.size else 0.0
+        rep.oracle_within_budget = \
+            rep.oracle_max_lsb <= rep.error_budget_lsb
+        if not rep.oracle_within_budget:
+            rep.notes.append(
+                "int output deviates from the fxp_quantize oracle by "
+                f"{rep.oracle_max_lsb:g} LSB > budget "
+                f"{rep.error_budget_lsb}")
+        rep.passed = rep.modes_bit_exact and rep.oracle_within_budget
+        reports.append(rep)
+    return reports
+
+
 def fuzz_template(kind: str, *, seed: int = 0, batch: int = 8,
                   modes: Sequence[str] = DEFAULT_MODES,
                   device: Device = None) -> Optional[ConformanceReport]:

@@ -157,7 +157,7 @@ def test_reference_apply_matches(graphs, design):
     np.testing.assert_array_equal(got.numpy(),
                                   np.asarray(j_reference_apply(jg, x)))
     for mode in MODES:
-        assert_bit_exact(tg, x, mode, device="cpu")
+        assert_bit_exact(tg, x, mode=mode, device="cpu")
 
 
 def test_run_many_ragged_equals_solo_runs(graphs):

@@ -210,7 +210,7 @@ def test_lstm_two_layer_design_on_card(cuda, variant):
     for name, seq in plain.trace.items():
         assert torch.equal(got.trace[name], seq), name
     torch.backends.cuda.matmul.allow_tf32 = False
-    assert_bit_exact(graph, x, "fused", device=cuda)
+    assert_bit_exact(graph, x, mode="fused", device=cuda)
 
 
 @pytest.mark.parametrize("shift", [-2, 0, 2, 6, 13])
@@ -255,7 +255,7 @@ def test_emulator_on_card(cuda, arch, mode):
     plain = RTLEmulator(graph, mode="jnp", device=cuda).run(x)
     assert torch.equal(em.run(x).outputs, plain.outputs)
     torch.backends.cuda.matmul.allow_tf32 = False
-    assert_bit_exact(graph, x, mode, device=cuda)
+    assert_bit_exact(graph, x, mode=mode, device=cuda)
 
 
 # the reference's B5 test shapes, then ragged S, odd head dims and hd 256
@@ -1186,3 +1186,284 @@ def test_deployed_smoke_prefill_launches_b5_once_a_layer(cuda):
     assert flash_ops.launches_by_variant["simt"] == before["simt"]
     assert torch.isfinite(logits).all() and logits.shape == (
         2, st.cfg.padded_vocab)
+
+
+# --------------------------------------------------------------------------- #
+# the program cache on the card: CUDA Graphs of the emulator's walk
+# --------------------------------------------------------------------------- #
+
+
+def _launch_counts():
+    return {"B1": lstm_ops.launches, "B2": mac_ops.launches,
+            **{f"B1.{k}": v for k, v in lstm_ops.launches_by_variant.items()}}
+
+
+def _per_run_launches(graph, mode):
+    """What one run of the walk launches in ``mode``."""
+    cells = [n for n in graph.nodes if n.op == "lstm_cell"]
+    macs = sum(n.op in ("linear", "conv1d") for n in graph.nodes)
+    if mode == "jnp":
+        return {"B1": 0, "B2": 0}
+    if mode == "pallas":
+        return {"B1": 0, "B2": macs + sum(n.seq_len for n in cells)}
+    return {"B1": len(cells), "B2": macs}
+
+
+@pytest.mark.parametrize("arch", ["elastic-lstm", "elastic-conv1d"])
+@pytest.mark.parametrize("mode", RTLEmulator.MODES)
+def test_replayed_program_equals_the_eager_jnp_walk(cuda, arch, mode):
+    """Each program is one CUDA Graph: the first call builds it (warm-up +
+    capture, one trace), later calls replay it, equal to the eager plain
+    walk integer for integer, edge for edge; the launch counters grow on
+    every replay by the walk's launches; a result survives the next call."""
+    from repro_torch.rtl.cuda_graph import CapturedProgram
+
+    graph, _, _ = tvec.canonical_graph(arch)
+    rng = np.random.default_rng(3)
+    fmt = graph.edges["x"].fmt
+    xs = [rng.integers(fmt.lo, fmt.hi + 1, (4099, *graph.edges["x"].shape))
+          .astype(np.int32) for _ in range(3)]
+    em = RTLEmulator(graph, mode=mode, device=cuda)
+    plain = RTLEmulator(graph, mode="jnp", device=cuda)
+    before = _launch_counts()
+    first = em.run_int(xs[0])
+    torch.cuda.synchronize()
+    built = {k: _launch_counts()[k] - before[k] for k in ("B1", "B2")}
+    assert built == _per_run_launches(graph, mode)   # the warm-up run only
+    assert em.trace_count == 1 and em.has_program(xs[0].shape, np.int32)
+    prog = em._programs._programs[em._cache_key(xs[0].shape, torch.int32)]
+    assert isinstance(prog, CapturedProgram)
+    assert isinstance(prog.graph, torch.cuda.CUDAGraph)
+    kept = {k: v.clone() for k, v in first.trace.items()}
+    for x in xs[1:]:
+        before = _launch_counts()
+        got = em.run_int(x)
+        torch.cuda.synchronize()
+        grew = {k: _launch_counts()[k] - before[k] for k in ("B1", "B2")}
+        assert grew == _per_run_launches(graph, mode)
+        want = plain.run_int_per_step(x)              # eager, no program
+        assert sorted(got.trace) == sorted(want.trace)
+        for k in want.trace:
+            assert torch.equal(got.trace[k], want.trace[k]), k
+        assert torch.equal(got.outputs_f, want.outputs_f)
+    assert em.trace_count == 1 and em.cache_stats()["hits"] == 2
+    for k, v in kept.items():
+        assert torch.equal(first.trace[k], v), k
+
+
+def test_replay_counts_b1_by_variant(cuda):
+    """A 12-bit twin routes to simt: replays count simt, never mma."""
+    graph, _, _ = tvec.canonical_graph("elastic-lstm",
+                                       act_fmt=FxpFormat(12, 6),
+                                       state_fmt=FxpFormat(12, 8))
+    x = np.random.default_rng(4).standard_normal(
+        (1000, *graph.edges["x"].shape)).astype(np.float32)
+    em = RTLEmulator(graph, device=cuda)
+    em.run(x)
+    lstm_ops.launches_by_variant = dict.fromkeys(
+        lstm_ops.launches_by_variant, 0)
+    for _ in range(3):
+        em.run(x)
+    torch.cuda.synchronize()
+    assert lstm_ops.launches_by_variant == {"mma": 0, "simt": 3}
+
+
+def test_isomorphic_siblings_replay_one_graph_with_their_own_params(cuda):
+    from repro_torch.rtl.program_cache import ProgramLRU
+
+    lru = ProgramLRU(4)
+    graphs = [tvec.canonical_graph("elastic-lstm", seed=s)[0]
+              for s in (0, 1, 2)]
+    ems = [RTLEmulator(g, programs=lru, device=cuda) for g in graphs]
+    x = np.random.default_rng(5).integers(
+        -128, 128, (777, 6, 1)).astype(np.int32)
+    for _ in range(2):                   # 2nd round: params reload each hop
+        for g, em in zip(graphs, ems):
+            want = RTLEmulator(g, mode="jnp", device=cuda) \
+                .run_int_per_step(x).outputs
+            assert torch.equal(em.run_int(x).outputs, want)
+    assert sum(em.trace_count for em in ems) == 1
+    assert lru.stats() == {"hits": 5, "misses": 1, "evictions": 0,
+                           "size": 1}
+
+
+def test_a_param_written_in_place_reaches_the_next_replay(cuda):
+    graph, _, _ = tvec.canonical_graph("elastic-conv1d")
+    em = RTLEmulator(graph, device=cuda)
+    x = np.random.default_rng(6).integers(
+        -128, 128, (64, *graph.edges["x"].shape)).astype(np.int32)
+    base = em.run_int(x).outputs.clone()
+    assert torch.equal(em.run_int(x).outputs, base)          # a replay
+    em.prepared("linear_head")["w"].view(-1)[0] += 3
+    moved = em.run_int(x).outputs
+    want = RTLEmulator(graph, device=cuda)
+    want.prepared("linear_head")["w"].view(-1)[0] += 3
+    assert torch.equal(moved, want.run_int_per_step(x).outputs)
+    assert not torch.equal(moved, base) and em.trace_count == 1
+
+
+def test_eviction_and_clear_free_the_graphs(cuda):
+    graph, _, _ = tvec.canonical_graph("elastic-lstm")
+    em = RTLEmulator(graph, max_programs=2, device=cuda)
+    torch.cuda.synchronize()
+    start = torch.cuda.memory_allocated()
+    for b in (30000, 30001, 30002, 30003):
+        em.run_int(np.zeros((b, 6, 1), np.int32))
+    torch.cuda.synchronize()
+    two = torch.cuda.memory_allocated() - start
+    assert em.cache_evictions == 2 and len(em._programs) == 2
+    em._programs.clear()
+    torch.cuda.synchronize()
+    assert torch.cuda.memory_allocated() - start < two / 4
+
+
+def test_a_capture_that_fails_raises_and_caches_nothing(cuda, monkeypatch):
+    """A walk that syncs cannot be captured: the build raises, nothing is
+    cached, and nothing runs the eager walk in its place."""
+    from repro_torch.rtl.oplib import get_template
+
+    graph, _, _ = tvec.canonical_graph("elastic-conv1d")
+    tmpl = get_template("linear")
+    execute = tmpl.execute
+
+    def syncing(n, env, em, mode):
+        execute(n, env, em, mode)
+        env[n.outputs[0]].sum().item()           # a device->host read
+
+    em = RTLEmulator(graph, device=cuda)
+    x = np.zeros((8, *graph.edges["x"].shape), np.int32)
+    monkeypatch.setattr(tmpl, "execute", syncing)
+    with pytest.raises(RuntimeError):
+        em.run_int(x)
+    monkeypatch.undo()
+    torch.cuda.synchronize()
+    assert not em.has_program(x.shape, np.int32)
+    assert len(em._programs) == 0 and em.cache_misses == 0
+    assert torch.equal(em.run_int(x).outputs,
+                       RTLEmulator(graph, mode="jnp", device=cuda)
+                       .run_int_per_step(x).outputs)
+
+
+@pytest.mark.parametrize("arch", ["elastic-lstm", "elastic-conv1d"])
+def test_multi_design_replay_equals_sequential_and_jnp(cuda, arch):
+    from repro_torch.rtl.multi import MultiDesignEmulator
+
+    graphs = [tvec.canonical_graph(arch, seed=s)[0] for s in range(4)]
+    multi = MultiDesignEmulator(graphs, device=cuda)
+    fmt = graphs[0].edges["x"].fmt
+    rng = np.random.default_rng(8)
+    x = rng.integers(fmt.lo, fmt.hi + 1,
+                     (2048, *graphs[0].edges["x"].shape)).astype(np.int32)
+    multi.run_int(x)                                     # build
+    before = _launch_counts()
+    got = multi.run_int(x)                               # one replay
+    torch.cuda.synchronize()
+    grew = {k: _launch_counts()[k] - before[k] for k in ("B1", "B2")}
+    assert grew == {k: 4 * n for k, n in
+                    _per_run_launches(graphs[0], "fused").items()}
+    assert multi.trace_count == 1
+    seq = multi.run_int_sequential(x)
+    np.testing.assert_array_equal(got.outputs.cpu().numpy(), seq)
+    for k, g in enumerate(graphs):
+        want = RTLEmulator(g, mode="jnp", device=cuda).run_int_per_step(x)
+        assert torch.equal(got.outputs[k], want.outputs), k
+    xs = np.stack([x + 0 * k for k in range(4)])
+    xs[1] = np.roll(x, 1, axis=0)
+    per = multi.run_int(xs, per_design=True).outputs
+    for k, em in enumerate(multi.emulators):
+        assert torch.equal(per[k], em.run_int(xs[k]).outputs), k
+
+
+def test_sharded_executable_on_the_cards_devices(cuda):
+    import dataclasses
+
+    from repro_torch.rtl.backend import translate_rtl
+    from repro_torch.serving import ShardedExecutable, make_serving_mesh
+
+    cfg = get_config("elastic-lstm")
+    _, exe = translate_rtl(cfg, tvec.canonical_params(tvec.schema_for(cfg)),
+                           device=cuda)
+    mesh = make_serving_mesh()
+    assert mesh == [torch.device("cuda", i)
+                    for i in range(torch.cuda.device_count())]
+    sharded = ShardedExecutable(dataclasses.replace(exe), mesh)
+    x = np.random.default_rng(9).standard_normal(
+        (1001, 6, 1)).astype(np.float32)
+    for _ in range(2):
+        assert torch.equal(sharded(x), exe(x))
+    assert sharded.holds_program(x.shape, x.dtype)
+    assert all(em.trace_count == 1 for em in sharded.emulators)
+
+
+def test_holds_program_turns_true_after_the_first_call(cuda):
+    import dataclasses
+
+    from repro_torch.rtl.backend import translate_rtl
+
+    cfg = get_config("elastic-conv1d")
+    _, exe = translate_rtl(cfg, tvec.canonical_params(tvec.schema_for(cfg)),
+                           device=cuda)
+    replica = dataclasses.replace(exe)
+    assert replica.emulator is not exe.emulator
+    x = np.zeros((32, 16, 3), np.float32)
+    assert not replica.holds_program(x.shape, x.dtype)
+    replica(x)
+    assert replica.holds_program(x.shape, x.dtype)
+    assert not exe.holds_program(x.shape, x.dtype)
+
+
+def test_farm_on_the_card_is_bit_exact_per_request(cuda):
+    from repro_torch.obs import MetricsRegistry
+    from repro_torch.serving import FarmConfig, pad_window
+    from repro_torch.serving import loadgen
+
+    farm, pools = loadgen.build_farm(
+        ("lstm", "conv1d"), replicas=2, cfg=FarmConfig(max_batch=16),
+        metrics=MetricsRegistry(), device=cuda)
+    spec = loadgen.TrafficSpec(n_requests=200, wave=50, seed=2)
+    rep = loadgen.run_loadgen(farm, pools, spec)
+    assert rep["by_status"] == {"done": 200}
+    by_family = {p.family: p for p in pools}
+    for req in list(farm.requests.values())[::7]:
+        member = by_family[req.design].members[req.bucket_len][req.member]
+        solo = RTLEmulator(member.graph, mode="jnp", device=cuda).run(
+            pad_window(req.window, req.bucket_len)[None]).outputs_f
+        np.testing.assert_array_equal(req.result, solo.cpu().numpy()[0])
+
+
+def test_one_program_serves_8_threads_on_the_card(cuda):
+    """Threads share one emulator and its CUDA Graph (farm workers): the
+    program's lock keeps copy-in, replay and copy-out together, so every
+    thread's answers equal its own solo runs."""
+    import sys
+    import threading
+
+    graph, _, _ = tvec.canonical_graph("elastic-lstm")
+    em = RTLEmulator(graph, device=cuda)
+    rng = np.random.default_rng(12)
+    xs = [rng.integers(-128, 128, (512, 6, 1)).astype(np.int32)
+          for _ in range(8)]
+    want = [RTLEmulator(graph, mode="jnp", device=cuda)
+            .run_int_per_step(x).outputs for x in xs]
+    em.run_int(xs[0])                                    # build
+    errors = []
+
+    def serve(i):
+        try:
+            for _ in range(20):
+                assert torch.equal(em.run_int(xs[i]).outputs, want[i])
+        except Exception as e:                           # noqa: BLE001
+            errors.append(e)
+
+    threads = [threading.Thread(target=serve, args=(i,)) for i in range(8)]
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+    finally:
+        sys.setswitchinterval(interval)
+    assert not any(t.is_alive() for t in threads)
+    assert errors == [] and em.trace_count == 1

@@ -48,7 +48,13 @@ def test_importing_the_port_loads_neither_jax_nor_repro():
             "repro_torch.data, repro_torch.optim, repro_torch.quant.qat, "
             "repro_torch.core.target, repro_torch.core.registry, "
             "repro_torch.core.creator, repro_torch.core.workflow, "
-            "repro_torch.rtl.backend, repro_torch.launch.elastic_workflow; "
+            "repro_torch.rtl.backend, repro_torch.launch.elastic_workflow, "
+            "repro_torch.rtl.program_cache, repro_torch.rtl.cuda_graph, "
+            "repro_torch.rtl.multi, repro_torch.serving, "
+            "repro_torch.serving.queue, repro_torch.serving.batcher, "
+            "repro_torch.serving.router, repro_torch.serving.farm, "
+            "repro_torch.serving.pool, repro_torch.serving.shard, "
+            "repro_torch.serving.loadgen; "
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'repro.')) or m == 'repro'); "
             "assert not bad, bad")
