@@ -169,11 +169,36 @@ the roofline and the 8-channel meter, timed on the card):
     one replay launching B1 and B2 8 times per node; the replay timed
     against 8 sequential runs on warm programs; captures and the shared
     LRU's stats; ``run_conformance_batch`` passing every design;
-18. print the kernels line (B1's and B2's rows also carry the loop's
-    launches, ``workflow_launches``, the farm's, ``farm_launches``, and
-    one multi-design replay's of each design, ``multi_launches``; B5's the
-    host target's, ``host_target_launches``) and the card's name and power
-    limit.
+
+The resilience layer (``repro_torch.resilience``: SEU bit-flips in the
+emulator's memories, guarded deployments, chaos scenarios), on the card:
+
+18. (a) an SEU sweep of ``elastic-lstm`` (B1 ``mma``), its 12-bit twin (B1
+    ``simt``) and ``elastic-conv1d``: every entry of ``memories()``, bits
+    0/7/15/30/31 of a seeded word, then 65,536 windows: ``fused`` (a
+    capture, then a replay) = the card's ``jnp`` walk = a CPU emulator
+    flipped the same way on the first 1,024 windows, 0 mismatches; B1
+    launches ``simt`` while a flipped W is outside ``w_fmt`` and ``mma``
+    again once the second flip restores it, whose answer is the unflipped
+    one; a clean ``torch.cuda.synchronize()`` at the end (no trap); the
+    host ms of the run that builds after a flip beside a warm replay.
+    (b) the acceptance scenario (``examples/chaos_plan.json``, 24
+    requests, seed 7, the reference test's guard policy, the float-oracle
+    ``"xla"`` fallback on the card): detected, recovered, 0 corrupted
+    after detection, 0 lost, one breaker trip, every later answer the
+    fallback's and correct; its ``to_json()`` equal to the same scenario
+    on the CPU; B1/B2 launches; host ms of a bare call, a guarded call, a
+    canary probe and the first guarded call after a flip. (c) a guarded
+    farm of both designs, two replicas each with a canary, 1,024 requests
+    in waves of 128: the busier ``elastic-lstm`` replica is flipped
+    mid-pass, its canary quarantines it, the router sends it nothing
+    after, no request fails, ``admitted == done + expired``, and 64
+    answers after the detection equal per-request ``jnp`` runs;
+19. print the kernels line (B1's and B2's rows also carry the loop's
+    launches, ``workflow_launches``, the farm's, ``farm_launches``, one
+    multi-design replay's of each design, ``multi_launches``, and phase
+    18's, ``resilience_launches``; B5's the host target's,
+    ``host_target_launches``) and the card's name and power limit.
 
 Usage, from the repository root: ``python3 chip_smoke.py``. Needs one CUDA
 card and ``nvcc``; exits non-zero, printing no result, without them. The
@@ -1889,6 +1914,322 @@ def phase_multi(lstm_ops, mac_ops, card: str) -> dict:
     return replay
 
 
+# the resilience layer (phase 18): the SEU sweep's bits, the windows held
+# against a CPU emulator, and the acceptance scenario's settings (the
+# reference's tests/test_resilience.py:447-452)
+SEU_BITS = (0, 7, 15, 30, 31)
+SEU_HOST_WINDOWS = 1024
+CHAOS_PLAN = os.path.join(ROOT, "examples", "chaos_plan.json")
+GUARDED_REQUESTS = 1024
+GUARDED_SAMPLES = 64
+FLIP_WAVE = 2                          # of the 8 waves of 128 requests
+
+
+def resilience_designs():
+    """The sweep's designs: Table I (B1 mma), its 12-bit twin (B1 simt from
+    the start) and the conv1d stack (B2 only)."""
+    from repro_torch.quant.fixedpoint import FxpFormat
+    from repro_torch.verify.vectors import canonical_graph
+
+    return {"elastic-lstm": canonical_graph("elastic-lstm")[0],
+            "elastic-lstm-q12": canonical_graph(
+                "elastic-lstm", act_fmt=FxpFormat(12, 6),
+                state_fmt=FxpFormat(12, 8))[0],
+            "elastic-conv1d": canonical_graph("elastic-conv1d")[0]}
+
+
+def seu_sweep(lstm_ops, arch, graph, card: str) -> dict:
+    """Phase 18(a) for one design: every memory, bits SEU_BITS of one
+    seeded word, B_SERVE windows after each flip. ``fused`` (B1 and B2, a
+    capture then a replay) is held against the card's ``jnp`` walk and,
+    on SEU_HOST_WINDOWS windows, against a CPU emulator flipped the same
+    way: 0 mismatches. The second flip restores the word, and the answer
+    must be the unflipped one again. Returns the host ms of the runs that
+    build after a flip and of the warm replays."""
+    import numpy as np
+    import torch
+
+    from repro_torch.rtl.emulator import RTLEmulator
+
+    fused = RTLEmulator(graph)
+    plain = RTLEmulator(graph, mode="jnp")
+    host = RTLEmulator(graph, device="cpu")
+    edge = graph.edges[graph.inputs[0]]
+    rng = np.random.default_rng(SEED + 18)
+    x = torch.as_tensor(rng.integers(edge.fmt.lo, edge.fmt.hi + 1,
+                                     (B_SERVE, *edge.shape)),
+                        dtype=torch.int32, device="cuda")
+    x_host = x[:SEU_HOST_WINDOWS].cpu()
+    base = fused.run_int(x).outputs.clone()
+    cell = {n.name: fused.prepared(n.name)["spec"] for n in graph.nodes
+            if n.op == "lstm_cell"}
+    # B1's launches a run makes with every W in its format
+    rest = {"mma": 0, "simt": 0}
+    for spec in cell.values():
+        rest[lstm_ops.variant(spec)] += 1
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    build_ms, warm_ms, flips = [], [], 0
+    for node, key in fused.memories():
+        word = int(rng.integers(fused.prepared(node)[key].numel()))
+        routes = []
+        for bit in SEU_BITS:
+            new = {em.flip_bit(node, key, word, bit)
+                   for em in (fused, plain, host)}
+            if len(new) != 1:
+                raise AssertionError(f"{arch} {node}.{key}: flipped words "
+                                     f"{new}")
+            flips += 1
+            caps = fused.trace_count
+            before = dict(lstm_ops.launches_by_variant)
+            got, ms = timed(lambda: fused.run_int(x).outputs)
+            build_ms.append(ms)
+            again, ms = timed(lambda: fused.run_int(x).outputs)
+            warm_ms.append(ms)
+            ran = {k: lstm_ops.launches_by_variant[k] - before[k]
+                   for k in before}
+            want = plain.run_int(x).outputs
+            bad = int((got != want).sum()) + int((again != got).sum()) + \
+                int((got[:SEU_HOST_WINDOWS].cpu()
+                     != host.run_int(x_host).outputs).sum())
+            if bad:
+                raise AssertionError(f"{arch} {node}.{key} bit {bit}: {bad} "
+                                     "mismatches")
+            # two runs; a W word outside w_fmt moves its cell to simt
+            want_ran = {k: 2 * n for k, n in rest.items()}
+            if node in cell and key == "w" and \
+                    lstm_ops.variant(cell[node]) == "mma" and not \
+                    cell[node].w_fmt.lo <= next(iter(new)) <= \
+                    cell[node].w_fmt.hi:
+                want_ran = {"mma": want_ran["mma"] - 2,
+                            "simt": want_ran["simt"] + 2}
+            if ran != want_ran:
+                raise AssertionError(f"{arch} {node}.{key} bit {bit}: B1 "
+                                     f"launched {ran}, want {want_ran}")
+            routes.append(f"{bit}:{next(iter(new))}:"
+                          f"{'+'.join(k for k, n in ran.items() if n) or '-'}"
+                          f":{fused.trace_count - caps}")
+            for em in (fused, plain, host):
+                em.flip_bit(node, key, word, bit)
+            before = dict(lstm_ops.launches_by_variant)
+            restored = fused.run_int(x).outputs
+            back = {k: lstm_ops.launches_by_variant[k] - before[k]
+                    for k in before}
+            if not torch.equal(restored, base):
+                raise AssertionError(f"{arch} {node}.{key} bit {bit}: the "
+                                     "restored word gives another answer")
+            if back != rest:
+                raise AssertionError(f"{arch} {node}.{key} bit {bit}: B1 "
+                                     f"after the restore {back}")
+        log(f"phase 18 SEU {arch} {node}.{key} word {word}, bit:new word:B1 "
+            f"variant:captures per flip: {' '.join(routes)}; = jnp on the "
+            f"card and the CPU emulator, restored = unflipped")
+    return {"flips": flips, "build_ms": build_ms, "warm_ms": warm_ms}
+
+
+def phase_resilience(lstm_ops, mac_ops, card: str) -> dict:
+    """Phase 18: (a) the SEU sweep over every memory of three designs; (b)
+    the acceptance chaos scenario on the card, its JSON equal to the CPU's;
+    (c) a guarded farm of both designs, two replicas each, one flipped
+    mid-pass and quarantined by its canary. Returns the B1 (by variant)
+    and B2 launches of the phase."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.workflow import chaos_fallback
+    from repro_torch.energy.hw import XC7S15
+    from repro_torch.obs import (MetricsRegistry, Tracer, find_spans,
+                                 set_tracer)
+    from repro_torch.resilience import (ChaosSpec, FaultPlan, GuardPolicy,
+                                        run_chaos)
+    from repro_torch.rtl.backend import RTLExecutable
+    from repro_torch.rtl.emulator import RTLEmulator
+    from repro_torch.serving import (AcceleratorFarm, DesignPool, FarmConfig,
+                                     loadgen, pad_window)
+    from repro_torch.verify.vectors import generate_vectors
+
+    lstm_ops.launches = 0
+    lstm_ops.launches_by_variant = dict.fromkeys(
+        lstm_ops.launches_by_variant, 0)
+    mac_ops.launches = 0
+    # ---- (a) the SEU sweep ----
+    designs = resilience_designs()
+    t0 = time.perf_counter()
+    flips, build_ms, warm_ms = 0, [], []
+    for arch, graph in designs.items():
+        got = seu_sweep(lstm_ops, arch, graph, card)
+        flips += got["flips"]
+        build_ms += got["build_ms"]
+        warm_ms += got["warm_ms"]
+    torch.cuda.synchronize()                     # no trap: the card is fine
+    log(f"phase 18(a) SEU sweep: {flips} flips over every memory of "
+        f"{len(designs)} designs x bits {SEU_BITS}, {B_SERVE} windows each, "
+        f"0 mismatches; the run after a flip (a capture) median "
+        f"{np.median(build_ms):.3f} ms (max {np.max(build_ms):.3f}, the "
+        f"first flip's {build_ms[0]:.3f}), a warm replay median "
+        f"{np.median(warm_ms):.3f} ms (host clock, int codes on the card); "
+        f"{time.perf_counter() - t0:.1f} s in all; torch.cuda.synchronize() "
+        f"clean ({card})")
+    # ---- (b) the acceptance scenario ----
+    graph = designs["elastic-lstm"]
+
+    def scenario(device):
+        dep = RTLExecutable(graph=graph, artifacts={}, hw=XC7S15,
+                            device=device)
+        spec = ChaosSpec(plan=FaultPlan.load(CHAOS_PLAN), n_requests=24,
+                         seed=7, policy=GuardPolicy(
+                             timeout_s=0.25, max_retries=2,
+                             breaker_threshold=3, canary_every=4))
+        return run_chaos(dep, spec, fallback=chaos_fallback(dep, XC7S15))
+
+    before = {**lstm_ops.launches_by_variant, "B2": mac_ops.launches}
+    trc = Tracer()
+    prev = set_tracer(trc)
+    try:
+        t0 = time.perf_counter()
+        rep = scenario("cuda")
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    finally:
+        set_tracer(prev)
+    # where the scenario's host time goes, by span (ms)
+    spent = {name: 1e3 * sum(sp.duration for sp in find_spans(trc.spans,
+                                                                 name))
+             for name in ("resilience.chaos", "resilience.canary",
+                          "resilience.fallback")}
+    rest = spent["resilience.chaos"] - spent["resilience.fallback"] - \
+        spent["resilience.canary"]
+    ran = {k: {**lstm_ops.launches_by_variant, "B2": mac_ops.launches}[k]
+           - before[k] for k in before}
+    cpu_rep = scenario("cpu")
+    post = [r for r in rep.requests
+            if r["request"] > rep.faults_detected[0]["request"]] \
+        if rep.faults_detected else []
+    if not (rep.passed and rep.requests_lost == 0
+            and rep.corrupted_after_detection == 0
+            and rep.breaker_trips == 1 and post
+            and all(r["source"] == "xla" and r["correct"] for r in post)):
+        raise AssertionError(f"acceptance scenario on the card: "
+                             f"{rep.summary()}")
+    if rep.to_json() != cpu_rep.to_json():
+        raise AssertionError("acceptance scenario: the card's report != the "
+                             "CPU's")
+    log(f"phase 18(b) acceptance scenario on the card: {rep.summary()}; "
+        f"to_json() = the CPU's byte for byte (sha256 "
+        f"{sha256(rep.to_json().encode())[:16]}); launches B1 by variant "
+        f"{json.dumps({k: ran[k] for k in ('mma', 'simt')})}, B2 "
+        f"{ran['B2']}; {wall:.1f} ms host, of it the request loop "
+        f"{spent['resilience.chaos']:.1f} ms = the fallback's "
+        f"{rep.requests_degraded} answers "
+        f"{spent['resilience.fallback']:.1f} + the canary probes "
+        f"{spent['resilience.canary']:.1f} + the rest (primary calls with "
+        f"their program builds, retries, scoring) {rest:.1f} (spans) "
+        f"({card})")
+    # host ms per guarded call, per canary probe, and for the re-capture
+    # after a flip, on a warm guard of its own
+    dep = RTLExecutable(graph=graph, artifacts={}, hw=XC7S15)
+    vectors = generate_vectors(graph)
+    guard = dep.guarded(canary=vectors, policy=GuardPolicy(canary_every=0),
+                        metrics=MetricsRegistry())
+    x1 = vectors.stimulus_f()[:1]
+
+    def host_ms(fn, reps=50):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / reps * 1e3
+
+    bare = host_ms(lambda: dep(x1))
+    call = host_ms(lambda: guard.call(x1))
+    probe = host_ms(guard.probe)
+    recapture = []
+    for _ in range(2):                           # flip, then restore
+        dep.emulator.flip_bit("lstm_cell_l0", "w", 0, 7)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        guard.call(x1)
+        recapture.append((time.perf_counter() - t0) * 1e3)
+    log(f"phase 18(b) host ms on the card, batch-1 elastic-lstm: the bare "
+        f"deployment call {bare:.3f}, a guarded call {call:.3f}, a canary "
+        f"probe ({guard.policy.canary_slice} golden rows) {probe:.3f}, the "
+        f"first guarded call after a flip (W leaves Q8.6: a capture of the "
+        f"simt walk) {recapture[0]:.3f}, after the restoring flip (mma) "
+        f"{recapture[1]:.3f} ({card})")
+    # ---- (c) a guarded farm ----
+    buckets = {"lstm": (6,), "conv1d": (16,)}
+    fams = {"lstm": designs["elastic-lstm"],
+            "conv1d": designs["elastic-conv1d"]}
+    members = {fam: [RTLExecutable(graph=g, artifacts={}, hw=XC7S15)
+                     .guarded(canary=generate_vectors(g),
+                              policy=GuardPolicy(canary_every=4,
+                                                 max_retries=0),
+                              rng=np.random.default_rng(i),
+                              metrics=MetricsRegistry(),
+                              name=f"{fam}{i}") for i in range(2)]
+               for fam, g in fams.items()}
+    farm = AcceleratorFarm([DesignPool(family=fam, members={
+        buckets[fam][0]: reps}) for fam, reps in members.items()],
+        FarmConfig(max_batch=8), metrics=MetricsRegistry())
+    tape = loadgen.generate_requests(loadgen.TrafficSpec(
+        archs=("lstm", "conv1d"), n_requests=GUARDED_REQUESTS, wave=128,
+        seed=SEED + 18), buckets)
+    waves = [tape[i:i + 128] for i in range(0, len(tape), 128)]
+    rids, flipped, det_wave = [], None, None
+    t0 = time.perf_counter()
+    for w, wave in enumerate(waves):
+        rids.append([farm.submit(design, win) for design, win in wave])
+        if w == FLIP_WAVE:
+            lstm = members["lstm"]
+            flipped = max(range(2), key=lambda i: lstm[i].calls)
+            lstm[flipped].emulator.flip_bit("lstm_cell_l0", "w", 0, 7)
+        farm.tick(flush=True)
+        if flipped is not None and det_wave is None and \
+                members["lstm"][flipped].quarantined:
+            det_wave = w
+    st = farm.run_until_drained()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    sick = members["lstm"][flipped]
+    if st.failed or st.admitted != st.done + st.expired or \
+            det_wave is None or sick.calls != sick.detections[0]["call"]:
+        raise AssertionError(f"guarded farm: stats {st.to_dict()}, "
+                             f"detected in wave {det_wave}, health "
+                             f"{sick.health()}")
+    late = [farm.result(r) for wave in rids[det_wave + 1:] for r in wave]
+    if any(r.design == "lstm" and r.member == flipped for r in late):
+        raise AssertionError("guarded farm: the quarantined replica served "
+                             "after its detection")
+    plain = {fam: RTLEmulator(g, mode="jnp") for fam, g in fams.items()}
+    rng = np.random.default_rng(SEED + 18)
+    for i in rng.choice(len(late), GUARDED_SAMPLES, replace=False):
+        req = late[int(i)]
+        solo = plain[req.design].run(pad_window(
+            req.window, req.bucket_len)[None]).outputs_f.cpu().numpy()[0]
+        if not np.array_equal(req.result, solo):
+            raise AssertionError(f"guarded farm request {req.rid} != its "
+                                 "jnp run")
+    health = {m.name: (m.calls, m.health()["state"], len(m.detections))
+              for reps in members.values() for m in reps}
+    log(f"phase 18(c) guarded farm: {st.submitted} requests, {st.done} done,"
+        f" {st.failed} failed, {st.redispatches} redispatched; lstm replica "
+        f"{flipped} flipped in wave {FLIP_WAVE}, quarantined by its "
+        f"canary in wave {det_wave} and sent nothing after; replicas (calls, "
+        f"breaker, detections) {json.dumps(health)}; {GUARDED_SAMPLES} "
+        f"answers after detection = per-request jnp runs; {wall:.2f} s host "
+        f"({card})")
+    torch.cuda.synchronize()
+    return {**lstm_ops.launches_by_variant, "B2": mac_ops.launches}
+
+
 def main() -> int:
     import torch
 
@@ -2622,7 +2963,17 @@ def main() -> int:
             row["farm_launches"] = farm["B2"]
             row["multi_launches"] = multi["B2"]
 
-    # ---- 18. report --------------------------------------------------------
+    # ---- 18. the resilience layer -----------------------------------------
+    resil = phase_resilience(lstm_ops, mac_ops, smi)
+    for row in kernel_rows:
+        if row["name"] == "lstm_cell_int":
+            row["resilience_launches"] = resil["mma"] + resil["simt"]
+            row["resilience_launches_by_variant"] = {
+                k: resil[k] for k in ("mma", "simt")}
+        elif row["name"] == "mac_int":
+            row["resilience_launches"] = resil["B2"]
+
+    # ---- 19. report --------------------------------------------------------
     log(smi)                     # the card's name and power limit
     print(json.dumps({"kernels": kernel_rows}))
     print(json.dumps({"ok": True, "device": {

@@ -18,7 +18,6 @@ Two abstractions (DESIGN.md §8):
 Targets register by name (:func:`register_target`): the host target
 (:class:`TorchTarget`) eagerly, the RTL target as a lazy entry so
 ``repro_torch.rtl.backend`` imports only when first requested.
-``Deployment.guarded`` comes with the resilience layer (ROADMAP A9).
 """
 from __future__ import annotations
 
@@ -168,6 +167,20 @@ class Deployment:
         return verify_deployment(self, args, model=model,
                                  model_flops=model_flops, hw=hw,
                                  protocol=protocol, oracle=oracle)
+
+    def guarded(self, **kwargs) -> "Deployment":
+        """Wrap this deployment for fault-tolerant serving: per-call
+        timeout, bounded retry, circuit breaker, golden-vector canary
+        probes, and graceful fallback (``repro_torch.resilience``,
+        DESIGN.md §12). Keyword arguments go to
+        :class:`~repro_torch.resilience.GuardedDeployment` (``policy=``,
+        ``fallback=``, ``canary=``, injectable ``clock``/``rng``, ...).
+        Part of the uniform contract so a pool can guard any target the
+        registry produces.
+        """
+        from repro_torch.resilience import GuardedDeployment
+
+        return GuardedDeployment(self, **kwargs)
 
 
 def _sync(device: torch.device) -> None:

@@ -17,7 +17,9 @@ that artifact. Target-specific knob mapping lives on the target
 (``Target.options_from_knobs``), overridable per-workflow via
 ``options_from_knobs``. The older spellings (``backend=``,
 ``fmt_builder=``) still construct but emit a ``DeprecationWarning`` and
-forward. Not ported yet: the chaos stage (``resilience=``, ROADMAP A9).
+forward. ``resilience=`` adds the scripted chaos stage: fault injection
+under a guarded wrapper with RTL→host fallback, scored on the golden
+vectors (:mod:`repro_torch.resilience`).
 """
 from __future__ import annotations
 
@@ -38,6 +40,29 @@ from repro_torch.energy.cost import StepCost, count_step
 from repro_torch.energy.meter import channel_report
 from repro_torch.energy.roofline import roofline
 from repro_torch.obs import get_tracer
+
+
+def chaos_fallback(dep, hw):
+    """The chaos stage's fallback for a graph-carrying deployment: the float
+    oracle of the *same lowered graph* (``reference_apply``) as a host
+    deployment on the deployment's device, registered under the host
+    target's name ``"xla"``. Same SynthesisReport lineage, so degradation
+    changes the substrate (and its energy/accuracy class), not the function
+    being served. Its f32 matmuls are held in IEEE precision, where the
+    oracle is exact: a TF32 product could turn a degraded answer into a
+    corrupted one."""
+    from repro_torch.resilience import FallbackPolicy
+    from repro_torch.rtl.emulator import reference_apply
+    from repro_torch.verify.conformance import exact_f32_matmul
+
+    graph, device = dep.graph, getattr(dep, "device", None)
+
+    def oracle(x):
+        with exact_f32_matmul():
+            return reference_apply(graph, x, device=device)
+
+    return FallbackPolicy.to_xla(TorchDeployment(fn=oracle, hw=hw,
+                                                 device=device))
 
 
 @dataclass
@@ -69,7 +94,7 @@ class WorkflowRecord:
     satisfied: bool
     #: ConformanceReport from the verify stage (None when verify=False)
     conformance: Optional[Any] = None
-    #: ResilienceReport from the chaos stage (always None until A9)
+    #: ResilienceReport from the chaos stage (None when resilience=None)
     resilience: Optional[Any] = None
     #: AnalysisReport from the static-verifier stage (None for targets
     #: without one, or when the workflow runs with analyze="off")
@@ -102,7 +127,8 @@ class Workflow:
     #: run the Elastic Node conformance stage (Deployment.verify) after
     #: every stage-3 measurement and attach its report to the record
     verify: bool = False
-    #: the reference's scripted chaos stage; not ported yet (ROADMAP A9)
+    #: run this ChaosSpec against the deployed artifact after every stage-3
+    #: measurement (resilience.ChaosSpec; graph-carrying targets only)
     resilience: Optional[Any] = None
     #: static-verifier gate override ("error" | "warn" | "off"): forwarded
     #: into the target options when they carry an ``analyze`` field (the
@@ -114,10 +140,6 @@ class Workflow:
     history: List[WorkflowRecord] = field(default_factory=list)
 
     def __post_init__(self):
-        if self.resilience is not None:
-            raise NotImplementedError(
-                "Workflow(resilience=...) needs the resilience layer "
-                "(fault injection, guarded deployments, chaos; ROADMAP A9)")
         if self.backend is not None:
             warnings.warn("Workflow(backend=...) is deprecated; use "
                           "Workflow(target=...)", DeprecationWarning,
@@ -146,7 +168,8 @@ class Workflow:
 
         The iteration runs under a ``workflow.run_once`` span with one child
         per stage (``workflow.stage1`` … ``workflow.stage3``,
-        ``workflow.verify``, ``workflow.analyze``), knobs attached as
+        ``workflow.verify``, ``workflow.analyze``,
+        ``workflow.resilience``), knobs attached as
         attrs — so spans captured around this call decompose where the loop
         spends its time, down to the emulator runs nested inside stage 3.
         """
@@ -211,13 +234,38 @@ class Workflow:
                     sa.set_attrs(passed=analysis.passed,
                                  errors=len(analysis.errors),
                                  warnings=len(analysis.warnings))
+            # Resilience stage — scripted chaos against the deployed
+            # artifact: fault injection under a guarded wrapper with
+            # graceful RTL→host degradation, scored on the golden vectors.
+            resil = None
+            if self.resilience is not None:
+                with trc.span("workflow.resilience") as sr:
+                    resil = self._run_resilience(dep)
+                    sr.set_attrs(passed=resil.passed,
+                                 detected=resil.detected,
+                                 degraded=resil.requests_degraded,
+                                 lost=resil.requests_lost)
             rec = WorkflowRecord(
                 iteration=it, knobs=dict(knobs), design=design,
                 synthesis=syn, measurement=meas,
                 est_vs_meas=compare(syn, meas), satisfied=False,
-                conformance=conf, analysis=analysis)
+                conformance=conf, resilience=resil, analysis=analysis)
         self.history.append(rec)
         return rec
+
+    def _run_resilience(self, dep):
+        """Run the configured :class:`~repro_torch.resilience.ChaosSpec`
+        against the deployed artifact (see :func:`chaos_fallback`)."""
+        from repro_torch.resilience import run_chaos
+
+        if getattr(dep, "graph", None) is None:
+            raise ValueError(
+                "Workflow(resilience=...) needs a graph-carrying deployment"
+                " (a self-executing target such as 'rtl') to generate "
+                "golden vectors and a host fallback of the same design; "
+                f"target {self.target!r} produced none")
+        return run_chaos(dep, self.resilience,
+                         fallback=chaos_fallback(dep, self.creator.hw))
 
     def _with_analyze(self, options: TargetOptions) -> TargetOptions:
         """Force the workflow's ``analyze`` gate into the target options.

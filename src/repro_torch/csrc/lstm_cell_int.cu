@@ -27,8 +27,9 @@
 // the plain version's int32 loop gives (it cannot wrap either), and the bias
 // is added after the product with wrap_add, as the plain version adds it.
 // The routing rule (act and w codes <= 8 bits, H <= 64, K <= 128) keeps
-// every spec it sends here inside that envelope, and the launcher raises a
-// ValueError on a W outside w_fmt's codes. An x code outside int8 (x not
+// every spec it sends here inside that envelope; a W outside w_fmt's codes
+// (an SEU model's flipped bit) the wrapper sends to `simt`, and the launcher
+// raises a ValueError on one. An x code outside int8 (x not
 // holding act_fmt codes, against the wrapper's contract; checking it would
 // cost a pass over the input) traps, as does a W the launcher did not see,
 // so it ends in a CUDA error and never in a silently different answer.

@@ -66,26 +66,22 @@ def mma_takes(spec: CellSpec) -> bool:
             and spec.hidden <= MMA_MAX_HIDDEN)
 
 
-#: each W tensor the ``mma`` launcher has read, by identity: its version
-#: counter then and its least and largest code
+#: each W tensor whose codes were read, by identity: its version counter
+#: then and its least and largest code
 _w_range = WeakIdKeyDictionary()
 
 
-def check_w_codes(w: torch.Tensor, spec: CellSpec) -> None:
-    """Raise a ValueError unless ``w`` holds ``spec.w_fmt`` codes, as the
-    ``mma`` kernel's int8 fragments need. Reading the range back syncs the
-    stream, so it is read once per version of a tensor (an in-place write
-    bumps the version): the emulator passes the same prepared W to every
-    call."""
+def check_w_codes(w: torch.Tensor, spec: CellSpec) -> bool:
+    """Whether ``w`` holds ``spec.w_fmt`` codes, as the ``mma`` kernel's
+    int8 fragments need. Reading the range back syncs the stream, so it is
+    read once per version of a tensor (an in-place write, such as an SEU
+    model's flipped bit, bumps the version): the emulator passes the same
+    prepared W to every call, and checks it outside any capture."""
     seen = _w_range.get(w)
     if seen is None or seen[0] != w._version:
         lo, hi = torch.aminmax(w)
         seen = _w_range[w] = (w._version, int(lo), int(hi))
-    fmt = spec.w_fmt
-    if seen[1] < fmt.lo or seen[2] > fmt.hi:
-        raise ValueError(
-            f"lstm_window_int_cuda: w codes span [{seen[1]}, {seen[2]}], outside "
-            f"{fmt}'s [{fmt.lo}, {fmt.hi}]")
+    return spec.w_fmt.lo <= seen[1] and seen[2] <= spec.w_fmt.hi
 
 
 @functools.lru_cache(maxsize=None)
@@ -105,8 +101,9 @@ def lstm_window_int_cuda(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     """Launch the named variant on the current stream of ``x``'s device;
     checked operands (int32, contiguous, one device) come from the wrapper.
     ``mma`` takes only a cell :func:`mma_takes`, a ``w`` of ``w_fmt``
-    codes (:func:`check_w_codes`) and an ``out`` whose base is 16-byte
-    aligned (it stores 16 bytes at a time); ``simt`` takes any.
+    codes (:func:`check_w_codes`; another is a ValueError) and an ``out``
+    whose base is 16-byte aligned (it stores 16 bytes at a time); ``simt``
+    takes any.
     """
     if variant not in VARIANTS:
         raise ValueError(f"lstm_window_int_cuda: unknown variant "
@@ -119,7 +116,12 @@ def lstm_window_int_cuda(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
         if out.data_ptr() % 16:
             raise ValueError("lstm_window_int_cuda: mma needs a "
                              "16-byte-aligned out")
-        check_w_codes(w, spec)
+        if not check_w_codes(w, spec):
+            _, lo, hi = _w_range[w]
+            fmt = spec.w_fmt
+            raise ValueError(
+                f"lstm_window_int_cuda: w codes span [{lo}, {hi}], outside "
+                f"{fmt}'s [{fmt.lo}, {fmt.hi}]: launch simt")
     lib = _lib()
     A, C = spec.act_fmt, spec.state_fmt
     stream = torch.cuda.current_stream(x.device).cuda_stream

@@ -1,10 +1,13 @@
 """Public wrapper of the fused integer LSTM-window template (B1)."""
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from repro_torch.kernels import reports
 from repro_torch.kernels.lstm_cell_int.kernel import (CellSpec,
+                                                      check_w_codes,
                                                       lstm_window_int_cuda,
                                                       mma_takes)
 from repro_torch.kernels.lstm_cell_int.ref import lstm_window_int_ref
@@ -15,14 +18,22 @@ launches = 0
 launches_by_variant = {"mma": 0, "simt": 0}
 
 
-def variant(spec: CellSpec) -> str:
-    """The kernel a CUDA call with this cell launches, decided from the
-    spec alone: ``"mma"`` (the gate product on the int8 tensor cores) where
-    its codes fit int8 and the sum cannot wrap
+def variant(spec: CellSpec, w: Optional[torch.Tensor] = None) -> str:
+    """The kernel a CUDA call with this cell and this W launches:
+    ``"mma"`` (the gate product on the int8 tensor cores) where the spec's
+    codes fit int8 and the sum cannot wrap
     (:func:`~repro_torch.kernels.lstm_cell_int.kernel.mma_takes`; Table I
-    and every 8-bit cell of the repo's designs), ``"simt"`` (int32 on the
-    CUDA cores, exact for any codes) for the rest."""
-    return "mma" if mma_takes(spec) else "simt"
+    and every 8-bit cell of the repo's designs) and ``w`` holds
+    ``spec.w_fmt`` codes, ``"simt"`` (int32 on the CUDA cores, exact for
+    any codes) for the rest. A W outside its format (an SEU model's flipped
+    bit) is a routing rule between the two kernels, counted under
+    ``launches_by_variant["simt"]``: nothing falls back to the plain
+    version. W's range is read once per version of the tensor
+    (:func:`~repro_torch.kernels.lstm_cell_int.kernel.check_w_codes`),
+    which syncs; without ``w`` the answer is the spec's alone."""
+    if not mma_takes(spec):
+        return "simt"
+    return "mma" if w is None or check_w_codes(w, spec) else "simt"
 
 
 def _check(x, w, b, sig_table, tanh_table, spec: CellSpec) -> None:
@@ -63,10 +74,10 @@ def lstm_window_int(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
                     *, spec: CellSpec) -> torch.Tensor:
     """(B,S,d_in) int codes × fused int gate weights -> (B, S, hidden) int32.
 
-    x holds ``spec.act_fmt`` codes and w ``spec.w_fmt`` codes (the
-    emulator's are so by construction). One kernel launch per window batch
-    on a CUDA tensor, the one :func:`variant` names; the plain version on a
-    CPU tensor; the empty result on a ``meta`` tensor.
+    x holds ``spec.act_fmt`` codes; w holds any int32 codes. One kernel
+    launch per window batch on a CUDA tensor, the one :func:`variant` names
+    for this spec and this w; the plain version on a CPU tensor; the empty
+    result on a ``meta`` tensor.
     """
     global launches
     _check(x, w, b, sig_table, tanh_table, spec)
@@ -79,7 +90,7 @@ def lstm_window_int(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
         raise ValueError(f"lstm_window_int: no kernel for device {x.device}")
     out = torch.empty((x.shape[0], spec.seq_len, spec.hidden),
                       dtype=torch.int32, device=x.device)
-    name = variant(spec)
+    name = variant(spec, w)
     with torch.cuda.device(x.device):
         lstm_window_int_cuda(x, w, b, sig_table, tanh_table, out, spec=spec,
                              variant=name)

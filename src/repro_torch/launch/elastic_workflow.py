@@ -21,8 +21,13 @@ the design while its cycle schedule provides the measurement. Whatever the
 target, the script finishes by "pressing the button" — translating the
 final design to RTL artifacts (written to ``--build-dir`` when given).
 
-The chaos scenario (``--chaos``) waits for the resilience layer (ROADMAP
-A9).
+``--chaos PLAN_JSON`` (with ``--target rtl``) then runs a scripted chaos
+scenario against that final RTL deployment: the fault plan is injected
+under a guarded wrapper (canary, breaker, RTL→host fallback) and scored on
+the golden vectors; ``resilience.json`` lands in the ``--build-dir``
+bundle, and the run exits non-zero unless the fault is detected and
+traffic recovers with no corrupted answer after detection. ``--trace``
+captures the whole run (spans and metrics, ``repro_torch.obs.capture``).
 """
 from __future__ import annotations
 
@@ -40,7 +45,7 @@ from repro_torch.core.creator import Creator
 from repro_torch.core.report import DesignReport
 from repro_torch.core.target import get_target, list_targets
 from repro_torch.core.types import shape_table_for, shapes_for
-from repro_torch.core.workflow import Requirement, Workflow
+from repro_torch.core.workflow import Requirement, Workflow, chaos_fallback
 from repro_torch.data.pipeline import (SensorConfig, TrafficConfig,
                                        sensor_window_batch,
                                        traffic_flow_batch)
@@ -224,6 +229,28 @@ def _stepper(creator: Creator, arch: str, knobs=None):
     return creator.build(cfg, shape_table_for(cfg)[shapes_for(cfg)[0]])
 
 
+def chaos_spec(plan_path: str):
+    """The launcher's chaos scenario: the plan at ``plan_path``, 24
+    requests, the plan's seed and the reference launcher's guard policy."""
+    from repro_torch.resilience import ChaosSpec, FaultPlan, GuardPolicy
+
+    plan = FaultPlan.load(plan_path)
+    return ChaosSpec(plan=plan, n_requests=24, seed=plan.seed,
+                     policy=GuardPolicy(timeout_s=0.25, max_retries=2,
+                                        breaker_threshold=3,
+                                        canary_every=4))
+
+
+def run_chaos_stage(dep, plan_path: str):
+    """:func:`chaos_spec` against the final RTL deployment ``dep``, with
+    the float oracle of its graph as the ``"xla"`` fallback on its
+    device."""
+    from repro_torch.resilience import run_chaos
+
+    return run_chaos(dep, chaos_spec(plan_path),
+                     fallback=chaos_fallback(dep, XC7S15))
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--target", "--backend", dest="target",
@@ -244,9 +271,12 @@ def main(argv=None) -> int:
                     help="write the final RTL artifact bundle here "
                          "(<build-dir>/<arch>/)")
     ap.add_argument("--trace", default=None, metavar="PATH",
-                    help="record every span of the run and write them as "
-                         "Chrome trace-event JSON here (Perfetto, "
-                         "chrome://tracing)")
+                    help="capture the whole run (spans + metrics) and write "
+                         "Chrome trace-event JSON here — open it in Perfetto "
+                         "or chrome://tracing; the full RunTrace bundle "
+                         "(trace.jsonl, metrics.json, summary.txt) lands "
+                         "next to it, and a copy goes into the --build-dir "
+                         "bundle when given")
     ap.add_argument("--verify", action="store_true",
                     help="run the Elastic Node conformance stage: "
                          "Deployment.verify after every loop measurement, "
@@ -254,21 +284,28 @@ def main(argv=None) -> int:
                          "for the final RTL design (reports land in "
                          "<build-dir>/<arch>/ when given)")
     ap.add_argument("--chaos", default=None, metavar="PLAN_JSON",
-                    help="scripted chaos scenario: needs the resilience "
-                         "layer (ROADMAP A9), not ported yet")
+                    help="run a scripted chaos scenario against the final "
+                         "RTL deployment: the FaultPlan JSON is injected "
+                         "under a guarded wrapper (canary + breaker + "
+                         "RTL->host fallback) and scored on the golden "
+                         "vectors; exits non-zero unless the fault is "
+                         "detected and traffic recovers with zero "
+                         "post-detection corruption (resilience.json "
+                         "lands in <build-dir>/<arch>/ when given); "
+                         "see examples/chaos_plan.json")
     args = ap.parse_args(argv)
-    if args.chaos:
-        ap.error("--chaos needs the resilience layer (ROADMAP A9), not "
-                 "ported yet")
+    if args.chaos and args.target != "rtl":
+        ap.error("--chaos models SEUs in the generated accelerator; "
+                 "use --target rtl")
     arch = ARCH_ALIASES.get(args.arch, args.arch)
     dev = resolve_device(args.device)
 
-    tracer = prev_tracer = None
+    cap = None
     if args.trace:
-        from repro_torch.obs import Tracer, set_tracer
+        from repro_torch.obs import capture
 
-        tracer = Tracer()
-        prev_tracer = set_tracer(tracer)
+        cap = capture(f"elastic-workflow[{arch}:{args.target}]")
+        cap.__enter__()                  # closed (and written) at the end
 
     cfg = get_config(arch)
     wf = build_workflow(arch, device=dev, verify=args.verify,
@@ -333,16 +370,38 @@ def main(argv=None) -> int:
         if not rep.passed:
             raise SystemExit("conformance FAILED — see report above")
 
-    # --- write the recorded spans ---------------------------------------- #
-    if tracer is not None:
-        from repro_torch.obs import set_tracer, to_chrome_trace
+    # --- scripted chaos: fault-inject the deployed accelerator ----------- #
+    if args.chaos:
+        resil = run_chaos_stage(dep, args.chaos)
+        print(f"\n{resil.summary()}")
+        for f in resil.faults_injected:
+            print(f"  injected: {f}")
+        for d in resil.faults_detected:
+            print(f"  detected: {d}")
+        if out is not None:
+            resil.save(os.path.join(out, "resilience.json"))
+            print(f"ResilienceReport written to {out}/resilience.json")
+        if not resil.passed:
+            raise SystemExit(
+                "chaos scenario FAILED: detected="
+                f"{resil.detected} recovered={resil.recovered} "
+                "corrupted_after_detection="
+                f"{resil.corrupted_after_detection}")
 
-        set_tracer(prev_tracer)
-        with open(args.trace, "w") as f:
-            json.dump(to_chrome_trace(tracer.spans), f, indent=2,
-                      sort_keys=True)
-        print(f"\n{len(tracer.spans)} spans written to {args.trace} as "
-              "Chrome trace-event JSON")
+    # --- write the captured trace ---------------------------------------- #
+    if cap is not None:
+        cap.__exit__(None, None, None)
+        rt = cap.trace
+        trace_path = os.path.abspath(args.trace)
+        paths = rt.save(os.path.dirname(trace_path) or ".")
+        if trace_path != paths["trace.json"]:    # honor a custom filename
+            with open(trace_path, "w") as f:
+                json.dump(rt.chrome(), f, indent=2, sort_keys=True)
+        if out is not None:                      # copy into the RTL bundle
+            rt.save(out)
+        print(f"\n{rt.summary()}")
+        print(f"\nChrome trace written to {args.trace} "
+              "(open in Perfetto / chrome://tracing)")
     return 0
 
 

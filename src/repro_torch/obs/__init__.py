@@ -1,12 +1,19 @@
 """Spans, counters, gauges and latency histograms (the port's own copy of
-``repro/obs/trace.py`` and ``repro/obs/metrics.py``, which import no JAX).
+``repro/obs``, which imports no JAX):
 
-The ``RunTrace`` artifact and ``capture`` of ``repro/obs/export.py`` wait
-for the operations slice (ROADMAP A9); a caller records spans by installing
-a ``Tracer`` with ``set_tracer``. Metric namespaces used so far:
-``server.*`` (the batched LM server), ``rtl.emulator.dispatch.<mode>``
-(emulator runs) and ``measure.latency_s.rtl`` (``RTLExecutable.measure``).
+* :mod:`repro_torch.obs.trace`   — nested spans on an injectable clock, a
+  process-default :class:`Tracer` that is a no-op until enabled, Chrome
+  trace-event JSON and JSONL exporters;
+* :mod:`repro_torch.obs.metrics` — counters, gauges, histograms;
+* :mod:`repro_torch.obs.export`  — the :class:`RunTrace` artifact and
+  :class:`capture`, which scopes an enabled tracer and a fresh registry to
+  a ``with`` body.
+
+Metric namespaces: ``rtl.*`` (emulator), ``measure.*``
+(``Deployment.measure``), ``resilience.*`` (guards, fault injection),
+``server.*`` (the batched LM server) and ``serving.*`` (the farm).
 """
+from repro_torch.obs.export import RunTrace, capture  # noqa: F401
 from repro_torch.obs.metrics import (Counter, Gauge, Histogram,  # noqa: F401
                                      MetricsRegistry, get_metrics,
                                      percentile, set_metrics)

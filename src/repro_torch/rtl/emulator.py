@@ -49,6 +49,16 @@ mode=None, max_programs=8, programs=None, *, device=None)``, where a false
 ``"cuda"``, and a host without CUDA raises. On ``device="cpu"`` the
 kernels' wrappers run their plain versions.
 
+The prepared array constants are also the design's memories (BRAM and
+ROM): :meth:`RTLEmulator.flip_bit` models a single-event upset in one of
+them (:mod:`repro_torch.resilience`). A flipped W of an ``lstm_cell`` may
+leave its ``w_fmt`` codes, which B1's ``mma`` kernel cannot take: each
+cell's B1 variant is read from its own W
+(:func:`repro_torch.kernels.lstm_cell_int.ops.variant`) outside any
+capture and is part of the program key, so no replay loads a W into an
+``mma`` program that was not cleared for it. Isomorphic siblings that
+share a ``ProgramLRU`` share a program only where their variants agree.
+
 Each run counts ``rtl.emulator.dispatch.<mode>`` and the program cache's
 ``rtl.emulator.cache_{hit,miss,evict}`` in the metrics registry and, when
 a tracer is enabled, records an ``rtl.emulator.dispatch`` span, as the
@@ -188,12 +198,12 @@ class RTLEmulator:
         # names this emulator's params to a program's buffers (with their
         # tensors' versions: see _operands)
         self._params_token = object()
-        if self.device.type == "cuda":
-            self._check_codes()
+        self._b1_variants: tuple = ()
+        self._check_codes()
         # ---- compiled-program cache ---------------------------------------
-        # (iso_key, mode, device, shape, dtype) -> program. Per-instance by
-        # default; pass a shared ProgramLRU to let isomorphic emulators
-        # reuse each other's programs (DESIGN.md §15).
+        # (iso_key, B1 variants, mode, device, shape, dtype) -> program.
+        # Per-instance by default; pass a shared ProgramLRU to let
+        # isomorphic emulators reuse each other's programs (DESIGN.md §15).
         self._programs = programs if programs is not None \
             else ProgramLRU(max_programs)
         self._max_programs = self._programs.max_programs
@@ -205,26 +215,26 @@ class RTLEmulator:
         self.cache_misses = 0
         self.cache_evictions = 0
         self.dispatch_counts: Dict[str, int] = {}
+        self.seu_flips = 0               # flip_bit calls (the SEU model)
         # pooled serving calls run_many from worker threads; the program
-        # cache locks itself (ProgramLRU), each program locks its buffers,
-        # and this lock covers the dispatch counts
-        self._lock = threading.Lock()
+        # cache locks itself (ProgramLRU) and each program its buffers.
+        # This lock covers a run from its program key to its replay, the
+        # dispatch counts, and flip_bit's write and clear: a flip never
+        # lands between a run's variant check and its params' load.
+        self._lock = threading.RLock()
 
     def _check_codes(self) -> None:
-        """B1's ``mma`` kernel needs W codes of ``w_fmt``; its launcher
-        checks a W once per tensor version with a sync, which a capture
-        cannot hold and a replay never reaches. So each design's own
-        prepared W is checked here, outside any capture (once per version
-        of the tensor: the launcher's check caches its answer): a replay
-        that loads these params into a program's buffers loads checked
-        codes."""
-        from repro_torch.kernels.lstm_cell_int.kernel import check_w_codes
+        """Read each ``lstm_cell``'s B1 variant from its own prepared W:
+        ``mma`` only for W codes of ``w_fmt``. Reading a W's range syncs,
+        which a capture cannot hold and a replay never reaches, so it is
+        read here, before any program is looked up, once per version of
+        the tensor (the check caches its answer); the variants go into the
+        program key."""
         from repro_torch.kernels.lstm_cell_int.ops import variant
 
-        for n in self.graph.nodes:
-            spec = self._static[n.name].get("spec")
-            if n.op == "lstm_cell" and variant(spec) == "mma":
-                check_w_codes(self._prep[n.name]["w"], spec)
+        self._b1_variants = tuple(
+            variant(self._static[n.name]["spec"], self._prep[n.name]["w"])
+            for n in self.graph.nodes if n.op == "lstm_cell")
 
     # -- execution context handed to the templates ---------------------------
     def prepared(self, name: str) -> Dict:
@@ -248,13 +258,11 @@ class RTLEmulator:
         """``(params, token)`` of a program call. The token names these
         params and their tensors' versions, so a program's buffers are
         reloaded when the params were written in place since (a canary
-        test's planted fault, an SEU model's flipped bit); on CUDA the new
-        W codes are checked first."""
+        test's planted fault, an SEU model's flipped bit); the program was
+        looked up by the B1 variants those params were checked for."""
         params = self.params()
         versions = tuple(t._version for arrays in params.values()
                          for t in arrays.values())
-        if self.device.type == "cuda":
-            self._check_codes()
         return params, (self._params_token, versions)
 
     # -- graph walk ----------------------------------------------------------
@@ -270,9 +278,11 @@ class RTLEmulator:
 
     def _cache_key(self, shape, dtype):
         # keyed on everything the program depends on besides its operands:
-        # the design's isomorphism class, execution mode, the device (in
-        # the place of the reference's Pallas interpret flag) and the input
-        return (self.iso_key, self.mode, str(self.device),
+        # the design's isomorphism class, the B1 variants of a fused walk
+        # (see _check_codes), execution mode, the device (in the place of
+        # the reference's Pallas interpret flag) and the input
+        b1 = self._b1_variants if self.mode == "fused" else ()
+        return (self.iso_key, b1, self.mode, str(self.device),
                 tuple(int(d) for d in shape), dtype_name(dtype))
 
     def _program(self, x_int: torch.Tensor):
@@ -288,6 +298,7 @@ class RTLEmulator:
         """
         mx = get_metrics()
         built = {}
+        self._check_codes()
 
         def build():
             self.trace_count += 1
@@ -331,6 +342,50 @@ class RTLEmulator:
                     "retraces": self.trace_count,
                     "dispatches": dict(self.dispatch_counts)}
 
+    # -- SEU model (repro_torch.resilience): the prepared device constants
+    # -- are the design's BRAM/ROM memories; flipping one bit of one word
+    # -- models a single-event upset in the flashed accelerator. ----------
+    def memories(self) -> List[tuple]:
+        """Addressable (node, key) pairs: every sized array constant a
+        fault plan may target — weights, biases, LUT tables — in the
+        reference's order (nodes, then keys, sorted)."""
+        return [(name, key) for name in sorted(self._prep)
+                for key in self._param_keys[name]
+                if self._prep[name][key].numel() > 0]
+
+    def flip_bit(self, node: str, key: str, word: int, bit: int) -> int:
+        """Flip ``bit`` of flat ``word`` (modulo the memory's size) in
+        memory ``node.key``; returns the corrupted word's new int32 value.
+
+        The XOR is done in place on the device tensor, which bumps its
+        version: the next run reloads a program's params and reads B1's W
+        range again (an ``lstm_cell`` whose W left ``w_fmt`` goes to
+        ``simt``). The programs are still dropped, as the reference drops
+        its compiled ones: a bitstream rewrite under a running design drops
+        its loaded configuration, and with a shared ProgramLRU no
+        isomorphic sibling replays a program built before the fault. A
+        program a thread is replaying stays alive until that replay
+        returns. Silent by construction: no error is raised, later outputs
+        are simply wrong, and only a golden-vector canary can tell.
+        """
+        if not 0 <= bit <= 31:
+            raise ValueError(f"bit must be in [0, 31], got {bit}")
+        if node not in self._prep or key not in self._param_keys[node]:
+            raise KeyError(f"no prepared memory {node!r}.{key!r}; see "
+                           "memories()")
+        flat = self._prep[node][key].view(-1)
+        w = int(word) % flat.numel()
+        # bit 31 is the int32 sign bit: its mask is -2^31 as an int32
+        mask = -(1 << 31) if bit == 31 else 1 << bit
+        with self._lock:
+            flat[w:w + 1].bitwise_xor_(mask)
+            new = int(flat[w])
+            self._check_codes()
+            self._programs.clear()       # rebuild on the corrupted memory
+            self.seu_flips += 1
+        get_metrics().counter("rtl.emulator.seu_flips").inc()
+        return new
+
     def _result(self, env: Dict[str, torch.Tensor]) -> EmulationResult:
         out_edge = self.graph.edges[self.graph.outputs[0]]
         y = env[self.graph.outputs[0]]
@@ -350,18 +405,19 @@ class RTLEmulator:
 
     def run_int(self, x_int) -> EmulationResult:
         x_int = self._as_int(x_int)
-        prog, hit, first = self._program(x_int)
-        self._count_dispatch(self.mode)
-        trc = get_tracer()
-        if trc.enabled:                      # hoisted guard: skip the attrs
-            with trc.span("rtl.emulator.dispatch", mode=self.mode,
-                          shape=str(tuple(x_int.shape)), cached=hit,
-                          design=self.graph.name):
+        with self._lock:
+            prog, hit, first = self._program(x_int)
+            self._count_dispatch(self.mode)
+            trc = get_tracer()
+            if trc.enabled:                  # hoisted guard: skip the attrs
+                with trc.span("rtl.emulator.dispatch", mode=self.mode,
+                              shape=str(tuple(x_int.shape)), cached=hit,
+                              design=self.graph.name):
+                    env = first if first is not None else \
+                        prog(x_int, *self._operands())
+            else:
                 env = first if first is not None else \
                     prog(x_int, *self._operands())
-        else:
-            env = first if first is not None else \
-                prog(x_int, *self._operands())
         return self._result(env)
 
     def _quantize(self, x) -> torch.Tensor:

@@ -1,1 +1,5 @@
-"""Runtimes of the port: the batched LM server (``server.py``)."""
+"""Runtimes of the port: the batched LM server (``server.py``) and the
+failure injector that tests fault tolerance without a cluster
+(``failures.py``)."""
+from repro_torch.runtime.failures import (  # noqa: F401
+    FailureInjector, PreemptionError, StragglerWarning)

@@ -100,7 +100,7 @@ def graph_error_budget_lsb(graph) -> int:
 
 
 @contextlib.contextmanager
-def _exact_f32_matmul():
+def exact_f32_matmul():
     """f32 matmuls in full precision for the scope, whatever the process's
     TF32 setting: the oracle's ``src @ wq`` and ``einsum`` are exact only
     in IEEE f32 (the §4 envelope keeps every accumulator below 2**24),
@@ -123,7 +123,7 @@ def oracle_codes(graph, stimulus_f: np.ndarray, *,
     from repro_torch.rtl.emulator import reference_apply
 
     fmt = graph.edges[graph.outputs[0]].fmt
-    with _exact_f32_matmul():
+    with exact_f32_matmul():
         ref = reference_apply(graph, np.asarray(stimulus_f, np.float32),
                               device=device)
         codes = torch.round(ref * fmt.scale)

@@ -170,18 +170,28 @@ def test_lstm_window_extreme_codes(cuda, x_fill, w_fill, rom_fill, din,
 
 
 def test_lstm_mma_refuses_w_outside_its_format_on_card(cuda):
-    """A W code outside w_fmt is a ValueError from the wrapper, not a
-    kernel trap: nothing is launched and the context stays usable."""
+    """A W code outside w_fmt never reaches the mma kernel: the mma
+    launcher refuses it with a ValueError (nothing is launched, no trap),
+    and the wrapper routes it to simt, which equals the plain version; the
+    context stays usable."""
     rng = np.random.default_rng(5)
     spec, args = _b1_case(rng, 40, 6, 1, 20, A, W, C, cuda)
     bad = args[1].clone()
     bad[0, 0] = W.hi + 1
+    out = torch.empty((40, 6, 20), dtype=torch.int32, device=cuda)
     before = lstm_ops.launches
     with pytest.raises(ValueError, match="outside"):
-        lstm_window_int(args[0], bad, *args[2:], spec=spec)
+        lstm_window_int_cuda(args[0], bad, *args[2:], out, spec=spec,
+                             variant="mma")
     assert lstm_ops.launches == before
+    simt = lstm_ops.launches_by_variant["simt"]
+    assert torch.equal(lstm_window_int(args[0], bad, *args[2:], spec=spec),
+                       lstm_window_int_ref(args[0], bad, *args[2:],
+                                           spec=spec))
+    assert lstm_ops.launches_by_variant["simt"] == simt + 1
     assert torch.equal(lstm_window_int(*args, spec=spec),
                        lstm_window_int_ref(*args, spec=spec))
+    torch.cuda.synchronize()
 
 
 @pytest.mark.parametrize("variant", ["mma", "simt"])
@@ -1467,3 +1477,264 @@ def test_one_program_serves_8_threads_on_the_card(cuda):
         sys.setswitchinterval(interval)
     assert not any(t.is_alive() for t in threads)
     assert errors == [] and em.trace_count == 1
+
+
+# --------------------------------------------------------------------------- #
+# The resilience layer on the card: B1 after a flipped W (a bit of a word
+# leaves w_fmt), replays after flips, an SEU sweep and the acceptance
+# scenario
+# --------------------------------------------------------------------------- #
+
+
+def _b1_by_variant():
+    return dict(lstm_ops.launches_by_variant)
+
+
+def _grew(before):
+    return {k: lstm_ops.launches_by_variant[k] - before[k] for k in before}
+
+
+def test_b1_with_table_i_w_flipped_at_bit_7_equals_plain(cuda):
+    """Table I's cell with W word 0 set to ``w0 ^ 128`` (outside Q8.6):
+    the wrapper launches simt and equals the plain version; restored, it
+    launches mma again."""
+    graph, _, _ = tvec.canonical_graph("elastic-lstm")
+    em = RTLEmulator(graph, device=cuda)
+    p = em.prepared("lstm_cell_l0")
+    luts = (em.prepared("hard_sigmoid_lut")["table"],
+            em.prepared("hard_tanh_lut")["table"])
+    x = _codes(np.random.default_rng(11), A, (4096, 6, 1), cuda)
+    w = p["w"].clone()
+    w0 = int(w.view(-1)[0])
+    w.view(-1)[0] = w0 ^ 128
+    args = (x, w, p["b"], *luts)
+    before = _b1_by_variant()
+    got = lstm_window_int(*args, spec=p["spec"])
+    assert _grew(before) == {"mma": 0, "simt": 1}
+    assert torch.equal(got, lstm_window_int_ref(*args, spec=p["spec"]))
+    w.view(-1)[0] = w0
+    before = _b1_by_variant()
+    assert torch.equal(lstm_window_int(*args, spec=p["spec"]),
+                       lstm_window_int_ref(*args, spec=p["spec"]))
+    assert _grew(before) == {"mma": 1, "simt": 0}
+    torch.cuda.synchronize()
+
+
+def test_replay_after_a_flip_matches_the_jnp_walk(cuda):
+    """A flip drops the programs; the next run builds one for the cell's
+    new variant (simt) and its replays equal the jnp walk flipped the same
+    way; the second flip restores mma and the first answers."""
+    graph, _, _ = tvec.canonical_graph("elastic-lstm")
+    em = RTLEmulator(graph, device=cuda)
+    plain = RTLEmulator(graph, mode="jnp", device=cuda)
+    x = _codes(np.random.default_rng(12), A, (5000, 6, 1), cuda)
+    base = em.run_int(x).outputs.clone()
+    for step, want_variant in ((1, "simt"), (2, "mma")):
+        em.flip_bit("lstm_cell_l0", "w", 0, 7)
+        plain.flip_bit("lstm_cell_l0", "w", 0, 7)
+        assert em._b1_variants == (want_variant,)
+        want = plain.run_int_per_step(x).outputs
+        em.run_int(x)                                  # builds
+        before = _b1_by_variant()
+        got = em.run_int(x).outputs                    # replays
+        torch.cuda.synchronize()
+        assert _grew(before) == {"mma": int(want_variant == "mma"),
+                                 "simt": int(want_variant == "simt")}
+        assert torch.equal(got, want)
+        assert torch.equal(got, base) == (step == 2)
+    assert em.trace_count == 3 and em.seu_flips == 2
+
+
+def test_siblings_sharing_an_lru_with_one_flipped_on_card(cuda):
+    """No replay loads a W outside w_fmt into an mma program: a flipped
+    sibling gets its own (simt) program, and both stay bit-exact."""
+    from repro_torch.rtl.program_cache import ProgramLRU
+
+    lru = ProgramLRU(4)
+    graphs = [tvec.canonical_graph("elastic-lstm", seed=s)[0]
+              for s in (0, 1)]
+    ems = [RTLEmulator(g, programs=lru, device=cuda) for g in graphs]
+    plains = [RTLEmulator(g, mode="jnp", device=cuda) for g in graphs]
+    x = _codes(np.random.default_rng(13), A, (777, 6, 1), cuda)
+    for em in ems:
+        em.run_int(x)
+    ems[1].flip_bit("lstm_cell_l0", "w", 0, 7)
+    plains[1].flip_bit("lstm_cell_l0", "w", 0, 7)
+    for _ in range(2):
+        for em, plain in zip(ems, plains):
+            assert torch.equal(em.run_int(x).outputs,
+                               plain.run_int_per_step(x).outputs)
+    torch.cuda.synchronize()
+    assert lru.stats()["misses"] == 3 and len(lru) == 2
+
+
+SEU_BITS = (0, 7, 15, 30, 31)
+
+
+@pytest.mark.parametrize("arch", ["elastic-lstm", "elastic-lstm-q12",
+                                  "elastic-conv1d"])
+def test_seu_sweep_on_card(cuda, arch):
+    """Every memory, bits 0/7/15/30/31 of a seeded word, 4,096 windows:
+    the fused walk (kernels, CUDA Graph replays) equals the card's jnp
+    walk and, on the first 1,024 windows, a CPU emulator flipped the same
+    way; B1 goes simt exactly while a W word is outside w_fmt; the card
+    ends with a clean synchronize (no trap)."""
+    kw = dict(act_fmt=FxpFormat(12, 6), state_fmt=FxpFormat(12, 8)) \
+        if arch.endswith("q12") else {}
+    graph, _, _ = tvec.canonical_graph(arch.replace("-q12", ""), **kw)
+    fused = RTLEmulator(graph, device=cuda)
+    plain = RTLEmulator(graph, mode="jnp", device=cuda)
+    host = RTLEmulator(graph, device="cpu")
+    fmt = graph.edges[graph.inputs[0]].fmt
+    x = _codes(np.random.default_rng(14), fmt,
+               (4096, *graph.edges[graph.inputs[0]].shape), cuda)
+    base = fused.run_int(x).outputs.clone()
+    rng = np.random.default_rng(15)
+    for node, key in fused.memories():
+        word = int(rng.integers(fused.prepared(node)[key].numel()))
+        for bit in SEU_BITS:
+            new = fused.flip_bit(node, key, word, bit)
+            assert plain.flip_bit(node, key, word, bit) == new
+            assert host.flip_bit(node, key, word, bit) == new
+            spec = fused.prepared(node).get("spec")
+            if key == "w" and spec is not None:
+                fmt_w = spec.w_fmt
+                outside = not fmt_w.lo <= new <= fmt_w.hi
+                mma = lstm_ops.variant(spec) == "mma"
+                assert fused._b1_variants == (
+                    ("simt" if outside or not mma else "mma"),)
+            got = fused.run_int(x).outputs
+            assert torch.equal(got, plain.run_int(x).outputs), \
+                (node, key, bit)
+            assert torch.equal(got[:1024].cpu(),
+                               host.run_int(x[:1024].cpu()).outputs)
+            for em in (fused, plain, host):
+                em.flip_bit(node, key, word, bit)
+    assert torch.equal(fused.run_int(x).outputs, base)
+    torch.cuda.synchronize()
+
+
+def test_acceptance_scenario_on_card_equals_the_cpus(cuda):
+    """examples/chaos_plan.json, 24 requests, seed 7, the reference test's
+    guard policy, the float-oracle "xla" fallback on the card: the
+    scenario passes, and its JSON equals the CPU's byte for byte."""
+    from repro_torch.core.workflow import chaos_fallback
+    from repro_torch.energy.hw import XC7S15
+    from repro_torch.resilience import (ChaosSpec, FaultPlan, GuardPolicy,
+                                        run_chaos)
+    from repro_torch.rtl.backend import RTLExecutable
+
+    plan = os.path.join(os.path.dirname(os.path.dirname(__file__)),
+                        "examples", "chaos_plan.json")
+    graph, _, _ = tvec.canonical_graph("elastic-lstm")
+    texts = []
+    for device in (cuda, "cpu"):
+        dep = RTLExecutable(graph=graph, artifacts={}, hw=XC7S15,
+                            device=device)
+        spec = ChaosSpec(plan=FaultPlan.load(plan), n_requests=24, seed=7,
+                         policy=GuardPolicy(timeout_s=0.25, max_retries=2,
+                                            breaker_threshold=3,
+                                            canary_every=4))
+        rep = run_chaos(dep, spec, fallback=chaos_fallback(dep, XC7S15))
+        assert rep.passed and rep.requests_lost == 0, rep.summary()
+        texts.append(rep.to_json())
+    assert texts[0] == texts[1]
+    torch.cuda.synchronize()
+
+
+def test_guarded_farm_on_card_routes_around_the_flipped_replica(cuda):
+    """Two guarded replicas with a canary; the busy one is flipped
+    mid-pass: its canary quarantines it, the router sends it nothing after
+    that, nothing fails, and the answers after detection equal per-request
+    jnp runs."""
+    from repro_torch.obs import MetricsRegistry
+    from repro_torch.resilience import GuardedDeployment, GuardPolicy
+    from repro_torch.rtl.backend import RTLExecutable
+    from repro_torch.serving import (AcceleratorFarm, DesignPool,
+                                     FarmConfig, pad_window)
+    from repro_torch.energy.hw import XC7S15
+
+    graph, _, _ = tvec.canonical_graph("elastic-lstm")
+    vectors = tvec.generate_vectors(graph, device=cuda)
+    members = [RTLExecutable(graph=graph, artifacts={}, hw=XC7S15,
+                             device=cuda).guarded(
+        canary=vectors, policy=GuardPolicy(canary_every=4, max_retries=0),
+        rng=np.random.default_rng(0), metrics=MetricsRegistry(),
+        name=f"r{i}") for i in range(2)]
+    farm = AcceleratorFarm([DesignPool(family="lstm",
+                                       members={6: members})],
+                           FarmConfig(max_batch=8))
+    rng = np.random.default_rng(16)
+    rids = []
+    for wave in range(8):
+        rids += [farm.submit("lstm", rng.standard_normal(
+            (int(t), 1)).astype(np.float32))
+            for t in rng.integers(1, 7, size=32)]
+        if wave == 2:
+            busy = max(range(2), key=lambda i: members[i].calls)
+            members[busy].emulator.flip_bit("lstm_cell_l0", "w", 0, 7)
+        farm.tick(flush=True)
+    st = farm.run_until_drained()
+    assert st.failed == 0 and st.admitted == st.done + st.expired
+    assert members[busy].quarantined and not members[1 - busy].quarantined
+    calls_at = members[busy].detections[0]["call"]
+    assert members[busy].calls == calls_at
+    plain = RTLEmulator(graph, mode="jnp", device=cuda)
+    late = [farm.result(r) for r in rids[4 * 32:]]
+    for req in late:
+        assert req.member == 1 - busy
+        solo = plain.run(pad_window(req.window, 6)[None])
+        assert np.array_equal(req.result, solo.outputs_f.cpu().numpy()[0])
+    torch.cuda.synchronize()
+
+
+def test_flips_under_concurrent_replays_on_card(cuda):
+    """Threads replay one emulator's program while another flips W's bit
+    7 back and forth (mma <-> simt): every answer is the unflipped or the
+    flipped design's, nothing raises, and the card synchronises clean (no
+    replay loaded a flipped W into an mma program)."""
+    import sys
+    import threading
+
+    graph, _, _ = tvec.canonical_graph("elastic-lstm")
+    em = RTLEmulator(graph, device=cuda)
+    x = _codes(np.random.default_rng(17), A, (4096, 6, 1), cuda)
+    want = [em.run_int(x).outputs.clone()]
+    em.flip_bit("lstm_cell_l0", "w", 0, 7)
+    want.append(em.run_int(x).outputs.clone())
+    em.flip_bit("lstm_cell_l0", "w", 0, 7)
+    bad, errors, stop = [], [], threading.Event()
+
+    def run():
+        try:
+            while not stop.is_set():
+                got = em.run_int(x).outputs
+                if not any(torch.equal(got, w) for w in want):
+                    bad.append(got.cpu())
+        except Exception as e:           # noqa: BLE001 - reported below
+            errors.append(e)
+
+    def flip():
+        try:
+            for _ in range(40):
+                em.flip_bit("lstm_cell_l0", "w", 0, 7)
+        except Exception as e:           # noqa: BLE001 - reported below
+            errors.append(e)
+
+    prev = sys.getswitchinterval()
+    sys.setswitchinterval(1e-5)
+    try:
+        runners = [threading.Thread(target=run) for _ in range(6)]
+        flipper = threading.Thread(target=flip)
+        for t in runners + [flipper]:
+            t.start()
+        flipper.join(timeout=120)
+        stop.set()
+        for t in runners:
+            t.join(timeout=120)
+    finally:
+        sys.setswitchinterval(prev)
+    torch.cuda.synchronize()
+    assert not flipper.is_alive() and not any(t.is_alive() for t in runners)
+    assert errors == [] and bad == []
+    assert torch.equal(em.run_int(x).outputs, want[0])

@@ -137,18 +137,21 @@ def test_lstm_cuda_launcher_refuses_what_its_variant_cannot_take():
                                          ((6, 4), 32), ((6, 4), -33)])
 def test_lstm_mma_launcher_refuses_w_outside_its_format(w_fmt, code):
     """A W code outside w_fmt would not fit the mma kernel's int8
-    fragments: a ValueError before any library is loaded, also after the
-    same tensor passed once and was then written in place."""
+    fragments: the check says so, also after the same tensor passed once
+    and was then written in place, the wrapper's routing sends such a W to
+    simt, and the mma launcher refuses it with a ValueError before any
+    library is loaded."""
     arrays, _, _ = _lstm_case(LSTM_SHAPES[0])
     spec = _spec(w=w_fmt)
     fmt = spec.w_fmt
     x, w, b, sig, tanh = (torch.from_numpy(a) for a in arrays)
     w = w.clamp(fmt.lo, fmt.hi)
     out = torch.empty((1, 6, 20), dtype=torch.int32)
-    kernel_mod.check_w_codes(w, spec)                 # in range: passes
+    assert kernel_mod.check_w_codes(w, spec)          # in range
+    assert variant(spec, w) == "mma"
     w[3, 7] = code
-    with pytest.raises(ValueError, match="outside"):
-        kernel_mod.check_w_codes(w, spec)
+    assert not kernel_mod.check_w_codes(w, spec)
+    assert variant(spec, w) == "simt"
     with pytest.raises(ValueError, match="outside"):
         lstm_window_int_cuda(x, w, b, sig, tanh, out, spec=spec,
                              variant="mma")

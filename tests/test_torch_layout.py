@@ -54,7 +54,10 @@ def test_importing_the_port_loads_neither_jax_nor_repro():
             "repro_torch.serving.queue, repro_torch.serving.batcher, "
             "repro_torch.serving.router, repro_torch.serving.farm, "
             "repro_torch.serving.pool, repro_torch.serving.shard, "
-            "repro_torch.serving.loadgen; "
+            "repro_torch.serving.loadgen, repro_torch.resilience, "
+            "repro_torch.resilience.faults, repro_torch.resilience.guard, "
+            "repro_torch.resilience.chaos, repro_torch.obs.export, "
+            "repro_torch.runtime.failures; "
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'repro.')) or m == 'repro'); "
             "assert not bad, bad")

@@ -267,11 +267,23 @@ def test_workflow_spellings_and_unported_branches():
             creator=cr, train_fn=None, step_builder=None,
             fmt_builder=lambda k: {"w_fmt": tfxp.FxpFormat(k["bits"], 4)})
     assert wf.target == "xla" and wf.options_from_knobs is None
-    with pytest.raises(NotImplementedError, match="A9"):
-        tworkflow.Workflow(creator=cr, train_fn=None, step_builder=None,
-                           resilience=object())
     _, tp = _init("elastic-lstm")
     rep = treport.DesignReport(**_design("elastic-lstm"))
+    # the chaos stage runs (the resilience layer is ported): a transient
+    # at call 0 is retried, and the report lands on the record
+    from repro_torch.resilience import ChaosSpec, FaultPlan, FaultSpec
+
+    spec = ChaosSpec(plan=FaultPlan(
+        faults=(FaultSpec(kind="transient", at_call=0),)), n_requests=3)
+    wf = tworkflow.Workflow(
+        creator=cr, train_fn=lambda k: (tp, rep, None),
+        step_builder=functools.partial(tew.lstm_step_builder, device="cpu"),
+        stepper_builder=lambda k: cr.build(
+            get_config("elastic-lstm"), ttypes.SHAPES_LSTM["infer_1"]),
+        target="rtl", resilience=spec)
+    resil = wf.run_once(KNOBS).resilience
+    assert resil.n_requests == 3 and resil.retries == 1
+    assert resil.requests_ok == 3 and resil.requests_lost == 0
     wf = tworkflow.Workflow(
         creator=cr, train_fn=lambda k: (tp, rep, None),
         step_builder=functools.partial(tew.lstm_step_builder, device="cpu"),
