@@ -194,11 +194,43 @@ emulator's memories, guarded deployments, chaos scenarios), on the card:
     mid-pass, its canary quarantines it, the router sends it nothing
     after, no request fails, ``admitted == done + expired``, and 64
     answers after the detection equal per-request ``jnp`` runs;
-19. print the kernels line (B1's and B2's rows also carry the loop's
+LM training (the LM loss, the train step through B5 with its gradient,
+checkpoints, the fault-tolerant ``Trainer`` and ``launch/train.py``):
+
+19. (a) B5's gradient at a StableLM-3B layer (4, 2,048, 32, 80) and a
+    Yi-9B layer (1, 2,048, 32, 128; K/V GQA-repeated), bf16, causal: dq,
+    dk, dv through ``flash_attention`` equal those through
+    ``attention_ref`` bit for bit (its backward is the plain VJP), the
+    forward launched on ``sm90``; forward + backward timed beside the
+    plain version and ``scaled_dot_product_attention``. (b) StableLM-3B at
+    full width and depth (2,795,443,200 parameters, f32 master params,
+    bf16 compute, ``attn_impl="flash"``, seq 2,048, batch 4): the first
+    step's loss and gradient norm from one set of params against
+    ``attn_impl="ref"`` (within sqrt(32) x 2^-7, phase 7's bar), and in
+    f32 at full width and 4 layers (loss within 1e-5, every gradient leaf
+    within 1e-3 relative rms); then ``Trainer`` for 8 steps with every
+    launch count set to 0 just before and read just after: B5 ``sm90``
+    2 x 32 x 8 = 512 times (a forward and a remat recompute a layer a
+    step) and no other kernel; per step the loss, gnorm, lr and host ms;
+    tokens/s, the peak device memory, the whole-step share of peak (6 N D
+    / (989e12 x median step)); one more step under ``torch.profiler``
+    (device busy, B5, the GEMMs, the attention VJP). Then phase 15's
+    third cell: the host target's report of the train step at full width
+    and 4 layers (counts on the card equal to ``meta``'s op for op, B5
+    launched 8 times a call, ``measure``). (c) the reference's recovery
+    scenario on the card (``yi-9b`` smoke, failures at steps 13 and 21:
+    2 recoveries, logged losses equal to a clean run's within 1e-4),
+    ``resume_elastic``, and a bf16 training state written on the card and
+    on the CPU restored onto the card bit for bit. (d)
+    ``launch.train.main(["--arch", "yi-9b", "--steps", "40", "--device",
+    "cuda", ...])`` in process: exit 0, the loss falls;
+20. print the kernels line (B1's and B2's rows also carry the loop's
     launches, ``workflow_launches``, the farm's, ``farm_launches``, one
     multi-design replay's of each design, ``multi_launches``, and phase
     18's, ``resilience_launches``; B5's the host target's,
-    ``host_target_launches``) and the card's name and power limit.
+    ``host_target_launches`` and ``host_target_train_launches``, and the
+    8 training steps', ``train_launches``) and the card's name and power
+    limit.
 
 Usage, from the repository root: ``python3 chip_smoke.py``. Needs one CUDA
 card and ``nvcc``; exits non-zero, printing no result, without them. The
@@ -210,6 +242,7 @@ import collections
 import functools
 import itertools
 import json
+import math
 import os
 import re
 import subprocess
@@ -1545,7 +1578,7 @@ HOST_RUNS, HOST_WARMUP = 20, 2
 
 
 def host_deploy(cfg, params, shape, args_fn, flash_ops, card: str) -> dict:
-    """Phase 15, one Yi-9B cell through the host target: translate (the
+    """Phase 15, one cell through the host target: translate (the
     step counted on ``meta``), the same step counted again on the card's
     tensors (equal counts asserted), one deployed call (B5 launches
     counted), then ``measure`` and one profiled call; prints the report's
@@ -1565,7 +1598,7 @@ def host_deploy(cfg, params, shape, args_fn, flash_ops, card: str) -> dict:
         compute_dtype="bfloat16", attn_impl="flash"))
     syn, dep = cr.translate(st, target="xla", params=params)
     args = args_fn(st)
-    with torch.inference_mode():
+    with torch.inference_mode(shape[1] != "train"):
         on_card = count_step(dep.fn, args)
     keys = ("flops", "bytes_accessed", "argument_bytes", "output_bytes",
             "temp_bytes")
@@ -1581,19 +1614,27 @@ def host_deploy(cfg, params, shape, args_fn, flash_ops, card: str) -> dict:
     out = dep(*args)
     torch.cuda.synchronize()
     per_call = flash_ops.launches
-    logits = out[0]
-    if not torch.isfinite(logits).all() or tuple(logits.shape) != (
-            shape[3], cfg.padded_vocab):
-        raise AssertionError(f"{cfg.name} {shape[0]}: logits "
-                             f"{tuple(logits.shape)}, finite "
-                             f"{bool(torch.isfinite(logits).all())}")
-    want = cfg.n_layers if shape[1] == "prefill" else 0
+    if shape[1] == "train":              # (params', opt_state', metrics)
+        if not torch.isfinite(out[2]["loss"]):
+            raise AssertionError(f"{cfg.name} {shape[0]}: loss "
+                                 f"{float(out[2]['loss'])}")
+    else:
+        logits = out[0]
+        if not torch.isfinite(logits).all() or tuple(logits.shape) != (
+                shape[3], cfg.padded_vocab):
+            raise AssertionError(f"{cfg.name} {shape[0]}: logits "
+                                 f"{tuple(logits.shape)}, finite "
+                                 f"{bool(torch.isfinite(logits).all())}")
+    # a train step runs each layer's attention forward twice: the forward
+    # and its remat recompute in the backward
+    want = {"prefill": cfg.n_layers, "decode": 0,
+            "train": 2 * cfg.n_layers}[shape[1]]
     if per_call != want or flash_ops.launches_by_variant["simt"]:
         raise AssertionError(f"{cfg.name} {shape[0]}: B5 launched "
                              f"{per_call} times a call "
                              f"({flash_ops.launches_by_variant}), expected "
                              f"{want}, all sm90")
-    del out, logits
+    del out
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
@@ -1634,8 +1675,8 @@ def host_deploy(cfg, params, shape, args_fn, flash_ops, card: str) -> dict:
                f"{name[:60]} {ms:.3f} ms" for name, ms in top)
            if busy else "device time not measured (the profiler saw no "
            "GPU activity)"))
-    return {"b5_launches": flash_ops.launches, "p50_ms":
-            meas.latency_p50_s * 1e3, "share": share}
+    return {"b5_launches": flash_ops.launches, "per_call": per_call,
+            "p50_ms": meas.latency_p50_s * 1e3, "share": share}
 
 
 def phase_host_loop(ops_by_name: dict, card: str) -> None:
@@ -2228,6 +2269,366 @@ def phase_resilience(lstm_ops, mac_ops, card: str) -> dict:
         f"({card})")
     torch.cuda.synchronize()
     return {**lstm_ops.launches_by_variant, "B2": mac_ops.launches}
+
+
+# LM training (phase 19): StableLM-3B at its published widths and depth,
+# f32 master parameters, bf16 compute, B5 for every attention forward
+TRAIN_ARCH = "stablelm-3b"
+TRAIN_SHAPE = ("train_2k", "train", 2048, 4)
+TRAIN_STEPS = 8
+TRAIN_REF_LAYERS = 4                  # the f32 check's depth
+F32_TRAIN_LOSS_TOL = 1e-5             # relative, f32, full width, 4 layers
+F32_TRAIN_GRAD_TOL = 1e-3             # relative rms of each gradient leaf
+# B5's gradient at a layer of each dense model: (B, S, H, hd, kv heads),
+# K/V GQA-repeated to H heads
+B5_GRAD_CASES = {"stablelm-3b": (4, 2048, 32, 80, 32),
+                 "yi-9b": (1, 2048, 32, 128, 4)}
+# recovery (the reference's tests/test_runtime.py scenario)
+RECOVERY_STEPS, RECOVERY_FAILS = 25, (13, 21)
+GEMM_KERNEL = re.compile(r"gemm|nvjet|xmma|cutlass|wgmma", re.I)
+
+
+def rel_rms(got, want) -> float:
+    return ((got.float() - want.float()).norm()
+            / want.float().norm().clamp_min(1e-30)).item()
+
+
+def phase_train(ops_by_name: dict, card: str) -> dict:
+    """Phase 19, LM training on the card. (a) B5's gradient at a
+    StableLM-3B and a Yi-9B layer, bit for bit the plain version's, its
+    forward on ``sm90``; (b) the ``Trainer`` on StableLM-3B at full width
+    and depth for 8 steps (after the first step's loss and gradients from
+    one set of params held against ``attn_impl="ref"``), B5's launches
+    counted, then one step profiled, and the host target's report of the
+    train step at 4 layers (phase 15's third cell); (c) the reference's
+    recovery scenario and checkpoints restored bit for bit; (d) the
+    launcher in process. Returns B5's launches over the 8 steps."""
+    import contextlib
+    import io
+    import statistics
+    import tempfile
+
+    import torch
+    import torch.nn.functional as F
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.checkpoint import load_checkpoint, save_checkpoint
+    from repro_torch.configs import get_config
+    from repro_torch.core.types import (SMOKE_MESH, ParallelismConfig,
+                                        ShapeConfig)
+    from repro_torch.data.pipeline import LMDataConfig, lm_batch_for_step
+    from repro_torch.kernels.flash_attention import (attention_ref,
+                                                     flash_attention)
+    from repro_torch.kernels.flash_attention.ref import (BF16_REL_RMS_BAR,
+                                                         rel_rms_by_block)
+    from repro_torch.launch import train as launch_train
+    from repro_torch.model.layers import (param_count, tree_leaves,
+                                          tree_map, value_and_grad)
+    from repro_torch.model.lm import Stepper, make_loss_fn
+    from repro_torch.optim.adamw import global_norm, init_opt_state, schedule
+    from repro_torch.runtime import FailureInjector, Trainer, TrainerConfig
+
+    flash_ops = ops_by_name["flash_attention"]
+    bf16 = torch.bfloat16
+    torch.cuda.empty_cache()
+    log(f"phase 19 start: {torch.cuda.memory_allocated() / 1e9:.2f} GB "
+        "allocated on the card by the earlier phases")
+
+    def zero_counts():
+        for mod in ops_by_name.values():
+            mod.launches = 0
+            if hasattr(mod, "launches_by_variant"):
+                mod.launches_by_variant = dict.fromkeys(
+                    mod.launches_by_variant, 0)
+
+    # ---- (a) B5's gradient ------------------------------------------------
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 19)
+    grad_times = {}
+    for arch, (Bq, Sq, H, hd, KV) in B5_GRAD_CASES.items():
+        q = randn(gen, Bq, Sq, H, hd, scale=0.5).to(bf16)
+        k, v = (randn(gen, Bq, Sq, KV, hd, scale=0.5).to(bf16)
+                .repeat_interleave(H // KV, dim=2) for _ in range(2))
+        dout = randn(gen, Bq, Sq, H, hd).to(bf16)
+
+        def fwd_bwd(fn):
+            qkv = [t.detach().requires_grad_(True) for t in (q, k, v)]
+            out = fn(*qkv, True)
+            return (out, *torch.autograd.grad(out, qkv, dout))
+
+        zero_counts()
+        got = fwd_bwd(flash_attention)
+        torch.cuda.synchronize()
+        if flash_ops.launches_by_variant != {"sm90": 1, "simt": 0}:
+            raise AssertionError(f"B5 grad {arch}: forward launched "
+                                 f"{flash_ops.launches_by_variant}")
+        want = fwd_bwd(attention_ref)
+        unequal = [name for name, g, w in zip("qkv", got[1:], want[1:])
+                   if not torch.equal(g, w)]
+        if unequal:
+            raise AssertionError(f"B5 grad {arch}: d{unequal} differ from "
+                                 "the plain version's")
+        fwd_rel = rel_rms_by_block(got[0], attention_ref(
+            q.float(), k.float(), v.float(), True))
+        if fwd_rel > BF16_REL_RMS_BAR:
+            raise AssertionError(f"B5 grad {arch}: forward block rel rms "
+                                 f"{fwd_rel} > {BF16_REL_RMS_BAR}")
+        del got, want
+        times = {"flash": events_ms(lambda: fwd_bwd(flash_attention), 3),
+                 "plain": events_ms(lambda: fwd_bwd(attention_ref), 3)}
+
+        def sdpa():
+            qkv = [t.detach().transpose(1, 2).requires_grad_(True)
+                   for t in (q, k, v)]
+            out = F.scaled_dot_product_attention(*qkv, is_causal=True)
+            return torch.autograd.grad(out, qkv, dout.transpose(1, 2))
+
+        times["sdpa"] = events_ms(sdpa, 3)
+        grad_times[arch] = times
+        log(f"phase 19a B5 gradient at a {arch} layer ({Bq}, {Sq}, {H}, "
+            f"{hd}) bf16 causal: dq, dk, dv = the plain version's bit for "
+            f"bit; forward on sm90, block rel rms {fwd_rel:.5f} (bar "
+            f"{BF16_REL_RMS_BAR}); forward + backward (CUDA events, eager): "
+            f"B5 + plain VJP {times['flash']:.3f} ms, plain "
+            f"{times['plain']:.3f} ms, scaled_dot_product_attention "
+            f"{times['sdpa']:.3f} ms ({card})")
+        del q, k, v, dout
+        torch.cuda.empty_cache()
+
+    # ---- (b) the slice: StableLM-3B at full width and depth ----------------
+    cfg = get_config(TRAIN_ARCH)
+    par = ParallelismConfig(compute_dtype="bfloat16", attn_impl="flash")
+    shape = ShapeConfig(*TRAIN_SHAPE)
+    st = Stepper(cfg, shape, SMOKE_MESH, par)
+    n_params = param_count(st.schema)
+    model_flops = 6.0 * n_params * shape.tokens
+    dcfg = LMDataConfig(vocab_size=cfg.vocab_size, seq_len=shape.seq_len,
+                        global_batch=shape.global_batch, seed=SEED)
+    batch = {k: torch.as_tensor(v, device="cuda")
+             for k, v in lm_batch_for_step(dcfg, 0).items()}
+
+    def loss_and_grads(c, params, impl, dtype):
+        fn = make_loss_fn(c, SMOKE_MESH, ParallelismConfig(
+            compute_dtype=dtype, attn_impl=impl))
+        (loss, _), grads = value_and_grad(fn, has_aux=True)(params, batch)
+        if not torch.isfinite(loss):
+            raise AssertionError(f"{c.name} {impl} {dtype}: loss {loss}")
+        return loss.item(), grads
+
+    t0 = time.perf_counter()
+    params = st.init(seed=SEED, device="cuda")
+    torch.cuda.synchronize()
+    log(f"phase 19b {TRAIN_ARCH}: {n_params:,} parameters ({cfg.n_layers} "
+        f"layers, d_model {cfg.d_model}, {cfg.n_heads} heads of hd "
+        f"{cfg.hd}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}) drawn on the "
+        f"card in f32 in {time.perf_counter() - t0:.2f} s")
+    first = {}
+    for impl in ("flash", "ref"):
+        loss, grads = loss_and_grads(cfg, params, impl, "bfloat16")
+        first[impl] = (loss, global_norm(grads).item())
+        del grads
+        torch.cuda.empty_cache()
+    bar = cfg.n_layers ** 0.5 * 2.0 ** -7
+    rel = {key: abs(first["flash"][i] - first["ref"][i]) / abs(
+        first["ref"][i]) for i, key in enumerate(("loss", "gnorm"))}
+    if max(rel.values()) > bar:
+        raise AssertionError(f"{TRAIN_ARCH} bf16 first step, flash vs ref: "
+                             f"{first}, rel {rel} > {bar}")
+    log(f"phase 19b first step bf16, {cfg.n_layers} layers, flash vs ref "
+        f"attention from one set of params: loss {first['flash'][0]:.6f} "
+        f"vs {first['ref'][0]:.6f}, gnorm {first['flash'][1]:.6f} vs "
+        f"{first['ref'][1]:.6f}; rel {rel['loss']:.3e}, {rel['gnorm']:.3e}"
+        f" <= sqrt({cfg.n_layers}) * 2^-7 = {bar:.3e}")
+    del params
+    torch.cuda.empty_cache()
+    cfg4 = cfg.with_(n_layers=TRAIN_REF_LAYERS)
+    params4 = Stepper(cfg4, shape, SMOKE_MESH, par).init(seed=SEED + 1,
+                                                         device="cuda")
+    loss_f, grads_f = loss_and_grads(cfg4, params4, "flash", "float32")
+    loss_r, grads_r = loss_and_grads(cfg4, params4, "ref", "float32")
+    loss_rel = abs(loss_f - loss_r) / abs(loss_r)
+    grad_rel = max(rel_rms(a, b) for a, b in zip(tree_leaves(grads_f),
+                                                 tree_leaves(grads_r)))
+    if loss_rel > F32_TRAIN_LOSS_TOL or grad_rel > F32_TRAIN_GRAD_TOL:
+        raise AssertionError(f"{TRAIN_ARCH} f32 {TRAIN_REF_LAYERS} layers, "
+                             f"flash vs ref: loss rel {loss_rel}, worst "
+                             f"gradient leaf rel rms {grad_rel}")
+    del grads_f, grads_r
+    log(f"phase 19b first step f32, full width, {TRAIN_REF_LAYERS} layers, "
+        f"flash vs ref: loss {loss_f:.7f} vs {loss_r:.7f} (rel "
+        f"{loss_rel:.3e} <= {F32_TRAIN_LOSS_TOL}), worst gradient leaf rel "
+        f"rms {grad_rel:.3e} <= {F32_TRAIN_GRAD_TOL}")
+
+    with tempfile.TemporaryDirectory() as td:
+        tr = Trainer(st, dcfg, TrainerConfig(
+            total_steps=TRAIN_STEPS, ckpt_every=TRAIN_STEPS + 1,
+            ckpt_dir=td, log_every=1), device="cuda")
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts()
+        t0 = time.perf_counter()
+        out = tr.train()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = {key: mod.launches for key, mod in ops_by_name.items()}
+        variants = dict(flash_ops.launches_by_variant)
+        peak = torch.cuda.max_memory_allocated()
+    want = 2 * cfg.n_layers * TRAIN_STEPS
+    if counts["flash_attention"] != want or variants != {
+            "sm90": want, "simt": 0} or any(
+            n for key, n in counts.items() if key != "flash_attention"):
+        raise AssertionError(f"{TRAIN_ARCH} training: launches {counts}, "
+                             f"B5 by variant {variants}, expected {want} "
+                             "B5 sm90 and no other kernel")
+    steps = out["metrics"]
+    if out["steps"] != TRAIN_STEPS or len(steps) != TRAIN_STEPS or any(
+            not math.isfinite(m["loss"]) for m in steps):
+        raise AssertionError(f"{TRAIN_ARCH} training: {out['steps']} steps,"
+                             f" metrics {steps}")
+    for m in steps:
+        lr = schedule(st.opt_cfg, torch.tensor(m["step"] + 1)).item()
+        log(f"phase 19b step {m['step']}: loss {m['loss']:.6f}, gnorm "
+            f"{m['gnorm']:.6f}, lr {lr:.6e}, {m['sec'] * 1e3:.1f} ms host "
+            "clock (synchronised)")
+    step_s = statistics.median(m["sec"] for m in steps[1:])
+    share = model_flops / (BF16_FLOP_PER_S * step_s)
+    state_bytes = 4 * 4 * n_params        # f32 params, grads, mu, nu
+    log(f"phase 19b {TRAIN_ARCH} Trainer, {TRAIN_STEPS} steps of batch "
+        f"{shape.global_batch} x {shape.seq_len} in {wall:.2f} s: median "
+        f"step (steps 1-{TRAIN_STEPS - 1}) {step_s * 1e3:.1f} ms = "
+        f"{shape.tokens / step_s:.0f} tokens/s; whole-step share of peak "
+        f"{share:.4f} (6*N*D = {model_flops:.4e} FLOP / (989e12 x median "
+        f"step)); peak device memory {peak / 1e9:.2f} GB beside the state's "
+        f"{state_bytes / 1e9:.2f} GB (f32 params, grads, mu, nu); B5 "
+        f"launches {counts['flash_attention']} = 2 x {cfg.n_layers} x "
+        f"{TRAIN_STEPS}, by variant {json.dumps(variants)}; no other kernel "
+        f"launched ({card})")
+    # one more step under the profiler
+    state, b = out["state"], tr._batch(TRAIN_STEPS)
+    del out
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        tr._step_fn(state["params"], state["opt"], b)
+        torch.cuda.synchronize()
+        prof_wall = (time.perf_counter() - t0) * 1e3
+    from torch.autograd import DeviceType
+
+    device: dict = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            device[e.name] = device.get(e.name, 0.0) \
+                + e.time_range.elapsed_us() / 1e3
+    busy = sum(device.values())
+    if busy == 0:
+        log("phase 19b profile: device time not measured (the profiler saw "
+            "no GPU activity)")
+    else:
+        b5 = sum(t for name, t in device.items() if "flash_fwd" in name)
+        gemm = sum(t for name, t in device.items()
+                   if GEMM_KERNEL.search(name) and "flash" not in name)
+        # the backward node's range holds the plain VJP's kernels; its
+        # evaluate_function range and the node's own name nest, so the
+        # largest of them, not their sum
+        vjp = max([getattr(e, "device_time_total", None) or getattr(
+            e, "cuda_time_total", 0.0) for e in prof.key_averages()
+            if "_FlashBackward" in e.key] or [0.0])
+        vjp_ms = f"{vjp / 1e3:.1f} ms" if vjp else "not measured"
+        top = sorted(device.items(), key=lambda kv: -kv[1])[:6]
+        log(f"phase 19b profile, one step: device busy {busy:.1f} ms of "
+            f"{prof_wall:.1f} ms host clock (profiler on) = "
+            f"{100 * busy / prof_wall:.1f}%; B5 {b5:.2f} ms, GEMMs "
+            f"{gemm:.1f} ms, the attention VJP (under _FlashBackward) "
+            f"{vjp_ms}; " + "; ".join(f"{name[:60]} {ms:.2f} ms"
+                                      for name, ms in top))
+    del state, b, tr
+    torch.cuda.empty_cache()
+
+    # phase 15's third cell: the train step through the host target
+    host_batch = {k: torch.as_tensor(v, device="cuda")
+                  for k, v in lm_batch_for_step(dcfg, 1).items()}
+    host = host_deploy(
+        cfg4, params4, TRAIN_SHAPE,
+        lambda s: (params4, init_opt_state(params4), host_batch),
+        flash_ops, card)
+    del params4
+    torch.cuda.empty_cache()
+
+    # ---- (c) recovery on the card ------------------------------------------
+    small = get_config("yi-9b", smoke=True)
+    f32_flash = ParallelismConfig(compute_dtype="float32", attn_impl="flash")
+
+    def mk(td, inj=None):
+        s = Stepper(small, ShapeConfig("t", "train", 32, 8), SMOKE_MESH,
+                    f32_flash)
+        return Trainer(s, LMDataConfig(vocab_size=small.vocab_size,
+                                       seq_len=32, global_batch=8, seed=7),
+                       TrainerConfig(total_steps=RECOVERY_STEPS,
+                                     ckpt_every=10, ckpt_dir=td,
+                                     log_every=5),
+                       injector=inj, device="cuda")
+
+    with tempfile.TemporaryDirectory() as td:
+        tr_a = mk(os.path.join(td, "a"),
+                  FailureInjector(fail_at_steps=set(RECOVERY_FAILS)))
+        hit = tr_a.train()
+        clean = mk(os.path.join(td, "b")).train()
+        if hit["recoveries"] != len(RECOVERY_FAILS) or hit["steps"] != \
+                RECOVERY_STEPS:
+            raise AssertionError(f"recovery: {hit['recoveries']} "
+                                 f"recoveries, {hit['steps']} steps")
+        l1 = {m["step"]: m["loss"] for m in hit["metrics"]}
+        l2 = {m["step"]: m["loss"] for m in clean["metrics"]}
+        worst = max(abs(l1[s] - l2[s]) for s in l1)
+        if set(l1) != set(l2) or worst >= 1e-4:
+            raise AssertionError(f"recovery: losses {l1} vs clean {l2}")
+        final = max(max_err(a, b) for a, b in zip(
+            tree_leaves(hit["state"]), tree_leaves(clean["state"])))
+        step, state = tr_a.resume_elastic(Stepper(
+            small, ShapeConfig("t2", "train", 64, 4), SMOKE_MESH, f32_flash))
+        if step != 21 or any(t.device.type != "cuda"
+                             for t in tree_leaves(state)):
+            raise AssertionError(f"resume_elastic: step {step}")
+        # a bf16 training state, written from the card and from the CPU,
+        # restored onto the card bit for bit
+        prm = Stepper(small, ShapeConfig("t", "train", 32, 8), SMOKE_MESH,
+                      f32_flash).init(seed=3, device="cuda",
+                                      dtype_override=bf16)
+        saved = {"params": prm, "opt": init_opt_state(prm)}
+        like = tree_map(torch.zeros_like, saved)
+        for where, tree in (("card", saved), ("cpu", tree_map(
+                lambda t: t.cpu(), saved))):
+            path = os.path.join(td, f"bf16_{where}")
+            save_checkpoint(path, 1, tree)
+            back = load_checkpoint(path, 1, like)
+            if any(a.device.type != "cuda" or a.dtype != b.dtype
+                   or not torch.equal(a, b) for a, b in zip(
+                       tree_leaves(back), tree_leaves(saved))):
+                raise AssertionError(f"bf16 state written on the {where} "
+                                     "does not restore bit for bit")
+    log(f"phase 19c recovery on the card (yi-9b smoke, S 32, B 8, f32, "
+        f"flash, {RECOVERY_STEPS} steps, failures at {RECOVERY_FAILS}): "
+        f"{hit['recoveries']} recoveries, logged losses = the clean run's "
+        f"within {worst:.3g} (bar 1e-4), final params max |diff| "
+        f"{final:.3g}; resume_elastic onto another stepper at step {step}; "
+        "a bf16 state written on the card and on the CPU restored onto the "
+        "card bit for bit")
+
+    # ---- (d) the launcher, in process --------------------------------------
+    with tempfile.TemporaryDirectory() as td:
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = launch_train.main(["--arch", "yi-9b", "--steps", "40",
+                                    "--device", "cuda", "--ckpt-dir", td])
+    lines = buf.getvalue().splitlines()
+    losses = [float(ln.split()[3]) for ln in lines if ln.startswith("step")]
+    if rc != 0 or len(losses) < 2 or not losses[-1] < losses[0]:
+        raise AssertionError(f"launch.train: rc {rc}, output {lines}")
+    log(f"phase 19d python -m repro_torch.launch.train --arch yi-9b --steps "
+        f"40 --device cuda: rc 0, loss {losses[0]:.4f} -> {losses[-1]:.4f}; "
+        + " | ".join(lines))
+    return {"train_launches": counts["flash_attention"],
+            "host_train_launches": host["per_call"]}
 
 
 def main() -> int:
@@ -2973,7 +3374,14 @@ def main() -> int:
         elif row["name"] == "mac_int":
             row["resilience_launches"] = resil["B2"]
 
-    # ---- 19. report --------------------------------------------------------
+    # ---- 19. LM training ---------------------------------------------------
+    train = phase_train(ops_by_name, smi)
+    for row in kernel_rows:
+        if row["name"] == "flash_attention":
+            row["train_launches"] = train["train_launches"]
+            row["host_target_train_launches"] = train["host_train_launches"]
+
+    # ---- 20. report --------------------------------------------------------
     log(smi)                     # the card's name and power limit
     print(json.dumps({"kernels": kernel_rows}))
     print(json.dumps({"ok": True, "device": {

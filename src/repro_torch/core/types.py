@@ -85,6 +85,11 @@ class ModelConfig:
     tie_embeddings: bool = False
     vocab_pad_multiple: int = 128
     dtype: str = "bfloat16"
+    # Remat policy for the layer stack in training: "full" | "dots" | "none"
+    remat: str = "full"
+    # chunk the CE loss over positions (the (B, S, V) logits are never
+    # alive at once)
+    ce_chunked: bool = True
 
     @property
     def hd(self) -> int:

@@ -9,7 +9,8 @@ step counter, :func:`reports`) and ``ref.py`` (the
 plain PyTorch version, which also runs on CUDA). ``lstm_cell_int`` is the
 RTL emulator's fused int32 LSTM window; ``mac_int`` the int32 MAC + requant
 of the linear, conv1d and per-step LSTM templates; ``flash_attention`` the
-LM's online-softmax attention forward, run by every causal prefill layer;
+LM's online-softmax attention forward, run by every causal prefill and
+training layer (its gradient is the plain version's VJP);
 ``lstm_cell`` the float gate-fused LSTM window; ``quant_matmul`` the int8
 matmul with its per-channel rescale; ``mamba2`` the Mamba-2 SSD chunk scan
 (``csrc/ssd.cu``); ``rwkv6`` the RWKV-6 WKV recurrence (``csrc/wkv6.cu``).

@@ -1,10 +1,10 @@
 """Public wrapper of the flash-attention template (B5): the reference's
 ``(B, S, H, hd)`` layout with GQA-repeated K/V.
 
-The reference's backward is the plain VJP (``jax.custom_vjp`` around the
-kernel's forward); the port serves only, so no gradient is defined here
-yet: the training slice adds a ``torch.autograd.Function`` whose backward
-is the plain version's.
+Training goes through a ``torch.autograd.Function``, as the reference's
+``jax.custom_vjp``: kernel forward, and a backward that is the VJP of the
+plain version recomputed from ``(q, k, v)`` (no backward kernel, as in the
+reference). The Function is the only path to the kernel.
 """
 from __future__ import annotations
 
@@ -86,19 +86,45 @@ def attention_flops(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return 4 * B * H * hd * pairs
 
 
+class _Flash(torch.autograd.Function):
+    """B5 with the reference's gradient (``repro/kernels/flash_attention/
+    ops.py::_bwd``): the forward launches the kernel (the plain version on
+    a CPU tensor) and saves ``(q, k, v)``; the backward recomputes the
+    plain version from them and returns its VJP of ``dout``."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal):
+        ctx.causal = causal
+        ctx.save_for_backward(q, k, v)
+        return _forward(q, k, v, causal)
+
+    @staticmethod
+    def backward(ctx, dout):
+        with torch.enable_grad():
+            qkv = [t.detach().requires_grad_(True) for t in ctx.saved_tensors]
+            out = attention_ref(*qkv, ctx.causal)
+            dq, dk, dv = torch.autograd.grad(out, qkv, dout)
+        return dq, dk, dv, None
+
+
 @reports("flash_attention", attention_flops)
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True) -> torch.Tensor:
     """q/k/v: (B, S, H, hd) (K/V already GQA-repeated). Returns
-    (B, Sq, H, hd) in q's dtype.
+    (B, Sq, H, hd) in q's dtype, differentiable in q, k and v.
 
     On a CUDA tensor this launches the kernel :func:`variant` names, for
     every S and every hd <= 256 (the kernels mask ragged tiles themselves),
     and raises if it fails; on a CPU tensor it runs the plain version; on
-    a ``meta`` tensor it returns the empty result.
+    a ``meta`` tensor it returns the empty result. Every forward counts,
+    a rematerialised one included; the backward launches no kernel.
     """
-    global launches
     _check(q, k, v)
+    return _Flash.apply(q, k, v, causal)
+
+
+def _forward(q, k, v, causal):
+    global launches
     if q.device.type == "cpu":
         # in the kernel's layout, so the caller's reshape is a view on
         # every device

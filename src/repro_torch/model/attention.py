@@ -2,7 +2,7 @@
 long-sequence path (port of ``repro/model/attention.py``).
 
 The plain path is PyTorch einsum; ``ctx.attn_impl == "flash"`` sends every
-causal attention with Sq == Sk (each prefill layer) to kernel B5
+causal attention with Sq == Sk (each prefill and training layer) to B5
 (``kernels/flash_attention``). Decode writes the new K/V into the cache in
 place (``index_put_``) where the reference updates a donated buffer.
 """
@@ -13,8 +13,8 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from repro_torch.core.types import ModelConfig
-from repro_torch.model.layers import (Ctx, PSpec, apply_rope, rms_head_norm,
-                                      rope_angles)
+from repro_torch.model.layers import (Ctx, PSpec, apply_rope, checkpoint,
+                                      rms_head_norm, rope_angles)
 
 # Sequences longer than this use the q-chunked (flash-style, O(S) memory) path.
 FULL_ATTN_MAX_SEQ = 1024
@@ -68,9 +68,11 @@ def attention_core(
     if sq <= FULL_ATTN_MAX_SEQ or sq != sk:
         return block(q, k, v, scale, causal, q_offset, kv_len)
     # q-chunked path: O(S) live memory, exact softmax per row; the last
-    # chunk is ragged where the reference pads it (same rows either way)
-    return torch.cat([block(q[:, i:i + Q_CHUNK], k, v, scale, causal, i,
-                            kv_len) for i in range(0, sq, Q_CHUNK)], dim=1)
+    # chunk is ragged where the reference pads it (same rows either way).
+    # Training recomputes each chunk's logits in the backward.
+    body = checkpoint(block) if ctx.mode == "train" else block
+    return torch.cat([body(q[:, i:i + Q_CHUNK], k, v, scale, causal, i,
+                           kv_len) for i in range(0, sq, Q_CHUNK)], dim=1)
 
 
 def _mask(sq: int, sk: int, causal: bool, q_offset: int,

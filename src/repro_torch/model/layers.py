@@ -115,6 +115,41 @@ def value_and_grad(fn: Callable, has_aux: bool = False):
     return wrapped
 
 
+def checkpoint(fn: Callable, save_dots: bool = False) -> Callable:
+    """``jax.checkpoint``: ``fn`` whose intermediates are recomputed in the
+    backward instead of kept. Non-reentrant, so ``torch.autograd.grad``
+    (:func:`value_and_grad`) runs through it; no RNG state is kept, as no
+    op of a step draws random numbers. ``save_dots`` keeps the matmuls'
+    outputs and recomputes the rest (``checkpoint_policies.
+    checkpoint_dots``)."""
+    import functools
+
+    from torch.utils.checkpoint import (checkpoint as ckpt,
+                                        create_selective_checkpoint_contexts)
+
+    kw = {}
+    if save_dots:
+        kw["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, _save_dots)
+
+    def run(*args):
+        return ckpt(fn, *args, use_reentrant=False, preserve_rng_state=False,
+                    **kw)
+
+    return run
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    from torch.utils.checkpoint import CheckpointPolicy
+
+    return (CheckpointPolicy.MUST_SAVE if op.overloadpacket in _DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+_DOTS = {torch.ops.aten.mm, torch.ops.aten.bmm, torch.ops.aten.addmm,
+         torch.ops.aten.baddbmm}
+
+
 def param_count(schema) -> int:
     return sum(math.prod(s.shape) for s in tree_leaves(schema, is_pspec))
 
@@ -130,7 +165,7 @@ class Ctx:
 
     cfg: ModelConfig
     mesh_cfg: MeshConfig
-    mode: str                                  # "prefill" | "decode"
+    mode: str                          # "train" | "prefill" | "decode"
     par: ParallelismConfig = ParallelismConfig()
     positions: Optional[torch.Tensor] = None   # (B, S) absolute positions
     attn_impl: str = "ref"                     # "ref" | "flash" (kernel B5)

@@ -3,10 +3,11 @@
 
 The step builders return plain callables: PyTorch runs eagerly, so nothing
 is jit-compiled, and the LM decode step updates the cache it is given in
-place. For the window families (``lstm``/``conv1d``) the loss, the train
-step and the one-window "prefill" are the reference's; the LM
-cross-entropy and its train step come with the LM training slice
-(ROADMAP A11).
+place. The train step of every family is the reference's: the window MSE
+for ``lstm``/``conv1d``, the (chunked) cross-entropy for the LMs, then
+AdamW; ``donate=True`` gives the form whose update reuses the parameter and
+moment buffers it is given, as the reference's trainer donates them to
+``jax.jit``.
 """
 from __future__ import annotations
 
@@ -18,15 +19,67 @@ import torch
 from repro_torch.core.types import (MeshConfig, ModelConfig,
                                     ParallelismConfig, ShapeConfig)
 from repro_torch.device import resolve_device
-from repro_torch.model.layers import Ctx, init_params, value_and_grad
-from repro_torch.model.transformer import (apply_model, model_cache_schema,
-                                           param_schema)
-from repro_torch.optim.adamw import AdamWConfig, adamw_update
+from repro_torch.model.layers import (Ctx, checkpoint, init_params,
+                                      value_and_grad)
+from repro_torch.model.transformer import (apply_model, head_logits,
+                                           model_cache_schema, param_schema)
+from repro_torch.optim.adamw import AdamWConfig, adamw_update, adamw_update_
 
-__all__ = ["param_schema", "make_loss_fn", "make_train_step",
-           "make_prefill_step", "make_decode_step", "input_specs", "Stepper"]
+__all__ = ["param_schema", "cross_entropy", "chunked_ce_loss",
+           "make_loss_fn", "make_train_step", "make_prefill_step",
+           "make_decode_step", "input_specs", "Stepper"]
 
 WINDOW_FAMILIES = ("lstm", "conv1d")
+
+
+# ---------------------------------------------------------------------------
+# Loss
+# ---------------------------------------------------------------------------
+
+
+def _ce_sum(logits: torch.Tensor, targets: torch.Tensor
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(sum of the unmasked positions' CE, their count as int32)."""
+    mask = targets >= 0
+    t = torch.clamp(targets, min=0).long()
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, t[..., None])[..., 0]
+    return ((lse - gold) * mask).sum(), mask.sum(dtype=torch.int32)
+
+
+def cross_entropy(logits: torch.Tensor, targets: torch.Tensor
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """logits (B, S, V) f32, targets (B, S) int (-1 = masked) ->
+    (loss, n_tok)."""
+    tot, n = _ce_sum(logits, targets)
+    n = torch.clamp(n, min=1)
+    return tot / n, n
+
+
+# Positions per CE chunk: bounds live f32 logits to (B, CE_CHUNK, V).
+CE_CHUNK = 512
+
+
+def chunked_ce_loss(hidden: torch.Tensor, targets: torch.Tensor,
+                    head_fn) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Memory-bounded LM loss: the (B, S, V) logits tensor is never alive
+    at once — each chunk's logits and CE under :func:`checkpoint` (the
+    backward recomputes the chunk's logits instead of keeping them); the
+    last chunk is ragged."""
+    S = hidden.shape[1]
+    ck = min(CE_CHUNK, S)
+    chunk_loss = checkpoint(lambda h_c, t_c: _ce_sum(head_fn(h_c), t_c))
+    tot = n = None
+    for i in range(0, S, ck):
+        li, ni = chunk_loss(hidden[:, i:i + ck], targets[:, i:i + ck])
+        tot, n = (li, ni) if tot is None else (tot + li, n + ni)
+    n = torch.clamp(n, min=1)
+    return tot / n, n
+
+
+# ---------------------------------------------------------------------------
+# Step builders
+# ---------------------------------------------------------------------------
 
 
 def _mk_ctx(cfg, mesh_cfg, mode, par):
@@ -42,38 +95,55 @@ def _window_apply(cfg: ModelConfig):
     return apply_fn
 
 
-def _lm_training(what: str):
-    return NotImplementedError(
-        f"{what} of the LM families comes with the LM training slice "
-        "(ROADMAP A11: cross_entropy, chunked_ce_loss and the LM train "
-        "step); the window families (lstm, conv1d) have theirs")
-
-
 def make_loss_fn(cfg: ModelConfig, mesh_cfg: MeshConfig,
                  par: ParallelismConfig):
-    """(params, batch) -> (loss, {"loss": loss}): the window MSE."""
-    if cfg.family not in WINDOW_FAMILIES:
-        raise _lm_training("the loss")
-    apply_fn = _window_apply(cfg)
+    """(params, batch) -> (loss, metrics): the window MSE, or the LM's
+    cross-entropy (chunked over positions where ``cfg.ce_chunked``) plus
+    the auxiliary loss, with ``{"loss", "aux", "n_tok"}``."""
+    if cfg.family in WINDOW_FAMILIES:
+        apply_fn = _window_apply(cfg)
 
-    def window_loss(params, batch):
-        pred, _ = apply_fn(params, batch["x"], cfg)
-        loss = torch.mean(torch.square(pred - batch["y"]))
-        return loss, {"loss": loss}
+        def window_loss(params, batch):
+            pred, _ = apply_fn(params, batch["x"], cfg)
+            loss = torch.mean(torch.square(pred - batch["y"]))
+            return loss, {"loss": loss}
 
-    return window_loss
+        return window_loss
+
+    def loss_fn(params, batch):
+        ctx = _mk_ctx(cfg, mesh_cfg, "train", par)
+        hidden, _, aux = apply_model(params, batch, ctx, return_hidden=True)
+        if cfg.ce_chunked:
+            ce, n_tok = chunked_ce_loss(hidden, batch["targets"],
+                                        lambda h: head_logits(params, h, ctx))
+        else:
+            ce, n_tok = cross_entropy(head_logits(params, hidden, ctx),
+                                      batch["targets"])
+        return ce + aux, {"loss": ce, "aux": aux, "n_tok": n_tok}
+
+    return loss_fn
 
 
 def make_train_step(cfg: ModelConfig, mesh_cfg: MeshConfig,
-                    par: ParallelismConfig, opt_cfg: AdamWConfig):
-    """(params, opt_state, batch) -> (params', opt_state', metrics)."""
+                    par: ParallelismConfig, opt_cfg: AdamWConfig,
+                    donate: bool = False):
+    """(params, opt_state, batch) -> (params', opt_state', metrics).
+
+    ``donate=True``: params' and opt_state' are the buffers of params and
+    opt_state, updated in place (:func:`~repro_torch.optim.adamw.
+    adamw_update_`), so a step holds one copy of the state; the numbers are
+    the same bit for bit. The reference's int8-ring gradient reduction
+    needs a mesh of more than one device; on one card the gradient is the
+    plain one, as the reference's is on one device.
+    """
     grad_fn = value_and_grad(make_loss_fn(cfg, mesh_cfg, par),
                              has_aux=True)
+    update = adamw_update_ if donate else adamw_update
 
     def step(params, opt_state, batch):
         (_, metrics), grads = grad_fn(params, batch)
-        new_params, new_opt, info = adamw_update(grads, opt_state, params,
-                                                 opt_cfg)
+        new_params, new_opt, info = update(grads, opt_state, params,
+                                           opt_cfg)
         return new_params, new_opt, dict(metrics, **info)
 
     return step
@@ -149,9 +219,9 @@ class Stepper:
         return model_cache_schema(self.cfg, self.shape.global_batch,
                                   self.shape.seq_len)
 
-    def train_fn(self):
+    def train_fn(self, donate: bool = False):
         return make_train_step(self.cfg, self.mesh_cfg, self.par,
-                               self.opt_cfg)
+                               self.opt_cfg, donate)
 
     def prefill_fn(self):
         return make_prefill_step(self.cfg, self.mesh_cfg, self.par)

@@ -5,8 +5,9 @@ A model is a sequence of *groups* of homogeneous blocks; a group's
 parameters are stacked with a leading layer axis (``params["g0"]["attn"]
 ["wq"]`` is ``(n_layers, d_model, H*hd)``), exactly as in the reference, so
 a reference tree carries across leaf for leaf. The stack is applied as a
-Python loop over layer views. The other families (MoE, Mamba-2, RWKV-6,
-whisper, frontends), scan-over-layers and rematerialisation wait for the
+Python loop over layer views; in training each block runs under the
+config's remat policy (``ModelConfig.remat``). The other families (MoE,
+Mamba-2, RWKV-6, whisper, frontends) and scan-over-layers wait for the
 slices that port them.
 """
 from __future__ import annotations
@@ -19,9 +20,9 @@ import torch
 from repro_torch.core.types import ModelConfig
 from repro_torch.model.attention import attn_apply, attn_schema, cache_schema
 from repro_torch.model.layers import (Ctx, apply_mlp, apply_norm,
-                                      embed_schema, embed_tokens, is_pspec,
-                                      lm_logits, mlp_schema, norm_schema,
-                                      tree_map)
+                                      checkpoint, embed_schema, embed_tokens,
+                                      is_pspec, lm_logits, mlp_schema,
+                                      norm_schema, tree_leaves, tree_map)
 
 # ---------------------------------------------------------------------------
 # Group structure
@@ -91,6 +92,31 @@ def _apply_attn_block(p, x, ctx: Ctx, cache):
     return x + m, new_cache
 
 
+REMATS = ("full", "dots", "none")
+
+
+def _maybe_ckpt(fn, ctx: Ctx):
+    """``fn`` under the config's remat policy in training: ``"full"``
+    recomputes the block in the backward, ``"dots"`` keeps its matmuls'
+    outputs and recomputes the rest, ``"none"`` keeps everything."""
+    remat = ctx.cfg.remat
+    if remat not in REMATS:
+        raise ValueError(f"remat {remat!r} is not one of {REMATS}")
+    if ctx.mode != "train" or remat == "none":
+        return fn
+    return checkpoint(fn, save_dots=remat == "dots")
+
+
+def _layers(stacked, count: int):
+    """The per-layer views of a group's stacked parameters. One ``unbind``
+    a leaf, so training's backward stacks the layers' gradients once
+    (a view a layer would add ``count`` full-size gradients)."""
+    cols = [a.unbind(0) for a in tree_leaves(stacked)]
+    for i in range(count):
+        it = iter([c[i] for c in cols])
+        yield tree_map(lambda _: next(it), stacked)
+
+
 def apply_model(
     params,
     batch: Dict[str, torch.Tensor],
@@ -117,12 +143,12 @@ def apply_model(
     caches = cache["layers"] if cache is not None else None
     new_layer_caches: List[Any] = []
     li = 0          # global layer index (cache slot)
+    block = _maybe_ckpt(lambda p_, x_, c_: _apply_attn_block(p_, x_, ctx, c_),
+                        ctx)
     for gi, (_, count) in enumerate(group_structure(cfg)):
-        stacked = params[f"g{gi}"]
-        for i in range(count):
-            pl = tree_map(lambda a: a[i], stacked)
+        for pl in _layers(params[f"g{gi}"], count):
             c_in = caches[li] if caches is not None else None
-            x, c_new = _apply_attn_block(pl, x, ctx, c_in)
+            x, c_new = block(pl, x, c_in)
             new_layer_caches.append(c_new)
             li += 1
 

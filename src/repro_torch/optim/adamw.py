@@ -5,19 +5,22 @@ The reference's functional update over a parameter tree, not
 ``torch.optim.AdamW`` (whose clipping, bias correction and order of
 arithmetic differ): the optimizer state is a tree with the structure of the
 parameters, all optimizer math runs in f32 on the parameters' device, and
-every constant enters as the reference's weakly typed f32 does. The ZeRO
-sharding of the state (the reference's ``opt_state_schema``) comes with the
-multi-GPU slice.
+every constant enters as the reference's weakly typed f32 does.
+:func:`adamw_update_` is the same update written into the buffers it is
+given, the port's stand-in for the reference trainer's donation to
+``jax.jit``. The ZeRO sharding of the state (the reference's
+``opt_state_schema`` given a mesh) comes with the multi-GPU slice.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 from dataclasses import dataclass
 from typing import Any, Dict, Tuple
 
 import torch
 
-from repro_torch.model.layers import tree_leaves, tree_map
+from repro_torch.model.layers import PSpec, is_pspec, tree_leaves, tree_map
 
 
 @dataclass(frozen=True)
@@ -56,6 +59,21 @@ def init_opt_state(params) -> Dict[str, Any]:
             "step": torch.zeros((), dtype=torch.int32, device=dev)}
 
 
+def opt_state_schema(param_schema_tree, mesh_cfg=None):
+    """PSpec tree of the optimizer state (mirrors the parameter schema):
+    f32 zero moments and an int32 step. The reference's ZeRO-1 shards
+    each moment over the data axes of ``mesh_cfg``; on one card every
+    tensor is whole and ``mesh_cfg`` is not read: ZeRO comes with the
+    multi-GPU slice, as ``torch.distributed``."""
+    def moments():
+        return tree_map(lambda s: dataclasses.replace(
+            s, dtype=torch.float32, init="zeros"), param_schema_tree,
+            is_leaf=is_pspec)
+
+    return {"mu": moments(), "nu": moments(),
+            "step": PSpec((), dtype=torch.int32, init="zeros")}
+
+
 def global_norm(tree) -> torch.Tensor:
     """sqrt of the sum of squares, leaf by leaf in the reference's order
     (dict keys sorted, as ``jax.tree.leaves`` visits them)."""
@@ -66,24 +84,28 @@ def global_norm(tree) -> torch.Tensor:
     return torch.sqrt(total)
 
 
+def _scalars(grads, step: torch.Tensor, cfg: AdamWConfig):
+    """(lr, gnorm, clip scale, bc1, bc2) of the step numbered ``step``."""
+    lr = schedule(cfg, step)
+    gnorm = global_norm(grads)
+    # a tensor numerator: ``float / tensor`` is a reciprocal and a product
+    # in torch
+    scale = torch.clamp(torch.full_like(gnorm, cfg.clip_norm)
+                        / torch.clamp(gnorm, min=1e-9), max=1.0)
+    stepf = step.to(torch.float32)
+    bc1 = 1 - torch.pow(torch.full_like(stepf, cfg.b1), stepf)
+    bc2 = 1 - torch.pow(torch.full_like(stepf, cfg.b2), stepf)
+    return lr, gnorm, scale, bc1, bc2
+
+
 @torch.no_grad()
 def adamw_update(grads, opt_state, params, cfg: AdamWConfig
                  ) -> Tuple[Any, Dict[str, Any], Dict[str, torch.Tensor]]:
     """One step: (params', opt_state', {"gnorm", "lr"}); ``grads`` has the
     structure of ``params``. New tensors throughout; nothing in place."""
     step = opt_state["step"] + 1
-    lr = schedule(cfg, step)
-
-    gnorm = global_norm(grads)
-    # a tensor numerator: ``float / tensor`` is a reciprocal and a product
-    # in torch
-    scale = torch.clamp(torch.full_like(gnorm, cfg.clip_norm)
-                        / torch.clamp(gnorm, min=1e-9), max=1.0)
-
+    lr, gnorm, scale, bc1, bc2 = _scalars(grads, step, cfg)
     b1, b2 = cfg.b1, cfg.b2
-    stepf = step.to(torch.float32)
-    bc1 = 1 - torch.pow(torch.full_like(stepf, b1), stepf)
-    bc2 = 1 - torch.pow(torch.full_like(stepf, b2), stepf)
 
     def upd(p, g, mu, nu):
         g = g.to(torch.float32) * scale
@@ -107,3 +129,38 @@ def adamw_update(grads, opt_state, params, cfg: AdamWConfig
     new_params, new_mu, new_nu = rebuild(0), rebuild(1), rebuild(2)
     info = {"gnorm": gnorm, "lr": lr}
     return new_params, {"mu": new_mu, "nu": new_nu, "step": step}, info
+
+
+@torch.no_grad()
+def adamw_update_(grads, opt_state, params, cfg: AdamWConfig
+                  ) -> Tuple[Any, Dict[str, Any], Dict[str, torch.Tensor]]:
+    """:func:`adamw_update` written into the buffers it is given: returns
+    ``(params, opt_state, info)``, the same objects, each parameter, moment
+    and the step updated in place, and every number equal to
+    :func:`adamw_update`'s bit for bit (the same elementwise ops, in the
+    same order, on the same operands). ``grads`` are consumed: an f32
+    gradient is the scratch of its own leaf. A leaf needs one more
+    leaf-sized f32 buffer (two for a bf16 leaf), freed before the next;
+    the reference's trainer gets the same from donating params and state
+    to ``jax.jit``."""
+    step = opt_state["step"].add_(1)
+    lr, gnorm, scale, bc1, bc2 = _scalars(grads, step, cfg)
+    b1, b2 = cfg.b1, cfg.b2
+    for p, g, mu, nu in zip(*(tree_leaves(t) for t in (
+            params, grads, opt_state["mu"], opt_state["nu"]))):
+        g = g.mul_(scale) if g.dtype == torch.float32 else (
+            g.to(torch.float32) * scale)
+        tmp = torch.mul(g, 1 - b1)
+        mu.mul_(b1).add_(tmp)
+        torch.square(g, out=tmp)
+        nu.mul_(b2).add_(tmp.mul_(1 - b2))
+        mhat = torch.div(mu, bc1, out=tmp)
+        nhat = torch.div(nu, bc2, out=g)
+        delta = mhat.div_(nhat.sqrt_().add_(cfg.eps))
+        wd = cfg.weight_decay if p.ndim >= 2 else 0.0
+        p32 = p if p.dtype == torch.float32 else p.to(torch.float32)
+        p32.mul_(1 - lr * wd).sub_(delta.mul_(lr))
+        if p32 is not p:
+            p.copy_(p32)
+        del g, tmp, mhat, nhat, delta, p32
+    return params, opt_state, {"gnorm": gnorm, "lr": lr}

@@ -1738,3 +1738,134 @@ def test_flips_under_concurrent_replays_on_card(cuda):
     assert not flipper.is_alive() and not any(t.is_alive() for t in runners)
     assert errors == [] and bad == []
     assert torch.equal(em.run_int(x).outputs, want[0])
+
+
+# --------------------------------------------------------------------------- #
+# LM training on the card: B5's gradient, the train step, recovery,
+# checkpoints
+# --------------------------------------------------------------------------- #
+
+
+@pytest.mark.parametrize("dtype,name", [(torch.bfloat16, "sm90"),
+                                        (torch.float32, "simt")])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_gradient_on_card_is_the_plain_versions(cuda, dtype, name,
+                                                      causal):
+    """B5's backward is the plain version's VJP recomputed from (q, k, v):
+    dq, dk, dv equal those through ``attention_ref`` bit for bit."""
+    gen = torch.Generator(device=cuda).manual_seed(24)
+    q, k, v, dout = (torch.randn((2, 200, 3, 80), generator=gen,
+                                 device=cuda).mul(0.5).to(dtype)
+                     for _ in range(4))
+
+    def grads(fn):
+        qkv = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        return torch.autograd.grad(fn(*qkv, causal), qkv, dout)
+
+    before = dict(flash_ops.launches_by_variant)
+    got = grads(flash_attention)
+    assert flash_ops.launches_by_variant[name] == before[name] + 1
+    for g, w in zip(got, grads(attention_ref)):
+        assert g.dtype == dtype and torch.equal(g, w)
+
+
+def _train_case(cuda, arch="yi-9b", dtype="float32"):
+    from repro_torch.data.pipeline import LMDataConfig, lm_batch_for_step
+    from repro_torch.model.lm import Stepper
+
+    cfg = get_config(arch, smoke=True)
+    st = Stepper(cfg, ShapeConfig("t", "train", 32, 8), SMOKE_MESH,
+                 ParallelismConfig(compute_dtype=dtype, attn_impl="flash"))
+    batch = lm_batch_for_step(LMDataConfig(vocab_size=cfg.vocab_size,
+                                           seq_len=32, global_batch=8), 0)
+    return cfg, st, batch
+
+
+def test_train_step_on_card_matches_cpu(cuda):
+    """One f32 train step from the same params on the card and on the
+    CPU: B5 launched twice a layer (a forward and its remat recompute),
+    loss, gnorm and the new params within 1e-5."""
+    from repro_torch.model.layers import tree_leaves
+    from repro_torch.optim.adamw import init_opt_state
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg, st, batch = _train_case(cuda)
+    params = st.init(seed=1, device="cpu")
+    out = {}
+    for dev in ("cpu", cuda):
+        p = to_torch(params, device=dev)
+        b = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+        before = flash_ops.launches
+        out[str(dev)] = st.train_fn()(p, init_opt_state(p), b)
+        launched = flash_ops.launches - before
+        assert launched == (2 * cfg.n_layers if dev == cuda else 0)
+    (pc, _, mc), (pg, _, mg) = out["cpu"], out[str(cuda)]
+    for key in ("loss", "gnorm"):
+        assert abs(mg[key].item() - mc[key].item()) <= 1e-5 * abs(
+            mc[key].item())
+    for a, b in zip(tree_leaves(pg), tree_leaves(pc)):
+        assert (a.cpu() - b).abs().max().item() <= 1e-5
+
+
+def test_donating_update_on_card_is_bit_for_bit(cuda):
+    from repro_torch.model.layers import tree_leaves, tree_map
+    from repro_torch.optim import adamw
+
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    cfg = adamw.AdamWConfig(lr=1e-2, warmup_steps=2, total_steps=8)
+    for dtype in (torch.float32, torch.bfloat16):
+        params = {"w": torch.randn((64, 33), generator=gen,
+                                   device=cuda).to(dtype),
+                  "b": torch.randn((33,), generator=gen,
+                                   device=cuda).to(dtype)}
+        opt = adamw.init_opt_state(params)
+        p2, o2 = tree_map(torch.clone, params), tree_map(torch.clone, opt)
+        for _ in range(3):
+            grads = tree_map(lambda t: torch.randn(
+                t.shape, generator=gen, device=cuda).to(dtype), params)
+            params, opt, info = adamw.adamw_update(grads, opt, params, cfg)
+            p2, o2, info2 = adamw.adamw_update_(
+                tree_map(torch.clone, grads), o2, p2, cfg)
+            for a, b in zip(tree_leaves((params, opt, info)),
+                            tree_leaves((p2, o2, info2))):
+                assert torch.equal(a, b)
+
+
+def test_recovery_on_card(cuda, tmp_path):
+    """The reference's recovery scenario, shortened: a preemption at step
+    5 of 9, checkpoints every 3 steps; the replay logs the clean run's
+    losses within 1e-4."""
+    from repro_torch.data.pipeline import LMDataConfig
+    from repro_torch.runtime import FailureInjector, Trainer, TrainerConfig
+
+    cfg, st, _ = _train_case(cuda)
+
+    def run(td, inj=None):
+        return Trainer(st, LMDataConfig(vocab_size=cfg.vocab_size,
+                                        seq_len=32, global_batch=8, seed=7),
+                       TrainerConfig(total_steps=9, ckpt_every=3,
+                                     ckpt_dir=str(td), log_every=1),
+                       injector=inj, device=cuda).train()
+
+    hit = run(tmp_path / "a", FailureInjector(fail_at_steps={5}))
+    clean = run(tmp_path / "b")
+    assert hit["recoveries"] == 1 and hit["steps"] == 9
+    for a, b in zip(hit["metrics"][-4:], clean["metrics"][-4:]):
+        assert a["step"] == b["step"] and abs(a["loss"] - b["loss"]) < 1e-4
+
+
+def test_cpu_checkpoint_restores_onto_card_bit_for_bit(cuda, tmp_path):
+    from repro_torch.checkpoint import load_checkpoint, save_checkpoint
+    from repro_torch.model.layers import tree_leaves, tree_map
+    from repro_torch.optim.adamw import init_opt_state
+
+    _, st, _ = _train_case(cuda)
+    params = st.init(seed=2, device="cpu", dtype_override=torch.bfloat16)
+    state = {"params": params, "opt": init_opt_state(params)}
+    save_checkpoint(str(tmp_path), 4, state)
+    back = load_checkpoint(str(tmp_path), 4,
+                           tree_map(lambda t: torch.zeros_like(
+                               t, device=cuda), state))
+    for a, b in zip(tree_leaves(back), tree_leaves(state)):
+        assert a.device.type == "cuda" and a.dtype == b.dtype
+        assert torch.equal(a.cpu(), b)

@@ -400,14 +400,24 @@ def test_window_float_loss_and_grads(arch, kind):
 
 
 def test_lm_loss_and_train_step_name_their_slice():
+    """The LM training slice (ROADMAP A11) gave the LM families their loss
+    and train step; they are held against the reference in
+    ``tests/test_torch_lm_train.py``. Here: both build and run."""
     cfg = get_config("yi-9b", smoke=True)
-    for make in (lambda: tlm.make_loss_fn(cfg, ttypes.SMOKE_MESH,
-                                          ttypes.ParallelismConfig()),
-                 lambda: tlm.make_train_step(cfg, ttypes.SMOKE_MESH,
-                                             ttypes.ParallelismConfig(),
-                                             tadamw.AdamWConfig())):
-        with pytest.raises(NotImplementedError, match="A11"):
-            make()
+    par = ttypes.ParallelismConfig(compute_dtype="float32")
+    st = tlm.Stepper(cfg, ttypes.ShapeConfig("t", "train", 16, 2),
+                     ttypes.SMOKE_MESH, par)
+    params = st.init(device="cpu")
+    batch = {"tokens": torch.zeros(2, 16, dtype=torch.int32),
+             "targets": torch.ones(2, 16, dtype=torch.int32)}
+    loss, metrics = tlm.make_loss_fn(cfg, ttypes.SMOKE_MESH, par)(params,
+                                                                  batch)
+    assert torch.isfinite(loss) and int(metrics["n_tok"]) == 32
+    _, opt, metrics = tlm.make_train_step(
+        cfg, ttypes.SMOKE_MESH, par, tadamw.AdamWConfig())(
+        params, tadamw.init_opt_state(params), batch)
+    assert torch.equal(metrics["loss"], loss.detach())
+    assert int(opt["step"]) == 1
 
 
 # --------------------------------------------------------------------------- #
