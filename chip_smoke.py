@@ -224,13 +224,41 @@ checkpoints, the fault-tolerant ``Trainer`` and ``launch/train.py``):
     on the CPU restored onto the card bit for bit. (d)
     ``launch.train.main(["--arch", "yi-9b", "--steps", "40", "--device",
     "cuda", ...])`` in process: exit 0, the loss falls;
-20. print the kernels line (B1's and B2's rows also carry the loop's
+The LM families (the MoE FFN, the vision and audio frontends, the
+encoder-decoder), B5 on every causal prefill layer:
+
+20. (a) DeepSeek-MoE-16B at full width and depth (16,375,728,128
+    parameters, random bf16 weights drawn on the card, the router f32;
+    the MoE FFN the reference's one-device dense oracle) serves phase 6's
+    8 requests through ``Server`` with ``attn_impl="flash"`` on 4 slots
+    of 4,096 positions, every launch count set to 0 just before and read
+    just after: every request served, B5 28 times a request (224), all
+    ``sm90``, no other kernel; tokens/s, TTFT, ms a prefill and a decode
+    tick, peak device memory; flash vs plain attention on the 2,048-token
+    prefill in bf16 within phase 7's bar (sqrt(28) x 2^-7) and the served
+    first token the flash prefill's; in f32 at full width and 4 layers on
+    all 8 prompts within 1e-3 with identical greedy tokens; one prefill
+    and one decode tick profiled, device ms split into routed experts,
+    shared experts, router/top-k/combine, B5 and the rest. (b)
+    Qwen3-MoE-30B-A3B at full width and 8 of its 48 layers: a 2,048-token
+    prefill of 2 sequences and 16 decode steps, bf16 flash vs plain
+    within sqrt(8) x 2^-7 (B5 8 ``sm90`` a prefill), f32 flash vs plain on
+    the card within 1e-3 with identical greedy tokens; ms a prefill and a
+    decode step. (c) InternVL2-1B (256 patch embeddings + 1,792 tokens)
+    and whisper-tiny (1,500 frames through the 4-layer encoder, a 64-token
+    decoder prefill) at their published sizes, 16 decode steps each
+    (whisper's through the cached cross K/V): bf16 flash vs plain within
+    the bar (B5 24 and 4 a prefill, the encoder none), f32 on the card
+    (B5) against the CPU within 1e-4 with identical greedy tokens. In
+    bf16 the greedy tokens' agreement is printed, not required: the two
+    attentions round the softmax weights at different points (phase 7);
+21. print the kernels line (B1's and B2's rows also carry the loop's
     launches, ``workflow_launches``, the farm's, ``farm_launches``, one
     multi-design replay's of each design, ``multi_launches``, and phase
     18's, ``resilience_launches``; B5's the host target's,
-    ``host_target_launches`` and ``host_target_train_launches``, and the
-    8 training steps', ``train_launches``) and the card's name and power
-    limit.
+    ``host_target_launches`` and ``host_target_train_launches``, the
+    8 training steps', ``train_launches``, and phase 20's by arch,
+    ``families_launches``) and the card's name and power limit.
 
 Usage, from the repository root: ``python3 chip_smoke.py``. Needs one CUDA
 card and ``nvcc``; exits non-zero, printing no result, without them. The
@@ -239,6 +267,7 @@ last line of output is ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import collections
+import contextlib
 import functools
 import itertools
 import json
@@ -474,6 +503,19 @@ def sass_iteration(lib_path, function_key: str, anchor: str = "IMMA",
         if bodies:
             return collections.Counter(min(bodies, key=len))
     return None
+
+
+def host_ms(fn, reps: int = 10) -> float:
+    """Host ms of one synchronised ``fn()``, after a warm-up call."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / reps * 1e3
 
 
 def profile_ms(fn):
@@ -2631,6 +2673,536 @@ def phase_train(ops_by_name: dict, card: str) -> dict:
             "host_train_launches": host["per_call"]}
 
 
+# the LM families (phase 20): DeepSeek-MoE-16B served at full width and
+# depth on phase 6's traffic; Qwen3-MoE-30B-A3B at full width and 8 of its
+# 48 layers (its 48 layers hold 61 GB of bf16 weights); InternVL2-1B and
+# whisper-tiny at their published sizes
+MOE_SERVE_ARCH = "deepseek-moe-16b"
+MOE_SERVE_PARAMS = 16_375_728_128
+MOE_CUT_ARCH, MOE_CUT_LAYERS = "qwen3-moe-30b-a3b", 8
+MOE_CUT_BATCH, MOE_CUT_SEQ = 2, 2048
+VLM_ARCH, VLM_TEXT = "internvl2-1b", 1792   # + 256 patch embeddings
+AUDIO_ARCH, AUDIO_PROMPT = "whisper-tiny", 64
+FAMILY_DECODE_STEPS = 16
+FAMILY_F32_LAYERS = 4                 # DeepSeek's f32 check, as phase 7's
+F32_CARD_CPU_TOL = 1e-4               # f32 logits, card vs CPU (max abs)
+
+
+@contextlib.contextmanager
+def moe_ranges(moe_mod):
+    """The MoE layer, its routed experts' FFN and its shared experts, each
+    under a ``record_function`` range for the profiler (the port's own
+    functions, wrapped for the scope)."""
+    from torch.profiler import record_function
+
+    saved = (moe_mod._expert_ffn, moe_mod._shared_ffn, dict(moe_mod.IMPLS))
+
+    def labelled(name, fn):
+        def run(*args, **kwargs):
+            with record_function(name):
+                return fn(*args, **kwargs)
+        return run
+
+    moe_mod._expert_ffn = labelled("moe.experts", saved[0])
+    moe_mod._shared_ffn = labelled("moe.shared", saved[1])
+    for key, fn in saved[2].items():
+        moe_mod.IMPLS[key] = labelled("moe.layer", fn)
+    try:
+        yield
+    finally:
+        moe_mod._expert_ffn, moe_mod._shared_ffn = saved[:2]
+        moe_mod.IMPLS.update(saved[2])
+
+
+MOE_RANGES = ("moe.layer", "moe.experts", "moe.shared")
+
+
+def profile_moe_step(moe_mod, fn, label: str, card: str) -> None:
+    """One ``fn()`` under ``torch.profiler`` with the MoE ranges on: device
+    ms split into routed experts, shared experts, router/top-k/combine
+    (the MoE layer's rest), B5 and everything else, and the busy share.
+    A range's time is that of the kernels inside its device spans (the
+    profiler's ``gpu_user_annotation`` events), not the spans'."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with moe_ranges(moe_mod):
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+    spans: dict = {name: [] for name in MOE_RANGES}
+    kernels = []
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        start, end = e.time_range.start, e.time_range.end
+        if e.name in spans:
+            spans[e.name].append((start, end))
+        else:
+            kernels.append((e.name, start, end))
+    busy = sum(end - start for _, start, end in kernels) / 1e3
+    if busy == 0:
+        log(f"phase 20 profile, {label}: device time not measured (the "
+            "profiler saw no GPU activity)")
+        return
+
+    def inside(name):
+        return sum(end - start for _, start, end in kernels if any(
+            lo <= start and end <= hi for lo, hi in spans[name])) / 1e3
+
+    b5 = sum(end - start for name, start, end in kernels
+             if "flash_fwd" in name) / 1e3
+    layer, experts, shared = (inside(name) for name in MOE_RANGES)
+    if not spans["moe.layer"]:
+        split = "MoE split not measured (no device spans for the ranges)"
+    else:
+        split = (f"routed experts {experts:.3f} ms, shared experts "
+                 f"{shared:.3f} ms, router/top-k/combine "
+                 f"{layer - experts - shared:.3f} ms")
+    by_name: dict = {}
+    for name, start, end in kernels:
+        by_name[name] = by_name.get(name, 0.0) + (end - start) / 1e3
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+    log(f"phase 20 profile, {label}: device busy {busy:.3f} ms of "
+        f"{wall:.3f} ms host clock (profiler on) = {100 * busy / wall:.1f}%; "
+        f"{split}; B5 {b5:.3f} ms; the rest {busy - layer - b5:.3f} ms; "
+        + "; ".join(f"{name[:50]} {ms:.3f} ms" for name, ms in top)
+        + f" ({card})")
+
+
+def greedy_run(cfg, params, batch, par, steps: int, forced=None):
+    """Prefill ``batch`` then ``steps`` greedy decode steps (fed
+    ``forced`` (B, steps + 1) tokens instead of its own where given):
+    (the last-position logits of each of the steps + 1 positions, f32 on
+    the host, and the greedy tokens (B, steps + 1))."""
+    import torch
+
+    from repro_torch.core.types import SMOKE_MESH
+    from repro_torch.model.lm import make_decode_step, make_prefill_step
+    from repro_torch.model.transformer import pad_cache
+
+    S = batch["tokens"].shape[1]
+    prefill = make_prefill_step(cfg, SMOKE_MESH, par)
+    decode = make_decode_step(cfg, SMOKE_MESH, par)
+    with torch.no_grad():
+        logits, cache = prefill(params, batch)
+        cache = pad_cache(cache, S + steps)
+        outs = [logits.float().cpu()]
+        for i in range(steps):
+            tok = (forced[:, i] if forced is not None
+                   else outs[-1].argmax(-1))
+            logits, cache = decode(params, tok.reshape(-1, 1).to(
+                batch["tokens"].device), cache)
+            outs.append(logits.float().cpu())
+    if not all(torch.isfinite(o).all() for o in outs):
+        raise AssertionError(f"{cfg.name}: non-finite logits")
+    return outs, torch.stack([o.argmax(-1) for o in outs], dim=1)
+
+
+@contextlib.contextmanager
+def routes(moe_mod, record=None, replay=None):
+    """The MoE router's expert choices: appended to the list ``record``,
+    call by call, or taken from ``replay`` in the same order (the
+    probabilities at those experts, so the combine weights follow)."""
+    real = moe_mod.top_k
+    it = iter(replay or ())
+
+    def top_k(probs, k):
+        if replay is None:
+            vals, idx = real(probs, k)
+            record.append(idx)
+            return vals, idx
+        idx = next(it)
+        return probs.gather(-1, idx), idx
+
+    moe_mod.top_k = top_k
+    try:
+        yield
+    finally:
+        moe_mod.top_k = real
+
+
+def held_flash_vs_plain(cfg, params, batch, layers: int, steps: int,
+                        flash_ops, card: str) -> dict:
+    """The bf16 run with B5 against plain attention from one set of
+    params, the plain run fed the flash run's greedy tokens. An MoE
+    model's router turns bf16 noise into other experts at near-ties, a
+    jump the bar's derivation (phase 7) does not cover; so the plain run
+    is made twice, once routing on its own (its distance and the routing
+    decisions that differ are printed) and once on the flash run's
+    routes, which isolates the attention: every position's logits of that
+    run within sqrt(layers) x 2^-7 relative rms (phase 7's bar). The
+    greedy tokens' agreement is printed. Returns B5's launches in the
+    flash run's prefill."""
+    import torch
+
+    from repro_torch.core.types import SMOKE_MESH, ParallelismConfig
+    from repro_torch.model import moe as moe_mod
+    from repro_torch.model.lm import make_prefill_step
+
+    def par(impl):
+        return ParallelismConfig(compute_dtype="bfloat16", attn_impl=impl)
+
+    bar = layers ** 0.5 * 2.0 ** -7
+    flash_ops.launches = 0
+    flash_ops.launches_by_variant = dict.fromkeys(
+        flash_ops.launches_by_variant, 0)
+    with torch.no_grad():
+        make_prefill_step(cfg, SMOKE_MESH, par("flash"))(params, batch)
+    torch.cuda.synchronize()
+    b5 = dict(flash_ops.launches_by_variant)
+    route_f, route_r = [], []
+    with routes(moe_mod, record=route_f):
+        lf, tf = greedy_run(cfg, params, batch, par("flash"), steps)
+    with routes(moe_mod, record=route_r):
+        lr, _ = greedy_run(cfg, params, batch, par("ref"), steps, forced=tf)
+
+    def rels(lo):
+        return [((a - b).norm() / b.norm()).item() for a, b in zip(lf, lo)]
+
+    rel_free = rels(lr)
+    agree = sum(int((a.argmax(-1) == b.argmax(-1)).sum())
+                for a, b in zip(lf, lr))
+    n, shape = tf.numel(), tuple(batch["tokens"].shape)
+    if route_f:
+        with routes(moe_mod, replay=route_f):
+            lp, _ = greedy_run(cfg, params, batch, par("ref"), steps,
+                               forced=tf)
+        rel = rels(lp)
+        differ = sum(int((a.sort(-1)[0] != b.sort(-1)[0]).any(-1).sum())
+                     for a, b in zip(route_f, route_r))
+        decisions = sum(a.shape[0] for a in route_f)
+        routed = (f"routing on its own: worst rel rms {max(rel_free):.3e}, "
+                  f"the experts of {differ} of {decisions} (token, layer) "
+                  "routings differ; on the flash run's routes: ")
+    else:
+        rel, routed = rel_free, ""
+    if max(rel) > bar:
+        raise AssertionError(f"{cfg.name} bf16: flash vs plain logits rel "
+                             f"rms {max(rel):.3e} > sqrt({layers}) * 2^-7 "
+                             f"= {bar:.3e} ({rel})")
+    log(f"phase 20 {cfg.name} bf16, {layers} layers, tokens {shape}: "
+        "flash vs plain attention, the plain run fed the flash run's "
+        f"tokens, over {len(rel)} positions' logits: {routed}worst rel rms "
+        f"{max(rel):.3e} (prefill {rel[0]:.3e}) <= sqrt({layers}) * 2^-7 = "
+        f"{bar:.3e}; greedy tokens agree on {agree}/{n}; B5 in the prefill "
+        f"{json.dumps(b5)} ({card})")
+    return {"b5": b5, "agree": agree, "n": n, "rel": max(rel)}
+
+
+def held_f32(cfg, params, batch, steps: int, card: str, label: str):
+    """The f32 run with B5 (``simt``) on the card, in IEEE f32 matmuls,
+    against the same run on the CPU (plain attention) where ``params`` lie
+    on the CPU (max abs within ``F32_CARD_CPU_TOL``), else against plain
+    attention on the card (``F32_LOGIT_REL_TOL`` of the largest logit, as
+    phase 7): identical greedy tokens (the other run fed the card's) and
+    every position's logits within the bar."""
+    import torch
+
+    from repro_torch.core.types import ParallelismConfig
+    from repro_torch.model.layers import tree_leaves, tree_map
+    from repro_torch.verify.conformance import exact_f32_matmul
+
+    def par(impl):
+        return ParallelismConfig(compute_dtype="float32", attn_impl=impl)
+
+    on_cpu = tree_leaves(params)[0].device.type == "cpu"
+    card_params = tree_map(lambda t: t.to("cuda"), params)
+    with exact_f32_matmul():
+        lg, tg = greedy_run(cfg, card_params, {
+            k: v.cuda() for k, v in batch.items()}, par("flash"), steps)
+        if on_cpu:
+            lo, _ = greedy_run(cfg, params, batch, par("flash"), steps,
+                               forced=tg)
+        else:
+            lo, _ = greedy_run(cfg, params, batch, par("ref"), steps,
+                               forced=tg)
+    del card_params
+    if on_cpu:
+        err = max((a - b).abs().max().item() for a, b in zip(lg, lo))
+        bar, what = F32_CARD_CPU_TOL, "the card (B5) vs the CPU, max abs"
+    else:
+        err = max(((a - b).abs().max() / b.abs().max()).item()
+                  for a, b in zip(lg, lo))
+        bar, what = F32_LOGIT_REL_TOL, ("flash vs plain on the card, "
+                                        "max|flash-ref|/max|ref|")
+    same = all(torch.equal(a.argmax(-1), b.argmax(-1))
+               for a, b in zip(lg, lo))
+    if err > bar or not same:
+        raise AssertionError(f"{cfg.name} f32 {label}: {what} {err:.3e} "
+                             f"(bar {bar}), greedy tokens equal: {same}")
+    log(f"phase 20 {cfg.name} f32 {label}: {what} {err:.3e} <= {bar} over "
+        f"{steps + 1} positions; greedy tokens identical ({tg.numel()}) "
+        f"({card})")
+
+
+def phase_families(ops_by_name: dict, card: str) -> dict:
+    """Phase 20, the LM families on the card. (a) DeepSeek-MoE-16B at full
+    width and depth (16,375,728,128 parameters, random bf16 weights drawn
+    on the card, the router f32) serves phase 6's 8 requests through
+    ``Server`` with B5 on 4 slots of 4,096 positions, every launch count
+    set to 0 just before and read just after: B5 28 times a request, all
+    ``sm90``, no other kernel; tokens/s, TTFT, ms a prefill and a decode
+    tick, peak device memory; flash vs plain on one full-depth prefill in
+    bf16 within phase 7's bar, and at full width and 4 layers in f32 with
+    identical greedy tokens; one prefill and one decode tick profiled.
+    (b) Qwen3-MoE-30B-A3B at full width and 8 layers: a 2,048-token
+    prefill of 2 sequences and 16 decode steps, bf16 flash vs plain within
+    sqrt(8) x 2^-7, and in f32 the card's tokens and logits against the
+    CPU's; B5 8 times a prefill; ms a prefill and a decode step. (c)
+    InternVL2-1B (256 patch embeddings + 1,792 tokens) and whisper-tiny
+    (1,500 frames through the encoder, a 64-token decoder prefill) with 16
+    decode steps each: bf16 flash vs plain within the bar, f32 card vs CPU
+    within 1e-4 with identical greedy tokens; B5 24 and 4 times a prefill.
+    Returns B5's launches by arch."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.types import (SMOKE_MESH, ParallelismConfig,
+                                        ShapeConfig)
+    from repro_torch.model import moe as moe_mod
+    from repro_torch.model.layers import param_count, tree_map
+    from repro_torch.model.lm import (Stepper, make_decode_step,
+                                      make_prefill_step)
+    from repro_torch.model.transformer import pad_cache
+    from repro_torch.obs import Tracer, find_spans, set_tracer
+    from repro_torch.runtime.server import Server, ServerConfig
+
+    flash_ops = ops_by_name["flash_attention"]
+    bf16 = torch.bfloat16
+    torch.cuda.empty_cache()
+    log(f"phase 20 start: {torch.cuda.memory_allocated() / 1e9:.2f} GB "
+        "allocated on the card by the earlier phases")
+
+    def zero_counts():
+        for mod in ops_by_name.values():
+            mod.launches = 0
+            if hasattr(mod, "launches_by_variant"):
+                mod.launches_by_variant = dict.fromkeys(
+                    mod.launches_by_variant, 0)
+
+    launches = {}
+    flash = ParallelismConfig(compute_dtype="bfloat16", attn_impl="flash")
+
+    # ---- (a) DeepSeek-MoE-16B served at full width and depth ---------------
+    cfg = get_config(MOE_SERVE_ARCH)
+    st = Stepper(cfg, ShapeConfig("serve", "prefill", MAX_LEN, SLOTS),
+                 SMOKE_MESH, flash)
+    n_params = param_count(st.schema)
+    if n_params != MOE_SERVE_PARAMS:
+        raise AssertionError(f"{cfg.name}: {n_params} parameters")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = st.init(seed=SEED, device="cuda", dtype_override=bf16)
+    torch.cuda.synchronize()
+    router = params["g1"]["moe"]["router"]
+    if router.dtype != torch.float32 or params["g1"]["moe"][
+            "w_gate"].dtype != bf16:
+        raise AssertionError(f"{cfg.name}: router {router.dtype}")
+    m = cfg.moe
+    log(f"phase 20a {cfg.name}: {n_params:,} parameters ({cfg.n_layers} "
+        f"layers, the first dense with d_ff {m.d_ff_dense}; {m.n_experts} "
+        f"routed experts top {m.top_k} of d_expert {m.d_expert}, "
+        f"{m.n_shared} shared; d_model {cfg.d_model}, {cfg.n_heads} heads "
+        f"of hd {cfg.hd}, vocab {cfg.vocab_size}) drawn on the card in bf16 "
+        f"(router f32) in {time.perf_counter() - t0:.2f} s; "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated, peak at "
+        f"init {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    rng = np.random.default_rng(SEED + 20)
+    prompts = [rng.integers(2, cfg.vocab_size, n).tolist()
+               for n in PROMPT_LENS]
+    warm = Server(cfg, params, ServerConfig(batch_slots=1, max_len=64,
+                                            eos_token=-1), SMOKE_MESH, flash)
+    warm.submit(prompts[0], max_new_tokens=2)        # cuBLAS/allocator warm-up
+    warm.run_until_drained()
+    del warm
+    srv = Server(cfg, params, ServerConfig(batch_slots=SLOTS, max_len=MAX_LEN,
+                                           eos_token=-1), SMOKE_MESH, flash)
+    tracer = Tracer()
+    prev_tracer = set_tracer(tracer)
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    t0 = time.perf_counter()
+    for prompt in prompts:
+        srv.submit(prompt, max_new_tokens=MAX_NEW)
+    done = srv.run_until_drained()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {key: mod.launches for key, mod in ops_by_name.items()}
+    variants = dict(flash_ops.launches_by_variant)
+    set_tracer(prev_tracer)
+    peak = torch.cuda.max_memory_allocated()
+    stats = done.stats
+    if not done.drained or stats.admitted != len(prompts) or \
+            stats.retired != len(prompts):
+        raise AssertionError(f"{cfg.name}: server did not serve every "
+                             f"request: {stats}")
+    for req in done:
+        if len(req.out_tokens) != MAX_NEW or not all(
+                0 <= t < cfg.padded_vocab for t in req.out_tokens):
+            raise AssertionError(f"{cfg.name}: request {req.rid} "
+                                 f"out_tokens {req.out_tokens}")
+    want = cfg.n_layers * len(prompts)
+    if counts["flash_attention"] != want or variants != {
+            "sm90": want, "simt": 0} or any(
+            n for key, n in counts.items() if key != "flash_attention"):
+        raise AssertionError(f"{cfg.name}: launches {counts}, B5 by "
+                             f"variant {variants}, expected {want} B5 sm90 "
+                             "and no other kernel")
+    launches[cfg.name] = counts["flash_attention"]
+    n_tok = sum(len(r.out_tokens) for r in done)
+    prefill_ms = {sp.attrs["prompt_len"]: sp.duration * 1e3
+                  for sp in find_spans(tracer.spans, "server.prefill")}
+    tick_ms = sorted(sp.duration * 1e3
+                     for sp in find_spans(tracer.spans, "server.decode"))
+    log(f"phase 20a served {cfg.name}: {len(done)} requests, {n_tok} tokens "
+        f"in {wall:.3f} s = {n_tok / wall:.2f} tokens/s ({SLOTS} slots, "
+        f"max_len {MAX_LEN}, {stats.ticks} ticks); B5 launches "
+        f"{counts['flash_attention']} = {cfg.n_layers} per request, by "
+        f"variant {json.dumps(variants)}; no other kernel launched; peak "
+        f"device memory {peak / 1e9:.2f} GB ({card})")
+    log("phase 20a ttft_s " + json.dumps(stats.ttft_s))
+    log("phase 20a latency_s " + json.dumps(stats.latency_s))
+    log("phase 20a prefill ms by prompt length (host clock, ends in the "
+        "first token's copy to the host): " + ", ".join(
+            f"{n}: {prefill_ms[n]:.1f}" for n in PROMPT_LENS)
+        + f"; decode tick ms (host clock, {len(tick_ms)} ticks): median "
+        f"{tick_ms[len(tick_ms) // 2]:.2f}, min {tick_ms[0]:.2f}, max "
+        f"{tick_ms[-1]:.2f}")
+    del srv
+    # flash vs plain at full depth on one prefill (bf16), then the served
+    # first token against the flash prefill's
+    i2k = PROMPT_LENS.index(2048)
+    one = {"tokens": torch.tensor([prompts[i2k]], dtype=torch.int64,
+                                  device="cuda")}
+    held = held_flash_vs_plain(cfg, params, one, cfg.n_layers, 0, flash_ops,
+                               card)
+    with torch.no_grad():
+        first = int(make_prefill_step(cfg, SMOKE_MESH, flash)(
+            params, one)[0].argmax())
+    if first != done[i2k].out_tokens[0]:
+        raise AssertionError(f"{cfg.name}: served first token "
+                             f"{done[i2k].out_tokens[0]} != the flash "
+                             f"prefill's {first}")
+    # one 2,048-token prefill and one decode tick of 4 slots over 4,096
+    # positions, half filled, profiled
+    prefill = make_prefill_step(cfg, SMOKE_MESH, flash)
+    decode = make_decode_step(cfg, SMOKE_MESH, flash)
+    with torch.no_grad():
+        _, cache = prefill(params, one)
+        pool = {"layers": tuple(
+            {key: torch.cat([buf] * SLOTS) for key, buf in c.items()}
+            for c in pad_cache(cache, MAX_LEN)["layers"])}
+        del cache
+        last = torch.zeros((SLOTS, 1), dtype=torch.int64, device="cuda")
+        profile_moe_step(moe_mod, lambda: prefill(params, one),
+                         f"one 2048-token prefill, {cfg.n_layers} layers",
+                         card)
+        profile_moe_step(moe_mod, lambda: decode(params, last, pool),
+                         f"one decode tick of {SLOTS} slots over a "
+                         f"{MAX_LEN}-position cache, {cfg.n_layers} layers",
+                         card)
+    del params, pool, prefill, decode
+    torch.cuda.empty_cache()
+    # f32 at full width and 4 layers: identical greedy tokens
+    cfg4 = cfg.with_(n_layers=FAMILY_F32_LAYERS)
+    p4 = Stepper(cfg4, ShapeConfig("check", "prefill", MAX_LEN, 1),
+                 SMOKE_MESH, flash).init(seed=SEED + 1, device="cuda")
+    for prompt in prompts:
+        held_f32(cfg4, p4, {"tokens": torch.tensor(
+            [prompt], dtype=torch.int64, device="cuda")}, 0, card,
+            f"full width, {FAMILY_F32_LAYERS} layers, S={len(prompt)}")
+    del p4
+    torch.cuda.empty_cache()
+
+    # ---- (b) Qwen3-MoE-30B-A3B at full width, 8 layers ---------------------
+    cfg = get_config(MOE_CUT_ARCH).with_(n_layers=MOE_CUT_LAYERS)
+    st = Stepper(cfg, ShapeConfig("p", "prefill", MOE_CUT_SEQ,
+                                  MOE_CUT_BATCH), SMOKE_MESH, flash)
+    t0 = time.perf_counter()
+    params = st.init(seed=SEED, device="cuda", dtype_override=bf16)
+    torch.cuda.synchronize()
+    log(f"phase 20b {cfg.name} at {MOE_CUT_LAYERS} of 48 layers: "
+        f"{param_count(st.schema):,} parameters ({cfg.moe.n_experts} "
+        f"experts top {cfg.moe.top_k} of d_expert {cfg.moe.d_expert}, GQA "
+        f"{cfg.n_heads}/{cfg.n_kv_heads}, qk-norm, hd {cfg.hd}) drawn in "
+        f"bf16 in {time.perf_counter() - t0:.2f} s")
+    toks = torch.as_tensor(rng.integers(2, cfg.vocab_size, (
+        MOE_CUT_BATCH, MOE_CUT_SEQ)), device="cuda")
+    held = held_flash_vs_plain(cfg, params, {"tokens": toks}, cfg.n_layers,
+                               FAMILY_DECODE_STEPS, flash_ops, card)
+    if held["b5"] != {"sm90": cfg.n_layers, "simt": 0}:
+        raise AssertionError(f"{cfg.name}: B5 per prefill {held['b5']}")
+    launches[cfg.name] = held["b5"]["sm90"]
+    prefill = make_prefill_step(cfg, SMOKE_MESH, flash)
+    decode = make_decode_step(cfg, SMOKE_MESH, flash)
+    with torch.no_grad():
+        _, cache = prefill(params, {"tokens": toks})
+        cache = pad_cache(cache, MOE_CUT_SEQ + FAMILY_DECODE_STEPS)
+        nxt = toks[:, -1:]
+        ms_p = host_ms(lambda: prefill(params, {"tokens": toks}), 3)
+        ms_d = host_ms(lambda: decode(params, nxt, cache), 5)
+    log(f"phase 20b {cfg.name} {MOE_CUT_LAYERS} layers bf16 flash: one "
+        f"prefill of {MOE_CUT_BATCH} x {MOE_CUT_SEQ} tokens {ms_p:.2f} ms, "
+        f"one decode step of {MOE_CUT_BATCH} sequences {ms_d:.2f} ms (host "
+        f"clock, synchronised; the dense oracle runs all "
+        f"{cfg.moe.n_experts} experts on every token) ({card})")
+    del params, cache, prefill, decode
+    torch.cuda.empty_cache()
+    p32 = st.init(seed=SEED + 2, device="cuda")
+    held_f32(cfg, p32, {"tokens": toks}, FAMILY_DECODE_STEPS, card,
+             f"{MOE_CUT_LAYERS} layers, {MOE_CUT_BATCH} x {MOE_CUT_SEQ} + "
+             f"{FAMILY_DECODE_STEPS} steps")
+    del p32
+    torch.cuda.empty_cache()
+
+    # ---- (c) InternVL2-1B and whisper-tiny at their published sizes --------
+    for arch in (VLM_ARCH, AUDIO_ARCH):
+        cfg = get_config(arch)
+        if arch == VLM_ARCH:
+            batch = {"tokens": torch.as_tensor(rng.integers(
+                2, cfg.vocab_size, (1, cfg.n_frontend_tokens + VLM_TEXT))),
+                "patches": torch.as_tensor(rng.standard_normal(
+                    (1, cfg.n_frontend_tokens, cfg.frontend_dim)),
+                    dtype=torch.float32)}
+        else:
+            batch = {"tokens": torch.as_tensor(rng.integers(
+                2, cfg.vocab_size, (1, AUDIO_PROMPT))),
+                "frames": torch.as_tensor(rng.standard_normal(
+                    (1, cfg.encoder.n_positions, cfg.frontend_dim)),
+                    dtype=torch.float32)}
+        st = Stepper(cfg, ShapeConfig("p", "prefill", 2048, 1), SMOKE_MESH,
+                     flash)
+        p32 = st.init(seed=SEED + 3, device="cpu")
+        params = tree_map(lambda t: t.to("cuda", bf16), p32)
+        cuda_batch = {k: v.cuda() for k, v in batch.items()}
+        held = held_flash_vs_plain(cfg, params, cuda_batch, cfg.n_layers,
+                                   FAMILY_DECODE_STEPS, flash_ops, card)
+        if held["b5"] != {"sm90": cfg.n_layers, "simt": 0}:
+            raise AssertionError(f"{cfg.name}: B5 per prefill {held['b5']}")
+        launches[cfg.name] = held["b5"]["sm90"]
+        with torch.no_grad():
+            ms_p = host_ms(lambda: make_prefill_step(
+                cfg, SMOKE_MESH, flash)(params, cuda_batch), 3)
+        log(f"phase 20c {cfg.name} ({param_count(st.schema):,} parameters, "
+            f"batch {json.dumps({k: list(v.shape) for k, v in batch.items()})}"
+            f"): one bf16 flash prefill {ms_p:.2f} ms (host clock, "
+            f"synchronised) ({card})")
+        del params
+        torch.cuda.empty_cache()
+        held_f32(cfg, p32, batch, FAMILY_DECODE_STEPS, card,
+                 f"prefill + {FAMILY_DECODE_STEPS} steps")
+        del p32
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -3058,16 +3630,6 @@ def main() -> int:
         "launches": launches["mac_int"], "max_abs_err": errs["mac_int"],
         "ms": k_ms, "plain_ms": p_ms, "bound_ms": bnd, "bound_by": by,
         "library_ms": None})
-    def host_ms(fn, reps: int = 10) -> float:
-        """Host ms of one synchronised ``fn()``, after a warm-up call."""
-        fn()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-        return (time.perf_counter() - t0) / reps * 1e3
-
     for arch, (graph, _, _) in served.items():
         x = requests(graph, (B_SERVE,))[0]
         run_ms = {}
@@ -3381,7 +3943,13 @@ def main() -> int:
             row["train_launches"] = train["train_launches"]
             row["host_target_train_launches"] = train["host_train_launches"]
 
-    # ---- 20. report --------------------------------------------------------
+    # ---- 20. the LM families ----------------------------------------------
+    families = phase_families(ops_by_name, smi)
+    for row in kernel_rows:
+        if row["name"] == "flash_attention":
+            row["families_launches"] = families
+
+    # ---- 21. report --------------------------------------------------------
     log(smi)                     # the card's name and power limit
     print(json.dumps({"kernels": kernel_rows}))
     print(json.dumps({"ok": True, "device": {

@@ -1,23 +1,36 @@
 """Architecture config registry (``get_config(<id>, smoke=False)``).
 
-The port knows the paper's two designs and the dense LMs ``yi-9b`` and
-``stablelm-3b``; the rest of the LM zoo comes with the slices that port
-those model families. Each module exposes ``config()`` (the published
+The port knows the paper's two designs and the LM families it has ported:
+dense (``yi-9b``, ``stablelm-3b``, ``stablelm-12b``, ``qwen3-32b``), MoE
+(``deepseek-moe-16b``, ``qwen3-moe-30b-a3b``), VLM (``internvl2-1b``) and
+audio (``whisper-tiny``). ``zamba2-7b`` and ``rwkv6-7b`` come with the
+hybrid and RWKV families. Each module exposes ``config()`` (the published
 configuration) and ``smoke()`` (a reduced same-family variant for CPU
 tests; the paper's designs are smoke-sized already).
 """
 from __future__ import annotations
 
 import importlib
+from typing import Dict
 
 from repro_torch.core.types import ModelConfig
 
 _ARCH_MODULES = {
+    "stablelm-12b": "stablelm_12b",
     "stablelm-3b": "stablelm_3b",
     "yi-9b": "yi_9b",
+    "qwen3-32b": "qwen3_32b",
+    "deepseek-moe-16b": "deepseek_moe_16b",
+    "qwen3-moe-30b-a3b": "qwen3_moe_30b_a3b",
+    "whisper-tiny": "whisper_tiny",
+    "internvl2-1b": "internvl2_1b",
     "elastic-lstm": "elastic_lstm",
     "elastic-conv1d": "elastic_conv1d",
 }
+
+_PAPER_IDS = ("elastic-lstm", "elastic-conv1d")
+ARCH_IDS = tuple(k for k in _ARCH_MODULES if k not in _PAPER_IDS)
+ALL_IDS = tuple(_ARCH_MODULES)
 
 
 def _mod(arch_id: str):
@@ -34,3 +47,7 @@ def get_config(arch_id: str, smoke: bool = False) -> ModelConfig:
     """The published configuration of ``arch_id``, or its smoke variant."""
     m = _mod(arch_id)
     return m.smoke() if smoke and hasattr(m, "smoke") else m.config()
+
+
+def all_configs(smoke: bool = False) -> Dict[str, ModelConfig]:
+    return {a: get_config(a, smoke=smoke) for a in ALL_IDS}

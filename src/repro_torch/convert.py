@@ -7,11 +7,15 @@ dicts and lists whose leaves are numpy (or JAX) arrays, e.g.
 the same keys, float32 numpy arrays, checked leaf by leaf against the
 port's schema for ``cfg``. This is what ``rtl.ir.lower_model`` takes.
 
-It also takes the dense LM's tree (``{"embed", "g0", "final_norm"}``),
-whose ``g0`` leaves carry a leading layer axis of length ``n_layers``;
-:func:`to_torch` then puts a converted tree on a device for
-``model.transformer.apply_model`` and ``runtime.server.Server``. A wrong
-key or a wrong (stacked) shape raises with its path.
+It also takes an LM's tree (``{"embed", "g0", ..., "final_norm"}``),
+whose groups' leaves carry a leading layer axis: the dense stack, an MoE
+model's leading dense group and its MoE group (the f32 ``router``, the
+stacked experts, ``shared``), whisper's encoder and decoder groups (the
+decoder's ``cross_attn``) with ``enc_norm``, and a frontend's
+``frontend`` leaves; :func:`to_torch` then puts a converted tree on a
+device for ``model.transformer.apply_model`` and
+``runtime.server.Server``. A wrong key or a wrong (stacked) shape raises
+with its path.
 
 :func:`int8_params_from_jax` carries the reference's int8 weights
 (``repro.quant.ptq.Int8Params``: int8 codes, f32 per-channel scales and the

@@ -10,9 +10,8 @@ A *translatable component* carries up to three implementations:
 ``Creator.validate`` walks a model config's block kinds and fails fast if a
 kind has no registered component — the paper's "models must be built from
 supported components" rule, enforced mechanically. The built-in library
-names the port's own modules; the reference's ``moe``, ``mamba2``,
-``rwkv6``, ``enc`` and ``dec`` components come with the families that use
-them (ROADMAP A11).
+names the port's own modules; the reference's ``mamba2`` and ``rwkv6``
+components come with the families that use them (ROADMAP A11).
 """
 from __future__ import annotations
 
@@ -58,10 +57,17 @@ register(Component(
     "attn", ref="repro_torch.model.attention.attn_apply",
     template="repro_torch.kernels.flash_attention.ops",
     quantized="repro_torch.quant.ptq",
-    notes="GQA self attention; flash template for prefill"))
+    notes="GQA self/cross attention; flash template for causal prefill"))
 register(Component(
     "attn_dense", ref="repro_torch.model.attention.attn_apply",
     template="repro_torch.kernels.flash_attention.ops"))
+register(Component(
+    "moe", ref="repro_torch.model.moe.moe_apply",
+    notes="EP dispatch is collective-bound, no kernel template needed"))
+register(Component(
+    "enc", ref="repro_torch.model.transformer._apply_enc_block"))
+register(Component(
+    "dec", ref="repro_torch.model.transformer._apply_dec_block"))
 register(Component(
     "lstm", ref="repro_torch.model.lstm.lstm_apply",
     template="repro_torch.kernels.lstm_cell.ops",

@@ -1,12 +1,12 @@
-"""Configuration dataclasses: the paper's two model families and the dense
-LM family.
+"""Configuration dataclasses: the paper's two model families and the LM
+families dense, MoE, audio (encoder-decoder) and VLM.
 
-Port of ``ModelConfig``/``LSTMConfig``/``Conv1dConfig``, ``ShapeConfig``
-with the shape tables, ``MeshConfig`` and ``ParallelismConfig`` from
-``repro/core/types.py``. The LM zoo's other sub-configs (MoE, SSM, RWKV,
-encoder, frontends) wait for the slices that port those families;
-``ParallelismConfig`` keeps only the knobs that the port's one-card dense
-path reads.
+Port of ``ModelConfig``/``MoEConfig``/``EncoderConfig``/``LSTMConfig``/
+``Conv1dConfig``, ``ShapeConfig`` with the shape tables, ``MeshConfig``
+and ``ParallelismConfig`` from ``repro/core/types.py``. ``SSMConfig``,
+``RWKVConfig`` and ``shared_attn_every`` wait for the hybrid and RWKV
+families; ``ParallelismConfig`` keeps only the knobs that the port's
+one-card path reads.
 """
 from __future__ import annotations
 
@@ -15,6 +15,33 @@ from dataclasses import dataclass
 from typing import Optional, Tuple
 
 import torch
+
+
+@dataclass(frozen=True)
+class MoEConfig:
+    """Mixture-of-experts block configuration (routed + optional shared)."""
+
+    n_experts: int
+    top_k: int
+    d_expert: int                  # per-routed-expert FFN hidden size
+    n_shared: int = 0              # number of always-on shared experts
+    d_shared: int = 0              # hidden size of EACH shared expert
+    capacity_factor: float = 1.25  # per-expert token capacity multiplier
+    aux_loss_coef: float = 0.01    # load-balance auxiliary loss weight
+    router_dtype: str = "float32"  # router math always runs in f32
+    impl: str = "psum"             # "psum" | "a2a" | "dense" (oracle)
+    first_dense: int = 0           # number of leading dense (non-MoE) layers
+    d_ff_dense: int = 0            # FFN hidden of those leading dense layers
+
+
+@dataclass(frozen=True)
+class EncoderConfig:
+    """Encoder stack for encoder-decoder models (whisper)."""
+
+    n_layers: int
+    n_heads: int
+    d_ff: int
+    n_positions: int = 1500        # precomputed frame embeddings (stub frontend)
 
 
 @dataclass(frozen=True)
@@ -62,7 +89,7 @@ class Conv1dConfig:
         return self.block_lens()[-1] * self.channels
 
 
-FAMILIES = ("dense", "lstm", "conv1d")
+FAMILIES = ("dense", "moe", "audio", "vlm", "lstm", "conv1d")
 
 
 @dataclass(frozen=True)
@@ -82,6 +109,11 @@ class ModelConfig:
     rope_theta: float = 10_000.0
     norm: str = "rmsnorm"                   # "rmsnorm" | "layernorm"
     act: str = "silu"                       # "silu" (swiglu) | "gelu" | "relu_sq"
+    moe: Optional[MoEConfig] = None
+    encoder: Optional[EncoderConfig] = None
+    frontend: Optional[str] = None          # "audio" | "vision" (stub embeddings)
+    n_frontend_tokens: int = 0              # visual/audio tokens prepended/encoded
+    frontend_dim: int = 0                   # raw embedding dim from the stub
     tie_embeddings: bool = False
     vocab_pad_multiple: int = 128
     dtype: str = "bfloat16"
@@ -106,6 +138,17 @@ class ModelConfig:
     def torch_dtype(self) -> torch.dtype:
         return torch_dtype(self.dtype)
 
+    def block_kinds(self) -> Tuple[str, ...]:
+        """Per-layer block kind sequence (length n_layers)."""
+        if self.family in ("lstm", "conv1d"):
+            return ()
+        if self.family == "moe":
+            assert self.moe is not None
+            k = ["attn"] * self.moe.first_dense
+            k += ["moe"] * (self.n_layers - self.moe.first_dense)
+            return tuple(k)
+        return ("attn",) * self.n_layers
+
     def with_(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
 
@@ -117,9 +160,15 @@ class ModelConfig:
         return param_count(param_schema(self))
 
     def active_param_count(self) -> int:
-        """Params touched per token: all of them for the port's families
-        (the reference's MoE discount comes with the MoE family)."""
-        return self.param_count()
+        """Params touched per token (MoE: top_k + shared experts only)."""
+        total = self.param_count()
+        if self.moe is None:
+            return total
+        m = self.moe
+        per_expert = 3 * self.d_model * m.d_expert
+        n_moe_layers = self.n_layers - m.first_dense
+        inactive = (m.n_experts - m.top_k) * per_expert * n_moe_layers
+        return total - inactive
 
 
 def torch_dtype(name: str) -> torch.dtype:
@@ -202,7 +251,7 @@ ATTN_IMPLS = ("ref", "flash")
 
 @dataclass(frozen=True)
 class ParallelismConfig:
-    """Runtime knobs of the dense path on one card.
+    """Runtime knobs of the LM path on one card.
 
     ``attn_impl``: ``"ref"`` (plain PyTorch einsum attention) or
     ``"flash"`` (the B5 kernel for every causal prefill, whose plain

@@ -22,13 +22,21 @@ Q_CHUNK = 512
 NEG_INF = -1e30
 
 
-def attn_schema(cfg: ModelConfig):
-    d, h, kv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
+def attn_schema(cfg: ModelConfig, cross: bool = False, d_in: int = 0,
+                d_out: int = 0, n_heads: int = 0, n_kv_heads: int = 0):
+    """One attention layer's leaves; ``d_in``/``d_out``/``n_heads``/
+    ``n_kv_heads`` default to the config's (``cross`` changes nothing: a
+    cross-attention has the same leaves, its K/V projections applied to
+    the encoder's output)."""
+    d = d_in or cfg.d_model
+    h = n_heads or cfg.n_heads
+    kv = n_kv_heads or cfg.n_kv_heads
+    hd = cfg.hd
     sch = {
         "wq": PSpec((d, h * hd)),
         "wk": PSpec((d, kv * hd)),
         "wv": PSpec((d, kv * hd)),
-        "wo": PSpec((h * hd, d)),
+        "wo": PSpec((h * hd, d_out or d)),
     }
     if cfg.qk_norm:
         sch["q_norm"] = PSpec((hd,), init="ones")
@@ -123,15 +131,18 @@ def attn_apply(
     h: torch.Tensor,            # (B, S, D) — normed input
     ctx: Ctx,
     cache: Optional[Dict[str, torch.Tensor]] = None,
-    causal: bool = True,
+    cross_kv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+    causal: bool = True,        # False: encoder self-attention
     use_rope: bool = True,
 ) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
-    """Self-attention. Returns (out, updated_cache).
+    """Self- or cross-attention. Returns (out, updated_cache).
 
     Cache layout: {"k": (B, S_max, KV, hd), "v": ..., "pos": (B,) int32}.
     Prefill returns the prompt's K/V as the cache; decode writes the new
     K/V at ``pos`` into the given cache's buffers in place and returns them
-    with ``pos + 1``.
+    with ``pos + 1``. With ``cross_kv`` (the encoder's (B, S_enc, KV, hd)
+    K/V) there is no RoPE, no K norm, no cache and no causal mask. Head
+    counts come from the param shapes.
     """
     cfg = ctx.cfg
     dt = ctx.compute_dtype
@@ -141,23 +152,28 @@ def attn_apply(
     hx = h.to(dt)
 
     q = _split_heads(hx @ p["wq"].to(dt), H, hd)
-    k = _split_heads(hx @ p["wk"].to(dt), KV, hd)
-    v = _split_heads(hx @ p["wv"].to(dt), KV, hd)
+    if cross_kv is not None:
+        k, v = cross_kv
+    else:
+        k = _split_heads(hx @ p["wk"].to(dt), KV, hd)
+        v = _split_heads(hx @ p["wv"].to(dt), KV, hd)
 
     if cfg.qk_norm:
         q = rms_head_norm(p["q_norm"], q)
-        k = rms_head_norm(p["k_norm"], k)
+        if cross_kv is None:
+            k = rms_head_norm(p["k_norm"], k)
 
+    causal = causal and cross_kv is None
     new_cache = None
     kv_len = None
 
-    if cfg.rope_theta > 0 and use_rope:
+    if cross_kv is None and cfg.rope_theta > 0 and use_rope:
         assert ctx.positions is not None
         cos, sin = rope_angles(ctx.positions, hd, cfg.rope_theta)
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
 
-    if ctx.mode == "decode":
+    if cross_kv is None and ctx.mode == "decode":
         assert cache is not None, "decode requires a KV cache"
         pos = cache["pos"]  # (B,) current lengths
         k_cache, v_cache = cache["k"].to(dt), cache["v"].to(dt)
@@ -171,7 +187,7 @@ def attn_apply(
         k, v = k_cache, v_cache
         kv_len = pos + 1
         causal = False  # masking handled via kv_len
-    elif ctx.mode == "prefill":
+    elif cross_kv is None and ctx.mode == "prefill":
         new_cache = {
             "k": k,
             "v": v,

@@ -37,6 +37,7 @@ class PSpec:
     dtype: torch.dtype = torch.float32
     init: str = "normal"          # normal | zeros | ones | embed
     scale: Optional[float] = None  # stddev override (default: 1/sqrt(fan_in))
+    keep_dtype: bool = False       # no dtype_override (the f32 MoE router)
 
 
 def is_pspec(x) -> bool:
@@ -70,7 +71,7 @@ def tree_leaves(tree, is_leaf=None) -> list:
 
 def _init_leaf(spec: PSpec, gen: torch.Generator,
                dtype_override: Optional[torch.dtype]) -> torch.Tensor:
-    dtype = dtype_override or spec.dtype
+    dtype = spec.dtype if spec.keep_dtype else dtype_override or spec.dtype
     dev = gen.device
     if spec.init == "zeros":
         return torch.zeros(spec.shape, dtype=dtype, device=dev)
@@ -90,7 +91,8 @@ def init_params(schema, generator: torch.Generator,
                 dtype_override: Optional[torch.dtype] = None):
     """Materialise real tensors from a schema on ``generator.device``,
     leaves drawn one after another from ``generator`` (dict keys in sorted
-    order). The reference folds a JAX key per leaf, so the two packages
+    order), each in ``dtype_override`` where given, unless its spec keeps
+    its dtype. The reference folds a JAX key per leaf, so the two packages
     draw different numbers from one seed: tests carry the reference's
     tensors across with ``convert.params_from_jax`` instead."""
     return tree_map(lambda s: _init_leaf(s, generator, dtype_override),

@@ -199,6 +199,13 @@ def input_specs(cfg: ModelConfig, shape: ShapeConfig
                         torch.int32)}
     if shape.kind == "train":
         specs["targets"] = ((B, S), torch.int32)
+    if shape.kind in ("train", "prefill"):
+        if cfg.frontend == "vision":
+            specs["patches"] = ((B, cfg.n_frontend_tokens, cfg.frontend_dim),
+                                torch.float32)
+        if cfg.frontend == "audio":
+            specs["frames"] = ((B, cfg.encoder.n_positions,
+                                cfg.frontend_dim), torch.float32)
     return specs
 
 

@@ -18,7 +18,10 @@ the card (the QAT and float window losses and gradients against the CPU,
 on a real ``RTLExecutable``, one ``Workflow.run_once``), and the host
 target (a deployment measured on the card with synchronised runs, a step's
 counts on the card equal to its counts on ``meta``, B5 launched once a
-layer by a deployed prefill).
+layer by a deployed prefill), and the LM families (the MoE oracle and its
+router's tie rule against the CPU, a DeepSeek-MoE-16B layer at full width
+with B5 against plain attention, whisper-tiny's decode through its cached
+cross K/V against a whole-sequence prefill).
 
 Imports nothing of JAX, so it also runs where JAX is not installed:
 
@@ -1869,3 +1872,137 @@ def test_cpu_checkpoint_restores_onto_card_bit_for_bit(cuda, tmp_path):
     for a, b in zip(tree_leaves(back), tree_leaves(state)):
         assert a.device.type == "cuda" and a.dtype == b.dtype
         assert torch.equal(a.cpu(), b)
+
+
+# --------------------------------------------------------------------------- #
+# The LM families: MoE, cross-attention
+# --------------------------------------------------------------------------- #
+
+
+def _moe_case(arch, seed=3):
+    from repro_torch.model.layers import tree_map
+
+    cfg = get_config(arch, smoke=True)
+    params = Stepper(cfg, ShapeConfig("p", "prefill", 16, 1), SMOKE_MESH,
+                     ParallelismConfig(compute_dtype="float32")).init(
+                         seed=seed, device="cpu")
+    gi = 1 if cfg.moe.first_dense else 0
+    return cfg, tree_map(lambda a: a[0], params[f"g{gi}"]["moe"])
+
+
+@pytest.mark.parametrize("arch", ["deepseek-moe-16b", "qwen3-moe-30b-a3b"])
+def test_moe_dense_on_card_matches_cpu(cuda, arch):
+    """The dense oracle (every impl with no mesh) in f32 on the card and
+    on the CPU from one set of params: router ids equal, outputs within
+    1e-5, aux within 1e-6 relative."""
+    from repro_torch.model import moe
+    from repro_torch.model.layers import Ctx, tree_map
+    from repro_torch.verify.conformance import exact_f32_matmul
+
+    cfg, p = _moe_case(arch)
+    x = torch.from_numpy(np.random.default_rng(4).standard_normal(
+        (2, 9, cfg.d_model)).astype(np.float32))
+    ctx = Ctx(cfg, SMOKE_MESH, "prefill",
+              par=ParallelismConfig(compute_dtype="float32"))
+    want = moe.moe_apply(p, x, cfg, ctx)
+    ids = moe._router(p, x.reshape(-1, cfg.d_model), cfg.moe)[1]
+    with exact_f32_matmul():
+        got = moe.moe_apply(tree_map(lambda t: t.to(cuda), p), x.to(cuda),
+                            cfg, ctx)
+        got_ids = moe._router({"router": p["router"].to(cuda)},
+                              x.to(cuda).reshape(-1, cfg.d_model),
+                              cfg.moe)[1]
+    assert torch.equal(got_ids.cpu(), ids)
+    assert (got[0].cpu() - want[0]).abs().max().item() <= 1e-5
+    assert abs(got[1].item() - want[1].item()) <= 1e-6 * abs(want[1].item())
+
+
+def test_router_tie_rule_on_card(cuda):
+    """Lowest expert index first among equal probabilities, on the card
+    as on the CPU."""
+    from repro_torch.core.types import MoEConfig
+    from repro_torch.model import moe
+
+    m = MoEConfig(n_experts=64, top_k=6, d_expert=8)
+    router = torch.zeros((4, 64), device=cuda)
+    router[:, 10] = 0.5
+    x = torch.ones((3, 4), device=cuda)
+    assert moe._router({"router": router}, x, m)[1].tolist() == \
+        [[10, 0, 1, 2, 3, 4]] * 3
+    probs = torch.tensor([[.15] * 4 + [.14] * 4 + [.005] * 4], device=cuda)
+    assert moe.top_k(probs, 6)[1].tolist() == [[0, 1, 2, 3, 4, 5]]
+
+
+def test_deepseek_moe_layer_full_width_flash_vs_plain(cuda):
+    """One DeepSeek-MoE-16B MoE layer at full width (64 experts, 2 shared,
+    hd 128) over 1,024 positions in bf16: B5 (``sm90``) against plain
+    attention within 2^-7 relative rms (phase 7's bar at one layer), the
+    aux loss within 1e-3 relative."""
+    from repro_torch.model.layers import Ctx, init_params
+    from repro_torch.model.transformer import _apply_moe_block, block_schema
+
+    cfg = get_config("deepseek-moe-16b")
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    p = init_params(block_schema(cfg, "moe"), gen,
+                    dtype_override=torch.bfloat16)
+    assert p["moe"]["router"].dtype == torch.float32
+    x = (torch.randn((1, 1024, cfg.d_model), generator=gen, device=cuda)
+         ).to(torch.bfloat16)
+    pos = torch.arange(1024, device=cuda)[None]
+    out = {}
+    for impl in ("flash", "ref"):
+        ctx = Ctx(cfg, SMOKE_MESH, "prefill", par=ParallelismConfig(
+            compute_dtype="bfloat16", attn_impl=impl), positions=pos,
+            attn_impl=impl)
+        before = dict(flash_ops.launches_by_variant)
+        with torch.no_grad():
+            out[impl] = _apply_moe_block(p, x, ctx, None)
+        torch.cuda.synchronize()
+        launched = {k: flash_ops.launches_by_variant[k] - before[k]
+                    for k in before}
+        assert launched == ({"sm90": 1, "simt": 0} if impl == "flash"
+                            else {"sm90": 0, "simt": 0})
+    (yf, _, af), (yr, _, ar) = out["flash"], out["ref"]
+    assert torch.isfinite(yf).all()
+    rel = ((yf.float() - yr.float()).norm() / yr.float().norm()).item()
+    assert rel <= 2.0 ** -7, rel
+    assert abs(af.item() - ar.item()) <= 1e-3 * abs(ar.item())
+
+
+def test_whisper_decode_after_prefill_full_size_on_card(cuda):
+    """whisper-tiny at its published size in f32 on the card: 1,500 frames
+    through the encoder, a 32-token decoder prefill (B5 once a decoder
+    layer, never in the encoder), then 3 decode steps through the cached
+    cross K/V, each step's logits within 1e-4 of a prefill over the whole
+    sequence."""
+    from repro_torch.model.layers import Ctx
+    from repro_torch.model.lm import make_decode_step, make_prefill_step
+    from repro_torch.model.transformer import apply_model, pad_cache
+    from repro_torch.verify.conformance import exact_f32_matmul
+
+    cfg = get_config("whisper-tiny")
+    par = ParallelismConfig(compute_dtype="float32", attn_impl="flash")
+    params = Stepper(cfg, ShapeConfig("p", "prefill", 64, 1), SMOKE_MESH,
+                     par).init(seed=6, device=cuda)
+    rng = np.random.default_rng(6)
+    frames = torch.as_tensor(rng.standard_normal(
+        (1, cfg.encoder.n_positions, cfg.frontend_dim)), dtype=torch.float32,
+        device=cuda)
+    tokens = torch.as_tensor(rng.integers(2, cfg.vocab_size, (1, 35)),
+                             device=cuda)
+    with exact_f32_matmul(), torch.no_grad():
+        before = flash_ops.launches
+        _, cache = make_prefill_step(cfg, SMOKE_MESH, par)(
+            params, {"tokens": tokens[:, :32], "frames": frames})
+        assert flash_ops.launches - before == cfg.n_layers
+        cache = pad_cache(cache, 40)
+        assert all(c is None for c in cache["layers"][:4])
+        assert all(c["ck"].shape == (1, 1500, 6, 64)
+                   for c in cache["layers"][4:])
+        decode = make_decode_step(cfg, SMOKE_MESH, par)
+        for i in range(32, 35):
+            got, cache = decode(params, tokens[:, i:i + 1], cache)
+            full, _, _ = apply_model(
+                params, {"tokens": tokens[:, :i + 1], "frames": frames},
+                Ctx(cfg, SMOKE_MESH, "prefill", par=par, attn_impl="flash"))
+            assert (got - full[:, -1]).abs().max().item() <= 1e-4

@@ -169,4 +169,4 @@ def test_params_from_jax_rejects_bad_trees():
 def test_get_config_knows_only_paper_designs():
     assert get_config("elastic-conv1d").conv1d.flat_features == 9
     with pytest.raises(KeyError, match="not ported"):
-        get_config("qwen3-32b")
+        get_config("zamba2-7b")

@@ -190,7 +190,7 @@ def test_component_registry():
             .validate_config(j_get_config(arch, smoke=smoke))
         assert sorted(got) == sorted(want)
     with pytest.raises(KeyError, match="is not supported by the creator"):
-        tregistry.get("moe")
+        tregistry.get("mamba2")
 
 
 def test_creator_deprecated_spellings_and_measure():
