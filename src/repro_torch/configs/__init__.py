@@ -1,12 +1,12 @@
 """Architecture config registry (``get_config(<id>, smoke=False)``).
 
-The port knows the paper's two designs and the LM families it has ported:
+The port knows the paper's two designs and the reference's whole LM zoo:
 dense (``yi-9b``, ``stablelm-3b``, ``stablelm-12b``, ``qwen3-32b``), MoE
-(``deepseek-moe-16b``, ``qwen3-moe-30b-a3b``), VLM (``internvl2-1b``) and
-audio (``whisper-tiny``). ``zamba2-7b`` and ``rwkv6-7b`` come with the
-hybrid and RWKV families. Each module exposes ``config()`` (the published
-configuration) and ``smoke()`` (a reduced same-family variant for CPU
-tests; the paper's designs are smoke-sized already).
+(``deepseek-moe-16b``, ``qwen3-moe-30b-a3b``), VLM (``internvl2-1b``),
+audio (``whisper-tiny``), hybrid (``zamba2-7b``) and RWKV (``rwkv6-7b``).
+Each module exposes ``config()`` (the published configuration) and
+``smoke()`` (a reduced same-family variant for CPU tests; the paper's
+designs are smoke-sized already).
 """
 from __future__ import annotations
 
@@ -24,6 +24,8 @@ _ARCH_MODULES = {
     "qwen3-moe-30b-a3b": "qwen3_moe_30b_a3b",
     "whisper-tiny": "whisper_tiny",
     "internvl2-1b": "internvl2_1b",
+    "zamba2-7b": "zamba2_7b",
+    "rwkv6-7b": "rwkv6_7b",
     "elastic-lstm": "elastic_lstm",
     "elastic-conv1d": "elastic_conv1d",
 }
@@ -36,9 +38,7 @@ ALL_IDS = tuple(_ARCH_MODULES)
 def _mod(arch_id: str):
     if arch_id not in _ARCH_MODULES:
         raise KeyError(
-            f"unknown arch {arch_id!r}; the PyTorch port knows "
-            f"{sorted(_ARCH_MODULES)} (the rest of the LM zoo is not "
-            "ported yet)")
+            f"unknown arch {arch_id!r}; known: {sorted(_ARCH_MODULES)}")
     return importlib.import_module(
         f"repro_torch.configs.{_ARCH_MODULES[arch_id]}")
 

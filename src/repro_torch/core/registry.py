@@ -10,8 +10,7 @@ A *translatable component* carries up to three implementations:
 ``Creator.validate`` walks a model config's block kinds and fails fast if a
 kind has no registered component — the paper's "models must be built from
 supported components" rule, enforced mechanically. The built-in library
-names the port's own modules; the reference's ``mamba2`` and ``rwkv6``
-components come with the families that use them (ROADMAP A11).
+names the port's own modules.
 """
 from __future__ import annotations
 
@@ -64,6 +63,14 @@ register(Component(
 register(Component(
     "moe", ref="repro_torch.model.moe.moe_apply",
     notes="EP dispatch is collective-bound, no kernel template needed"))
+register(Component(
+    "mamba2", ref="repro_torch.model.ssm.mamba_apply",
+    template="repro_torch.kernels.mamba2.ops",
+    notes="SSD chunk-scan template on every CUDA prefill"))
+register(Component(
+    "rwkv6", ref="repro_torch.model.rwkv.rwkv_time_mix",
+    template="repro_torch.kernels.rwkv6.ops",
+    notes="WKV6 template on every CUDA prefill"))
 register(Component(
     "enc", ref="repro_torch.model.transformer._apply_enc_block"))
 register(Component(

@@ -1,12 +1,12 @@
 """Configuration dataclasses: the paper's two model families and the LM
-families dense, MoE, audio (encoder-decoder) and VLM.
+families dense, MoE, audio (encoder-decoder), VLM, hybrid (Mamba-2 with a
+shared attention block) and RWKV.
 
-Port of ``ModelConfig``/``MoEConfig``/``EncoderConfig``/``LSTMConfig``/
-``Conv1dConfig``, ``ShapeConfig`` with the shape tables, ``MeshConfig``
-and ``ParallelismConfig`` from ``repro/core/types.py``. ``SSMConfig``,
-``RWKVConfig`` and ``shared_attn_every`` wait for the hybrid and RWKV
-families; ``ParallelismConfig`` keeps only the knobs that the port's
-one-card path reads.
+Port of ``ModelConfig``/``MoEConfig``/``SSMConfig``/``RWKVConfig``/
+``EncoderConfig``/``LSTMConfig``/``Conv1dConfig``, ``ShapeConfig`` with
+the shape tables, ``MeshConfig`` and ``ParallelismConfig`` from
+``repro/core/types.py``; ``ParallelismConfig`` keeps only the knobs that
+the port's one-card path reads.
 """
 from __future__ import annotations
 
@@ -32,6 +32,27 @@ class MoEConfig:
     impl: str = "psum"             # "psum" | "a2a" | "dense" (oracle)
     first_dense: int = 0           # number of leading dense (non-MoE) layers
     d_ff_dense: int = 0            # FFN hidden of those leading dense layers
+
+
+@dataclass(frozen=True)
+class SSMConfig:
+    """Mamba2 (SSD) block configuration."""
+
+    d_state: int = 64
+    expand: int = 2
+    headdim: int = 64
+    n_groups: int = 1
+    chunk: int = 256               # SSD chunk length (parallel scan blocking)
+    conv_width: int = 4
+
+
+@dataclass(frozen=True)
+class RWKVConfig:
+    """RWKV6 ("Finch") block configuration."""
+
+    head_size: int = 64
+    decay_lora: int = 64           # rank of the data-dependent decay LoRA
+    chunk: int = 128               # chunked-recurrence block length
 
 
 @dataclass(frozen=True)
@@ -89,7 +110,9 @@ class Conv1dConfig:
         return self.block_lens()[-1] * self.channels
 
 
-FAMILIES = ("dense", "moe", "audio", "vlm", "lstm", "conv1d")
+FAMILIES = ("dense", "moe", "audio", "vlm", "hybrid", "ssm", "lstm",
+            "conv1d")
+BLOCK_KINDS = ("attn", "moe", "mamba2", "rwkv6", "shared_attn")
 
 
 @dataclass(frozen=True)
@@ -110,10 +133,13 @@ class ModelConfig:
     norm: str = "rmsnorm"                   # "rmsnorm" | "layernorm"
     act: str = "silu"                       # "silu" (swiglu) | "gelu" | "relu_sq"
     moe: Optional[MoEConfig] = None
+    ssm: Optional[SSMConfig] = None
+    rwkv: Optional[RWKVConfig] = None
     encoder: Optional[EncoderConfig] = None
     frontend: Optional[str] = None          # "audio" | "vision" (stub embeddings)
     n_frontend_tokens: int = 0              # visual/audio tokens prepended/encoded
     frontend_dim: int = 0                   # raw embedding dim from the stub
+    shared_attn_every: int = 0              # zamba2: shared attn block cadence
     tie_embeddings: bool = False
     vocab_pad_multiple: int = 128
     dtype: str = "bfloat16"
@@ -142,12 +168,23 @@ class ModelConfig:
         """Per-layer block kind sequence (length n_layers)."""
         if self.family in ("lstm", "conv1d"):
             return ()
+        if self.family == "ssm":
+            return ("rwkv6",) * self.n_layers
+        if self.family == "hybrid":
+            return ("mamba2",) * self.n_layers
         if self.family == "moe":
             assert self.moe is not None
             k = ["attn"] * self.moe.first_dense
             k += ["moe"] * (self.n_layers - self.moe.first_dense)
             return tuple(k)
         return ("attn",) * self.n_layers
+
+    def shared_attn_points(self) -> Tuple[int, ...]:
+        """Layer indices AFTER which the zamba2 shared block is applied."""
+        if self.shared_attn_every <= 0:
+            return ()
+        return tuple(i for i in range(self.n_layers)
+                     if (i + 1) % self.shared_attn_every == 0)
 
     def with_(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
@@ -225,11 +262,14 @@ def shapes_for(cfg: ModelConfig) -> Tuple[str, ...]:
     DESIGN.md)."""
     if cfg.family in ("lstm", "conv1d"):
         return tuple(shape_table_for(cfg))
-    return ("train_4k", "prefill_32k", "decode_32k")
+    names = ("train_4k", "prefill_32k", "decode_32k")
+    if cfg.family in ("ssm", "hybrid"):  # sub-quadratic: run long_500k
+        names += ("long_500k",)
+    return names
 
 
 def skipped_shapes_for(cfg: ModelConfig) -> Tuple[str, ...]:
-    if cfg.family in ("lstm", "conv1d"):
+    if cfg.family in ("ssm", "hybrid", "lstm", "conv1d"):
         return ()
     return ("long_500k",)
 

@@ -67,19 +67,25 @@ def _check(x, w, b, sig_table, tanh_table, spec: CellSpec) -> None:
                          "shifts in [0, 32) and state precision >= act")
 
 
-@reports("lstm_window_int", lambda x, w, *_, spec: 2 * x.shape[0]
+@reports("lstm_window_int", lambda x, w, *_, spec, **__: 2 * x.shape[0]
          * spec.seq_len * w.shape[0] * w.shape[1])
 def lstm_window_int(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
                     sig_table: torch.Tensor, tanh_table: torch.Tensor,
-                    *, spec: CellSpec) -> torch.Tensor:
+                    *, spec: CellSpec, block_b: int = 128) -> torch.Tensor:
     """(B,S,d_in) int codes × fused int gate weights -> (B, S, hidden) int32.
 
     x holds ``spec.act_fmt`` codes; w holds any int32 codes. One kernel
     launch per window batch on a CUDA tensor, the one :func:`variant` names
     for this spec and this w; the plain version on a CPU tensor; the empty
-    result on a ``meta`` tensor.
+    result on a ``meta`` tensor. ``block_b`` (the reference's Pallas block
+    of windows) must be a positive int and is not read: each variant tiles
+    the windows its own way, and the result does not depend on it.
     """
     global launches
+    if isinstance(block_b, bool) or not isinstance(block_b, int) \
+            or block_b < 1:
+        raise ValueError(f"lstm_window_int: block_b must be a positive int, "
+                         f"got {block_b!r}")
     _check(x, w, b, sig_table, tanh_table, spec)
     if x.device.type == "cpu":
         return lstm_window_int_ref(x, w, b, sig_table, tanh_table, spec=spec)

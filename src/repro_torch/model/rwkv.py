@@ -1,22 +1,100 @@
-"""RWKV-6 WKV scans (port of ``wkv6_chunked``, ``wkv6_step`` and
-``wkv6_reference`` of ``repro/model/rwkv.py``).
+"""RWKV-6 ("Finch") block, the RWKV family's layer (port of
+``repro/model/rwkv.py``): the time-mix (data-dependent token-shift
+interpolation, the decay LoRA, the WKV recurrence, a per-head group norm
+and the SiLU gate) and the channel-mix (relu² FFN with a sigmoid gate).
+The decode cache of a layer is ``{"wkv": (B, H, N, N) f32, "shift_att",
+"shift_ffn": (B, D)}``.
 
-The per-step recurrence the WKV6 kernel (``kernels/rwkv6``) is held
-against: y = r·(S + diag(u) k vᵀ), S ← diag(e^{w}) S + k vᵀ, with S the
-(N, N) key → value state of each head; and the chunked form: exact
-pairwise decays inside 16-step subchunks, the subchunks chained inside a
-chunk, the chunk states carried by a segsum product over the chunk axis.
-Every decay factor is a difference of running sums with the later boundary
-subtracted, so no exponent is positive. The RWKV-6 block comes with the
-RWKV family.
+Which scan runs (:func:`_wkv_scan`, the one seam): in prefill on a CUDA
+tensor the WKV6 kernel B7 (``kernels/rwkv6``), once a layer, the prompt's
+tail padded with the identity step (k = 0, w_log = 0) to the multiple of
+the chunk its wrapper asks for; on a CPU tensor, and in training on every
+device, the chunked form :func:`wkv6_chunked` (B7 is forward-only, as the
+reference's template is); a decode step is :func:`wkv6_step`, as in the
+reference. A kernel that fails raises; nothing falls back.
+
+The scans: the per-step recurrence y = r·(S + diag(u) k vᵀ), S ←
+diag(e^{w}) S + k vᵀ, with S the (N, N) key → value state of each head;
+and the chunked form: exact pairwise decays inside 16-step subchunks, the
+subchunks chained inside a chunk, the chunk states carried by a segsum
+product over the chunk axis. Every decay factor is a difference of running
+sums with the later boundary subtracted, so no exponent is positive.
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
+
+from repro_torch.core.types import ModelConfig
+from repro_torch.model.layers import Ctx, PSpec
 
 SUBCHUNK = 16
+MIX_RANK = 32
+
+
+# ---------------------------------------------------------------------------
+# Schema
+# ---------------------------------------------------------------------------
+
+
+def rwkv_dims(cfg: ModelConfig) -> Tuple[int, int]:
+    N = cfg.rwkv.head_size
+    H = cfg.d_model // N
+    return H, N
+
+
+def rwkv_time_schema(cfg: ModelConfig):
+    d = cfg.d_model
+    H, N = rwkv_dims(cfg)
+    da = d  # d_att == d_model in rwkv6
+    lora = cfg.rwkv.decay_lora
+    return {
+        "maa_x": PSpec((d,), init="zeros"),
+        "maa_wkvrg": PSpec((5, d), init="zeros"),
+        "maa_w1": PSpec((d, 5 * MIX_RANK), scale=0.01),
+        "maa_w2": PSpec((5, MIX_RANK, d), scale=0.01),
+        "decay": PSpec((da,), init="zeros"),      # resting log-log decay
+        "decay_w1": PSpec((d, lora), scale=0.01),
+        "decay_w2": PSpec((lora, da), scale=0.01),
+        "u": PSpec((H, N), init="zeros"),          # time_faaaa bonus
+        "wr": PSpec((d, da)),
+        "wk": PSpec((d, da)),
+        "wv": PSpec((d, da)),
+        "wg": PSpec((d, da)),
+        "ln_x_scale": PSpec((da,), init="ones"),
+        "ln_x_bias": PSpec((da,), init="zeros"),
+        "wo": PSpec((da, d)),
+    }
+
+
+def rwkv_channel_schema(cfg: ModelConfig):
+    d, f = cfg.d_model, cfg.d_ff
+    return {
+        "maa_k": PSpec((d,), init="zeros"),
+        "maa_r": PSpec((d,), init="zeros"),
+        "wk": PSpec((d, f)),
+        "wv": PSpec((f, d)),
+        "wr": PSpec((d, d)),
+    }
+
+
+def rwkv_state_schema(cfg: ModelConfig, batch: int):
+    H, N = rwkv_dims(cfg)
+    return {
+        "wkv": PSpec((batch, H, N, N), dtype=torch.float32, init="zeros"),
+        "shift_att": PSpec((batch, cfg.d_model), dtype=torch.bfloat16,
+                           init="zeros"),
+        "shift_ffn": PSpec((batch, cfg.d_model), dtype=torch.bfloat16,
+                           init="zeros"),
+    }
+
+
+# ---------------------------------------------------------------------------
+# WKV6: chunked evaluation + single-step recurrence
+# ---------------------------------------------------------------------------
+
 
 
 def wkv6_chunked(
@@ -140,3 +218,149 @@ def wkv6_reference(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         y, h = wkv6_step(r[:, t], k[:, t], v[:, t], w_log[:, t], u, h)
         ys.append(y)
     return torch.stack(ys, dim=1), h
+
+
+# ---------------------------------------------------------------------------
+# Block apply
+# ---------------------------------------------------------------------------
+
+
+def _wkv_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              w_log: torch.Tensor, u: torch.Tensor,
+              h0: Optional[torch.Tensor], chunk: int, mode: str
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The time-mix's scan over a whole sequence: (y (B,S,H,N) f32, final
+    state (B,H,N,N) f32). In training, and on a CPU tensor, the chunked
+    form; otherwise the WKV6 kernel B7 (:func:`_wkv_kernel`)."""
+    if mode == "train" or r.device.type == "cpu":
+        return wkv6_chunked(r, k, v, w_log, u, h0=h0, chunk=chunk)
+    return _wkv_kernel(r, k, v, w_log, u, h0, chunk)
+
+
+def _wkv_kernel(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                w_log: torch.Tensor, u: torch.Tensor,
+                h0: Optional[torch.Tensor], chunk: int
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """B7's wrapper over a sequence of any length, at the chunked form's
+    chunk (``min(chunk, S)`` rounded up to a multiple of 16): S padded by
+    k = 0, w_log = 0 steps (no decay, no contribution: y of the real steps
+    and the final state are unchanged) to a multiple of it, the wrapper's
+    conditions, and y sliced back. A CUDA tensor launches the kernel or
+    raises; ``meta`` gives the empty results a step is counted on; a CPU
+    tensor gets the kernel's plain version."""
+    from repro_torch.kernels.rwkv6 import ops
+
+    S = r.shape[1]
+    L = -(-min(chunk, S) // SUBCHUNK) * SUBCHUNK
+    extra = (-S) % L
+    if extra:
+        r, k, v, w_log = (F.pad(t, (0, 0, 0, 0, 0, extra))
+                          for t in (r, k, v, w_log))
+    y, h_final = ops.wkv6(r.float(), k, v, w_log, u, h0, chunk=L)
+    return y[:, :S], h_final
+
+
+def _token_shift(x: torch.Tensor, prev: Optional[torch.Tensor]
+                 ) -> torch.Tensor:
+    """x: (B,S,D); prev: (B,D) last token of the previous segment (or
+    None)."""
+    if x.shape[1] == 1 and prev is not None:
+        return prev[:, None, :].to(x.dtype)
+    first = (torch.zeros_like(x[:, :1]) if prev is None
+             else prev[:, None, :].to(x.dtype))
+    return torch.cat([first, x[:, :-1]], dim=1)
+
+
+def _ddlerp(p, x: torch.Tensor, xprev: torch.Tensor):
+    """Data-dependent token-shift interpolation -> (x_w, x_k, x_v, x_r,
+    x_g)."""
+    delta = xprev - x
+    xxx = x + delta * p["maa_x"].to(x.dtype)
+    B, S, _ = x.shape
+    mix = torch.tanh(xxx @ p["maa_w1"].to(x.dtype)).reshape(B, S, 5,
+                                                             MIX_RANK)
+    adj = torch.einsum("bsfr,frd->bsfd", mix, p["maa_w2"].to(x.dtype))
+    mu = p["maa_wkvrg"].to(x.dtype)[None, None] + adj      # (B,S,5,d)
+    return tuple(x + delta * mu[:, :, i] for i in range(5))
+
+
+def _per_head_groupnorm(y: torch.Tensor, scale: torch.Tensor,
+                        bias: torch.Tensor, H: int, N: int,
+                        eps: float = 1e-5) -> torch.Tensor:
+    B, S = y.shape[0], y.shape[1]
+    yf = y.reshape(B, S, H, N).float()
+    mu = yf.mean(-1, keepdim=True)
+    var = yf.var(-1, keepdim=True, correction=0)
+    yn = ((yf - mu) * torch.rsqrt(var + eps)).reshape(B, S, H * N)
+    return (yn * scale.float() + bias.float()).to(y.dtype)
+
+
+def rwkv_time_mix(
+    p,
+    hx: torch.Tensor,                  # (B,S,D) normed input
+    ctx: Ctx,
+    state: Optional[Dict[str, torch.Tensor]] = None,
+) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
+    """The time-mix: (out (B, S, D) in hx's dtype, ``{"wkv",
+    "shift_att"}`` in prefill and decode, else None). Decode takes one
+    position and ``state``; prefill and training run the scan
+    (:func:`_wkv_scan`) from ``state["wkv"]`` where given."""
+    cfg = ctx.cfg
+    dt = ctx.compute_dtype
+    H, N = rwkv_dims(cfg)
+    B, S, _ = hx.shape
+    x = hx.to(dt)
+
+    prev = state["shift_att"] if state is not None else None
+    xprev = _token_shift(x, prev)
+    x_w, x_k, x_v, x_r, x_g = _ddlerp(p, x, xprev)
+
+    dlora = torch.tanh(x_w @ p["decay_w1"].to(dt)) @ p["decay_w2"].to(dt)
+    w_log = -torch.exp(p["decay"].float() + dlora.float())   # (B,S,da) <= 0
+    r = (x_r @ p["wr"].to(dt)).reshape(B, S, H, N)
+    k = (x_k @ p["wk"].to(dt)).reshape(B, S, H, N)
+    v = (x_v @ p["wv"].to(dt)).reshape(B, S, H, N)
+    g = F.silu(x_g @ p["wg"].to(dt))
+
+    new_state = None
+    if ctx.mode == "decode":
+        assert state is not None and S == 1
+        y1, h_new = wkv6_step(r[:, 0], k[:, 0], v[:, 0],
+                              w_log.reshape(B, H, N), p["u"], state["wkv"])
+        y = y1[:, None]
+        new_state = {"wkv": h_new, "shift_att": x[:, -1]}
+    else:
+        h0 = state["wkv"] if state is not None else None
+        y, h_final = _wkv_scan(r, k, v, w_log.reshape(B, S, H, N), p["u"],
+                               h0, cfg.rwkv.chunk, ctx.mode)
+        if ctx.mode == "prefill":
+            new_state = {"wkv": h_final, "shift_att": x[:, -1]}
+
+    y = y.reshape(B, S, H * N).to(dt)
+    y = _per_head_groupnorm(y, p["ln_x_scale"], p["ln_x_bias"], H, N) * g
+    out = (y @ p["wo"].to(dt)).to(hx.dtype)
+    return out, new_state
+
+
+def rwkv_channel_mix(
+    p,
+    hx: torch.Tensor,
+    ctx: Ctx,
+    state: Optional[Dict[str, torch.Tensor]] = None,
+) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
+    """The channel-mix: (out in hx's dtype, ``{"shift_ffn"}`` in prefill
+    and decode, else None)."""
+    dt = ctx.compute_dtype
+    x = hx.to(dt)
+    prev = state["shift_ffn"] if state is not None else None
+    xprev = _token_shift(x, prev)
+    delta = xprev - x
+    x_k = x + delta * p["maa_k"].to(dt)
+    x_r = x + delta * p["maa_r"].to(dt)
+    kk = F.relu(x_k @ p["wk"].to(dt)).square()
+    kv = kk @ p["wv"].to(dt)
+    out = (torch.sigmoid(x_r @ p["wr"].to(dt)) * kv).to(hx.dtype)
+    new_state = None
+    if ctx.mode in ("prefill", "decode"):
+        new_state = {"shift_ffn": x[:, -1]}
+    return out, new_state

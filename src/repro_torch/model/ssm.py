@@ -1,17 +1,122 @@
-"""Mamba-2 SSD scans (port of ``ssd_chunked``, ``ssd_step`` and
-``ssd_reference`` of ``repro/model/ssm.py``).
+"""Mamba-2 (SSD) block, the hybrid family's layer (port of
+``repro/model/ssm.py``).
 
-The per-step recurrence the SSD chunk-scan kernel (``kernels/mamba2``) is
-held against: h ← e^{dt·A} h + (dt·x) ⊗ B, y = h · C; and the chunked form,
-whose steps the kernel's three passes follow (each chunk's own state, the
-carry over the chunk axis, the intra-chunk products with the chunk's start
-state read into y). The Mamba-2 block comes with the Zamba2 family.
+The block: z/x/B/C/dt projections, a width-4 depthwise causal conv with
+SiLU on x, B and C, the SSD scan, the skip ``D·x``, a gated RMS norm and
+the output projection. The decode cache of a layer is ``{"ssm": (B, H, P,
+N) f32, "conv_x"/"conv_B"/"conv_C": the last W-1 pre-conv inputs}``.
+
+Which scan runs (:func:`_ssd_scan`, the one seam): in prefill on a CUDA
+tensor the SSD chunk-scan kernel B6 (``kernels/mamba2``), once a layer, the
+prompt's tail padded with the identity step (dt = 0) to the multiple of
+the chunk its wrapper asks for; on a CPU tensor, and in training on every
+device, the chunked form :func:`ssd_chunked` (B6 is forward-only, as the
+reference's template is); a decode step is :func:`ssd_step`, as in the
+reference (no kernel takes one step). A kernel that fails raises; nothing
+falls back.
+
+The scans: the per-step recurrence h ← e^{dt·A} h + (dt·x) ⊗ B, y = h · C
+(:func:`ssd_step`, :func:`ssd_reference`), and the chunked form, whose
+steps the kernel's three passes follow (each chunk's own state, the carry
+over the chunk axis, the intra-chunk products with the chunk's start state
+read into y).
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
+
+from repro_torch.core.types import ModelConfig
+from repro_torch.model.layers import Ctx, PSpec
+
+# ---------------------------------------------------------------------------
+# Schema
+# ---------------------------------------------------------------------------
+
+
+def mamba_dims(cfg: ModelConfig) -> Tuple[int, int, int, int]:
+    s = cfg.ssm
+    d_inner = s.expand * cfg.d_model
+    n_heads = d_inner // s.headdim
+    return d_inner, n_heads, s.headdim, s.d_state
+
+
+def mamba_schema(cfg: ModelConfig):
+    s = cfg.ssm
+    d = cfg.d_model
+    d_inner, H, _, N = mamba_dims(cfg)
+    gN = s.n_groups * N
+    w = s.conv_width
+    return {
+        "w_z": PSpec((d, d_inner)),
+        "w_x": PSpec((d, d_inner)),
+        "w_B": PSpec((d, gN)),
+        "w_C": PSpec((d, gN)),
+        "w_dt": PSpec((d, H)),
+        "conv_x": PSpec((w, d_inner), scale=0.5),
+        "conv_B": PSpec((w, gN), scale=0.5),
+        "conv_C": PSpec((w, gN), scale=0.5),
+        "A_log": PSpec((H,), init="zeros"),       # A = -exp(A_log) = -1
+        "dt_bias": PSpec((H,), init="zeros"),
+        "D": PSpec((H,), init="ones"),
+        "norm_scale": PSpec((d_inner,), init="ones"),
+        "w_out": PSpec((d_inner, d)),
+    }
+
+
+def mamba_state_schema(cfg: ModelConfig, batch: int):
+    s = cfg.ssm
+    d_inner, H, Pd, N = mamba_dims(cfg)
+    gN = s.n_groups * N
+    w = s.conv_width
+    return {
+        "ssm": PSpec((batch, H, Pd, N), dtype=torch.float32, init="zeros"),
+        "conv_x": PSpec((batch, w - 1, d_inner), dtype=torch.bfloat16,
+                        init="zeros"),
+        "conv_B": PSpec((batch, w - 1, gN), dtype=torch.bfloat16,
+                        init="zeros"),
+        "conv_C": PSpec((batch, w - 1, gN), dtype=torch.bfloat16,
+                        init="zeros"),
+    }
+
+
+# ---------------------------------------------------------------------------
+# Depthwise causal conv (train/prefill over the sequence, decode a step)
+# ---------------------------------------------------------------------------
+
+
+def _causal_conv(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x: (B, S, C), w: (W, C) depthwise. Causal: y_t = sum_k w[k]
+    x_{t-W+1+k}, then SiLU."""
+    W = w.shape[0]
+    pad = F.pad(x, (0, 0, W - 1, 0))
+    y = torch.zeros_like(x)
+    for k in range(W):
+        y = y + pad[:, k:k + x.shape[1], :] * w[k][None, None, :]
+    return F.silu(y)
+
+
+def _conv_step(x_t: torch.Tensor, prev: torch.Tensor, w: torch.Tensor):
+    """x_t: (B, C); prev: (B, W-1, C) rolling window. Returns (y_t,
+    new_prev)."""
+    window = torch.cat([prev, x_t[:, None, :]], dim=1)      # (B, W, C)
+    y = torch.einsum("bwc,wc->bc", window.float(), w.float())
+    return F.silu(y).to(x_t.dtype), window[:, 1:, :]
+
+
+def _conv_tail(t: torch.Tensor, W: int) -> torch.Tensor:
+    """The last W-1 positions of t (B, S, C), zeros in front where S <
+    W-1: the decode conv's window after a prefill."""
+    if t.shape[1] < W - 1:
+        t = F.pad(t, (0, 0, W - 1 - t.shape[1], 0))
+    return t[:, -(W - 1):, :]
+
+
+# ---------------------------------------------------------------------------
+# SSD chunked scan (the matmul-form state-space dual)
+# ---------------------------------------------------------------------------
 
 
 def _segsum(a: torch.Tensor) -> torch.Tensor:
@@ -137,3 +242,111 @@ def ssd_reference(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
         y, h = ssd_step(x[:, t], dt[:, t], A, Bm[:, t], Cm[:, t], h)
         ys.append(y)
     return torch.stack(ys, dim=1), h
+
+
+# ---------------------------------------------------------------------------
+# Full block apply
+# ---------------------------------------------------------------------------
+
+
+def _ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+              Bm: torch.Tensor, Cm: torch.Tensor, chunk: int,
+              h0: Optional[torch.Tensor], mode: str
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The block's scan over a whole sequence: (y (B,S,H,P) f32, final
+    state (B,H,P,N) f32). In training, and on a CPU tensor, the chunked
+    form; otherwise the SSD kernel B6 (:func:`_ssd_kernel`)."""
+    if mode == "train" or x.device.type == "cpu":
+        return ssd_chunked(x, dt, A, Bm, Cm, chunk=chunk, h0=h0)
+    return _ssd_kernel(x, dt, A, Bm, Cm, chunk, h0)
+
+
+def _ssd_kernel(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                Bm: torch.Tensor, Cm: torch.Tensor, chunk: int,
+                h0: Optional[torch.Tensor]
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """B6's wrapper over a sequence of any length: S padded by dt = 0
+    steps (decay 1, no contribution: y of the real steps and the final
+    state are unchanged) to a multiple of ``chunk``, the wrapper's
+    condition, and y sliced back. A CUDA tensor launches the kernel or
+    raises; ``meta`` gives the empty results a step is counted on; a CPU
+    tensor gets the kernel's plain version."""
+    from repro_torch.kernels.mamba2 import ops
+
+    S = x.shape[1]
+    extra = (-S) % chunk
+    if extra:
+        x, dt, Bm, Cm = (F.pad(t, (0, 0) * (t.ndim - 2) + (0, extra))
+                         for t in (x, dt, Bm, Cm))
+    y, h_final = ops.ssd(x.float(), dt, A, Bm, Cm, h0, chunk=chunk)
+    return y[:, :S], h_final
+
+
+def _gated_rmsnorm(y: torch.Tensor, z: torch.Tensor, scale: torch.Tensor,
+                   eps: float = 1e-5) -> torch.Tensor:
+    yf = (y * F.silu(z)).float()
+    ms = yf.square().mean(-1, keepdim=True)
+    return (yf * torch.rsqrt(ms + eps) * scale.float()).to(y.dtype)
+
+
+def mamba_apply(
+    p,
+    hx: torch.Tensor,                    # (B, S, D) normed input
+    ctx: Ctx,
+    state: Optional[Dict[str, torch.Tensor]] = None,
+) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
+    """One Mamba-2 mixer: (out (B, S, D) in hx's dtype, the new decode
+    state in prefill and decode, else None). Decode takes one position and
+    ``state``; prefill and training run the scan (:func:`_ssd_scan`) over
+    the sequence from ``state["ssm"]`` where given."""
+    cfg = ctx.cfg
+    s = cfg.ssm
+    dt_ = ctx.compute_dtype
+    d_inner, H, Pd, N = mamba_dims(cfg)
+    G = s.n_groups
+    B, S, _ = hx.shape
+    hc = hx.to(dt_)
+
+    z = hc @ p["w_z"].to(dt_)                            # (B,S,d_inner)
+    x = hc @ p["w_x"].to(dt_)
+    Bm = hc @ p["w_B"].to(dt_)                           # (B,S,gN)
+    Cm = hc @ p["w_C"].to(dt_)
+    dt_raw = hc @ p["w_dt"].to(dt_)                      # (B,S,H)
+    dt_f = F.softplus(dt_raw.float() + p["dt_bias"].float())
+    A = -torch.exp(p["A_log"].float())
+    D = p["D"].float()
+
+    new_state = None
+    if ctx.mode == "decode":
+        assert state is not None and S == 1
+        xs, cx = _conv_step(x[:, 0], state["conv_x"].to(dt_), p["conv_x"])
+        Bs, cB = _conv_step(Bm[:, 0], state["conv_B"].to(dt_), p["conv_B"])
+        Cs, cC = _conv_step(Cm[:, 0], state["conv_C"].to(dt_), p["conv_C"])
+        y, h_new = ssd_step(xs.reshape(B, H, Pd), dt_f[:, 0], A,
+                            Bs.reshape(B, G, N), Cs.reshape(B, G, N),
+                            state["ssm"])
+        y = y + D[None, :, None] * xs.reshape(B, H, Pd)
+        y = y.reshape(B, 1, d_inner).to(dt_)
+        new_state = {"ssm": h_new, "conv_x": cx.to(x.dtype),
+                     "conv_B": cB.to(x.dtype), "conv_C": cC.to(x.dtype)}
+    else:
+        xc = _causal_conv(x, p["conv_x"].to(dt_))
+        Bc = _causal_conv(Bm, p["conv_B"].to(dt_))
+        Cc = _causal_conv(Cm, p["conv_C"].to(dt_))
+        h0 = state["ssm"] if state is not None else None
+        y4, h_final = _ssd_scan(
+            xc.reshape(B, S, H, Pd), dt_f, A, Bc.reshape(B, S, G, N),
+            Cc.reshape(B, S, G, N), min(s.chunk, S), h0, ctx.mode)
+        y4 = y4 + (D[None, None, :, None]
+                   * xc.reshape(B, S, H, Pd).float()).to(y4.dtype)
+        y = y4.reshape(B, S, d_inner).to(dt_)
+        if ctx.mode == "prefill":
+            W = s.conv_width
+            new_state = {"ssm": h_final,
+                         "conv_x": _conv_tail(x, W).to(x.dtype),
+                         "conv_B": _conv_tail(Bm, W).to(x.dtype),
+                         "conv_C": _conv_tail(Cm, W).to(x.dtype)}
+
+    yn = _gated_rmsnorm(y, z, p["norm_scale"])
+    out = (yn @ p["w_out"].to(dt_)).to(hx.dtype)
+    return out, new_state

@@ -1,5 +1,6 @@
 """Layer-stack assembly for the dense, MoE, audio (whisper
-encoder-decoder) and VLM families (port of ``repro/model/transformer.py``).
+encoder-decoder), VLM, hybrid (zamba2) and RWKV families (port of
+``repro/model/transformer.py``).
 
 A model is a sequence of *groups* of homogeneous blocks; a group's
 parameters are stacked with a leading layer axis (``params["g0"]["attn"]
@@ -13,10 +14,18 @@ Block kinds:
   attn_dense - the same, with ``moe.d_ff_dense`` (an MoE model's leading
                dense layers)
   moe        - pre-norm attention + MoE FFN (incl. shared experts)
+  mamba2     - pre-norm Mamba2 (zamba2 hybrid); zamba2 additionally applies
+               a *shared* full attention block after every
+               ``shared_attn_every``-th layer on concat(h, h_emb0) (one set
+               of weights for every invocation, its own K/V cache entry
+               each: the cache's ``"shared"`` tuple)
+  rwkv6      - RWKV6 time-mix + channel-mix (after ``ln0`` on the
+               embeddings)
   enc/dec    - whisper encoder (non-causal) and decoder (causal + cross)
 
-The hybrid (Mamba-2 + shared attention) and RWKV families and
-scan-over-layers wait for the slices that port them (ROADMAP A11).
+The Mamba-2 and RWKV-6 blocks run the SSD (B6) and WKV6 (B7) kernels in
+every CUDA prefill (``model/ssm.py``, ``model/rwkv.py``). Scan-over-layers
+waits for the slice that ports it.
 """
 from __future__ import annotations
 
@@ -28,6 +37,8 @@ import torch
 from repro_torch.core.types import ModelConfig
 from repro_torch.model import frontend as fe
 from repro_torch.model import moe as moe_mod
+from repro_torch.model import rwkv as rwkv_mod
+from repro_torch.model import ssm as ssm_mod
 from repro_torch.model.attention import attn_apply, attn_schema, cache_schema
 from repro_torch.model.layers import (Ctx, PSpec, apply_mlp, apply_norm,
                                       checkpoint, embed_schema, embed_tokens,
@@ -51,11 +62,10 @@ def group_structure(cfg: ModelConfig) -> List[Tuple[str, int]]:
             groups.append(("attn_dense", m.first_dense))
         groups.append(("moe", cfg.n_layers - m.first_dense))
         return groups
-    if cfg.family not in ("dense", "vlm"):
-        raise NotImplementedError(
-            f"family {cfg.family!r}: the port's LM path covers the dense, "
-            "moe, audio and vlm families; the hybrid and RWKV families come "
-            "with ROADMAP A11's next items")
+    if cfg.family == "hybrid":
+        return [("mamba2", cfg.n_layers)]
+    if cfg.family == "ssm":
+        return [("rwkv6", cfg.n_layers)]
     return [("attn", cfg.n_layers)]
 
 
@@ -76,6 +86,16 @@ def block_schema(cfg: ModelConfig, kind: str):
             "norm2": norm_schema(cfg),
             "moe": moe_mod.moe_schema(cfg),
         }
+    if kind == "mamba2":
+        return {"norm1": norm_schema(cfg),
+                "mamba": ssm_mod.mamba_schema(cfg)}
+    if kind == "rwkv6":
+        return {
+            "ln1": norm_schema(cfg),
+            "att": rwkv_mod.rwkv_time_schema(cfg),
+            "ln2": norm_schema(cfg),
+            "ffn": rwkv_mod.rwkv_channel_schema(cfg),
+        }
     if kind == "enc":
         return {
             "norm1": norm_schema(cfg),
@@ -93,6 +113,23 @@ def block_schema(cfg: ModelConfig, kind: str):
             "mlp": mlp_schema(cfg),
         }
     raise ValueError(kind)
+
+
+def shared_block_schema(cfg: ModelConfig):
+    """zamba2 shared attention block on concat(h, emb0): width 2·d_model,
+    projected back to d_model by ``out_proj``."""
+    d2 = 2 * cfg.d_model
+    return {
+        "norm1": norm_schema(cfg, d=d2),
+        "attn": attn_schema(cfg, d_in=d2, d_out=d2),
+        "norm2": norm_schema(cfg, d=d2),
+        "mlp": {
+            "w_gate": PSpec((d2, cfg.d_ff)),
+            "w_up": PSpec((d2, cfg.d_ff)),
+            "wo": PSpec((cfg.d_ff, d2)),
+        },
+        "out_proj": PSpec((d2, cfg.d_model)),
+    }
 
 
 def _stack(n: int, tree):
@@ -113,6 +150,10 @@ def param_schema(cfg: ModelConfig):
     sch: Dict[str, Any] = {"embed": embed_schema(cfg)}
     for gi, (kind, count) in enumerate(group_structure(cfg)):
         sch[f"g{gi}"] = _stack(count, block_schema(cfg, kind))
+    if cfg.family == "hybrid" and cfg.shared_attn_every:
+        sch["shared"] = shared_block_schema(cfg)
+    if cfg.family == "ssm":
+        sch["ln0"] = norm_schema(cfg)
     if cfg.frontend:
         sch["frontend"] = fe.frontend_schema(cfg)
     if cfg.family == "audio":
@@ -123,23 +164,39 @@ def param_schema(cfg: ModelConfig):
 
 def model_cache_schema(cfg: ModelConfig, batch: int, seq: int):
     """Cache tree for prefill/decode of ``batch`` sequences of at most
-    ``seq`` positions: ``{"layers": (one entry per layer, ...)}``; an
-    encoder layer's entry is None, a decoder layer's also holds the
-    encoder's K/V for its cross-attention (``ck``/``cv``)."""
+    ``seq`` positions: ``{"layers": (one entry per layer, ...)}``, and for
+    zamba2 ``"shared"``: one attention cache per shared-block invocation.
+    An encoder layer's entry is None, a decoder layer's also holds the
+    encoder's K/V for its cross-attention (``ck``/``cv``), a Mamba-2 or
+    RWKV-6 layer's is its recurrent state."""
     layers: List[Any] = []
     for kind, count in group_structure(cfg):
         for _ in range(count):
-            if kind == "enc":
-                layers.append(None)           # the encoder is stateless
-                continue
-            c = cache_schema(cfg, batch, seq)
-            if kind == "dec":
-                enc = (batch, cfg.encoder.n_positions, cfg.n_kv_heads,
-                       cfg.hd)
-                c["ck"] = PSpec(enc, dtype=torch.bfloat16, init="zeros")
-                c["cv"] = PSpec(enc, dtype=torch.bfloat16, init="zeros")
-            layers.append(c)
-    return {"layers": tuple(layers)}
+            layers.append(_group_cache_entry(cfg, kind, batch, seq))
+    out: Dict[str, Any] = {"layers": tuple(layers)}
+    if cfg.family == "hybrid" and cfg.shared_attn_every:
+        out["shared"] = tuple(cache_schema(cfg, batch, seq)
+                              for _ in cfg.shared_attn_points())
+    return out
+
+
+def _group_cache_entry(cfg: ModelConfig, kind: str, batch: int, seq: int):
+    """One layer's cache entry of block kind ``kind``."""
+    if kind in ("attn", "attn_dense", "moe"):
+        return cache_schema(cfg, batch, seq)
+    if kind == "mamba2":
+        return ssm_mod.mamba_state_schema(cfg, batch)
+    if kind == "rwkv6":
+        return rwkv_mod.rwkv_state_schema(cfg, batch)
+    if kind == "enc":
+        return None                           # the encoder is stateless
+    if kind == "dec":
+        c = cache_schema(cfg, batch, seq)
+        enc = (batch, cfg.encoder.n_positions, cfg.n_kv_heads, cfg.hd)
+        c["ck"] = PSpec(enc, dtype=torch.bfloat16, init="zeros")
+        c["cv"] = PSpec(enc, dtype=torch.bfloat16, init="zeros")
+        return c
+    raise ValueError(kind)
 
 
 # ---------------------------------------------------------------------------
@@ -162,6 +219,44 @@ def _apply_moe_block(p, x, ctx: Ctx, cache):
     m, aux = moe_mod.moe_apply(p["moe"], apply_norm(p["norm2"], x, ctx.cfg),
                                ctx.cfg, ctx)
     return x + m, new_cache, aux
+
+
+def _apply_mamba_block(p, x, ctx: Ctx, cache):
+    m, new_cache = ssm_mod.mamba_apply(
+        p["mamba"], apply_norm(p["norm1"], x, ctx.cfg), ctx, state=cache)
+    return x + m, new_cache, None
+
+
+def _apply_rwkv_block(p, x, ctx: Ctx, cache):
+    a, st_a = rwkv_mod.rwkv_time_mix(
+        p["att"], apply_norm(p["ln1"], x, ctx.cfg), ctx, state=cache)
+    x = x + a
+    f, st_f = rwkv_mod.rwkv_channel_mix(
+        p["ffn"], apply_norm(p["ln2"], x, ctx.cfg), ctx, state=cache)
+    new_cache = None
+    if st_a is not None or st_f is not None:
+        new_cache = {**(st_a or {}), **(st_f or {})}
+        if cache is not None:  # keep untouched entries (a stable tree)
+            for k in cache:
+                new_cache.setdefault(k, cache[k])
+    return x + f, new_cache, None
+
+
+def _apply_shared_block(p, x, emb0, ctx: Ctx, cache):
+    """zamba2 shared attention block; input concat(h, emb0), width 2d.
+    Returns (x + out_proj(block), its attention cache)."""
+    u = torch.cat([x, emb0], dim=-1)
+    a, new_cache = attn_apply(p["attn"], apply_norm(p["norm1"], u, ctx.cfg),
+                              ctx, cache=cache)
+    u = u + a
+    dt = ctx.compute_dtype
+    un = apply_norm(p["norm2"], u, ctx.cfg).to(dt)
+    mp = p["mlp"]
+    h = torch.nn.functional.silu(un @ mp["w_gate"].to(dt)) * (
+        un @ mp["w_up"].to(dt))
+    u = u + (h @ mp["wo"].to(dt)).to(u.dtype)
+    out = (u.to(dt) @ p["out_proj"].to(dt)).to(x.dtype)
+    return x + out, new_cache
 
 
 def _apply_enc_block(p, x, ctx: Ctx):
@@ -263,13 +358,15 @@ def apply_model(
 
     if ctx.positions is None:
         if ctx.mode == "decode":
-            pos0 = _decode_positions(cfg, cache)
+            pos0 = _decode_positions(cfg, cache, B, tokens.device)
             ctx = dataclasses.replace(ctx, positions=pos0.reshape(B, 1))
         else:
             ctx = dataclasses.replace(ctx, positions=torch.arange(
                 S, device=tokens.device)[None].expand(B, S))
 
     x = embed_tokens(params["embed"], tokens, cfg, ctx)
+    if cfg.family == "ssm":
+        x = apply_norm(params["ln0"], x, cfg)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
 
     if cfg.frontend == "vision" and "patches" in batch:
@@ -281,24 +378,20 @@ def apply_model(
     if cfg.family == "audio" and "frames" in batch:
         enc_out = _encode(params, batch["frames"], ctx)
 
+    emb0 = x if cfg.family == "hybrid" else None
+    shared_points = set(cfg.shared_attn_points())
     caches = cache["layers"] if cache is not None else None
+    shared_caches = cache.get("shared", ()) if cache is not None else ()
     new_layer_caches: List[Any] = []
+    new_shared_caches: List[Any] = []
     li = 0          # global layer index (cache slot)
-    blocks = {
-        "attn": _maybe_ckpt(
-            lambda p_, x_, c_: _apply_attn_block(p_, x_, ctx, c_), ctx),
-        "moe": _maybe_ckpt(
-            lambda p_, x_, c_: _apply_moe_block(p_, x_, ctx, c_), ctx),
-        "dec": _maybe_ckpt(
-            lambda p_, x_, c_, kv_: _apply_dec_block(p_, x_, ctx, c_, kv_),
-            ctx),
-    }
-    blocks["attn_dense"] = blocks["attn"]
+    si = 0          # shared-attn invocation index
     for gi, (kind, count) in enumerate(group_structure(cfg)):
         if kind == "enc":                # ran above, from the frames
             li += count
             new_layer_caches.extend([None] * count)
             continue
+        block = _maybe_ckpt(_block_apply_fn(kind, ctx), ctx)
         for pl in _layers(params[f"g{gi}"], count):
             c_in = caches[li] if caches is not None else None
             if kind == "dec":
@@ -311,22 +404,47 @@ def apply_model(
                     raise ValueError("whisper decode needs frames or cache")
                 self_c = {k: v for k, v in (c_in or {}).items()
                           if k in ("k", "v", "pos")} or None
-                x, c_new, a_ = blocks["dec"](pl, x, self_c, kvd)
+                x, c_new, a_ = block(pl, x, self_c, kvd)
                 if c_new is not None:
                     c_new = dict(c_new, ck=kvd[0], cv=kvd[1])
             else:
-                x, c_new, a_ = blocks[kind](pl, x, c_in)
+                x, c_new, a_ = block(pl, x, c_in)
             if a_ is not None:
                 aux = aux + a_
             new_layer_caches.append(c_new)
             li += 1
+            if (li - 1) in shared_points:
+                sc_in = shared_caches[si] if shared_caches else None
+                x, sc_new = _apply_shared_block(params["shared"], x, emb0,
+                                                ctx, sc_in)
+                new_shared_caches.append(sc_new)
+                si += 1
 
     x = apply_norm(params["final_norm"], x, cfg)
     logits = x if return_hidden else head_logits(params, x, ctx)
     new_cache = None
     if ctx.mode in ("prefill", "decode"):
         new_cache = {"layers": tuple(new_layer_caches)}
+        if new_shared_caches:
+            new_cache["shared"] = tuple(new_shared_caches)
     return logits, new_cache, aux
+
+
+def _block_apply_fn(kind: str, ctx: Ctx):
+    """The apply of one layer of block kind ``kind`` under ``ctx``:
+    ``(p, x, cache) -> (x', cache', aux or None)``; a decoder layer's also
+    takes the cross K/V."""
+    if kind in ("attn", "attn_dense"):
+        return lambda p, x, c: _apply_attn_block(p, x, ctx, c)
+    if kind == "moe":
+        return lambda p, x, c: _apply_moe_block(p, x, ctx, c)
+    if kind == "mamba2":
+        return lambda p, x, c: _apply_mamba_block(p, x, ctx, c)
+    if kind == "rwkv6":
+        return lambda p, x, c: _apply_rwkv_block(p, x, ctx, c)
+    if kind == "dec":
+        return lambda p, x, c, kv: _apply_dec_block(p, x, ctx, c, kv)
+    raise ValueError(kind)
 
 
 def head_logits(params, x: torch.Tensor, ctx: Ctx) -> torch.Tensor:
@@ -339,8 +457,9 @@ def pad_cache(cache, target_len: int):
 
     Prefill returns caches sized to the prompt; decode writes new K/V at
     ``pos``, so the buffers must be pre-extended to the serving max length.
-    A decoder layer's cross K/V (``ck``/``cv``) and an encoder layer's
-    None pass through untouched.
+    A decoder layer's cross K/V (``ck``/``cv``), an encoder layer's None
+    and a Mamba-2/RWKV-6 layer's state (no sequence axis) pass through
+    untouched; zamba2's shared-block caches are padded as the layers'.
     """
     def pad_entry(c):
         if not (isinstance(c, dict) and "k" in c and "v" in c):
@@ -353,15 +472,24 @@ def pad_cache(cache, target_len: int):
                 out[key] = torch.nn.functional.pad(buf, (0, 0, 0, 0, 0, extra))
         return out
 
-    return {"layers": tuple(pad_entry(c) for c in cache["layers"])}
+    new = {"layers": tuple(pad_entry(c) for c in cache["layers"])}
+    if "shared" in cache:
+        new["shared"] = tuple(pad_entry(c) for c in cache["shared"])
+    return new
 
 
-def _decode_positions(cfg: ModelConfig, cache) -> torch.Tensor:
-    """Current sequence lengths (B,) from the first attention cache."""
+def _decode_positions(cfg: ModelConfig, cache, B: int,
+                      device) -> torch.Tensor:
+    """Current sequence lengths (B,) from whichever cache entry tracks
+    them: the first attention layer's, else the first shared block's
+    (zamba2); zeros for a model without attention (rwkv: positions
+    unused)."""
     ai = _first_attn_idx(cfg)
-    if ai is None:
-        raise ValueError(f"{cfg.name}: no attention layer tracks positions")
-    return cache["layers"][ai]["pos"]
+    if ai is not None:
+        return cache["layers"][ai]["pos"]
+    if cache.get("shared"):
+        return cache["shared"][0]["pos"]
+    return torch.zeros((B,), dtype=torch.int32, device=device)
 
 
 def _first_attn_idx(cfg: ModelConfig) -> Optional[int]:

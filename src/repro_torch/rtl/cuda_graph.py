@@ -122,11 +122,17 @@ class CapturedProgram:
             # without its torch.cuda.empty_cache(): a process builds
             # programs again and again, and flushing the caching allocator
             # at each would turn later allocations into cudaMalloc calls
+            # The side stream is this capture's own: other threads queue
+            # their work on their own current streams, never on it. The
+            # capture checks only this thread's CUDA calls
+            # ("thread_local"): the default ("global") also fails it when
+            # another thread syncs meanwhile (a runner reading its answer
+            # with torch.equal while a flip's next run captures again).
             current = torch.cuda.current_stream(self.device)
             side = torch.cuda.Stream(self.device)
             side.wait_stream(current)
             with torch.cuda.stream(side):
-                self.graph.capture_begin()
+                self.graph.capture_begin(capture_error_mode="thread_local")
                 try:
                     self.env: Env = walk(self.static_x)
                 finally:

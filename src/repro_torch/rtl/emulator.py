@@ -106,8 +106,9 @@ _CANONICAL = {torch.int64: torch.int32, torch.float64: torch.float32}
 class _ExecCtx:
     """The execution context a program's walk hands the templates.
 
-    Templates run against ``prepared(name)`` and ``lookup(lut, codes)`` of
-    their executor, so a program's walk substitutes this view, in which the
+    Templates run against ``prepared(name)``, ``lookup(lut, codes)`` and
+    ``interpret`` of their executor, so a program's walk substitutes this
+    view, in which the
     array constants are the program's ``params`` operand (per-node dicts of
     int32 tensors) while the static values (kernel specs) come from the
     building emulator's prepared store. Isomorphic designs have identical
@@ -116,12 +117,13 @@ class _ExecCtx:
     emulator's context runs correctly for any emulator with the same key.
     """
 
-    __slots__ = ("_params", "_static", "_lut_lo")
+    __slots__ = ("_params", "_static", "_lut_lo", "interpret")
 
     def __init__(self, em: "RTLEmulator", params: Dict[str, Dict]):
         self._params = params
         self._static = em._static
         self._lut_lo = {name: n.lo for name, n in em._lut_nodes.items()}
+        self.interpret = em.interpret
 
     def prepared(self, name: str) -> Dict:
         merged = dict(self._static.get(name, ()))
@@ -174,6 +176,10 @@ class RTLEmulator:
         if max_programs < 1:
             raise ValueError(f"max_programs must be >= 1, got {max_programs}")
         self.device = resolve_device(device)
+        # the reference's use_interpret(): not on the accelerator. Nothing
+        # reads it to pick a path (the tensors' device does); a custom
+        # template written to the reference's contract passes it on
+        self.interpret = self.device.type != "cuda"
         self.iso_key = iso_key(graph)
         # ---- stage 0: hoist every host->device conversion, once ----------
         # each template declares its constants; ndarray values become int32

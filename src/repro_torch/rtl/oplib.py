@@ -63,12 +63,19 @@ from repro_torch.rtl.resources import (CONV_DSP, LINEAR_DSP, LSTM_DSP,
 
 
 def mac_int(xh: torch.Tensor, w: torch.Tensor, b: torch.Tensor, *,
-            shift: int, fmt: FxpFormat, mode: str) -> torch.Tensor:
+            shift: int, fmt: FxpFormat, mode: str,
+            interpret: Optional[bool] = None) -> torch.Tensor:
     """The shared serial-MAC schedule: the plain version in ``jnp`` mode,
-    the MAC kernel's wrapper otherwise."""
+    the MAC kernel's wrapper otherwise. ``interpret`` (the reference's
+    Pallas flag, ``em.interpret`` in a template) is accepted and not read:
+    the tensors' device picks the kernel or its plain version. The
+    operands may have any layout, as a JAX array has none (a template's
+    ``x.reshape`` of a sliced edge is a strided view): the kernel gets
+    contiguous copies where they are not."""
     if mode == "jnp":
         return mac_int_ref(xh, w, b, shift=shift, lo=fmt.lo, hi=fmt.hi)
-    return mac_int_op(xh, w, b, shift=shift, lo=fmt.lo, hi=fmt.hi)
+    return mac_int_op(xh.contiguous(), w.contiguous(), b.contiguous(),
+                      shift=shift, lo=fmt.lo, hi=fmt.hi)
 
 
 def requant_shift(in_fmt: FxpFormat, w_fmt: FxpFormat,
@@ -208,8 +215,8 @@ class HWTemplate:
         """Int32 semantics: read input edges from ``env``, write outputs.
 
         ``em`` is the executing :class:`~repro_torch.rtl.emulator.
-        RTLEmulator` (``em.prepared(name)``, ``em.lookup(lut, codes)``);
-        ``mode`` is one of its execution paths.
+        RTLEmulator` (``em.prepared(name)``, ``em.lookup(lut, codes)``,
+        ``em.interpret``); ``mode`` is one of its execution paths.
         """
         raise NotImplementedError
 
@@ -328,7 +335,8 @@ class LinearTemplate(HWTemplate):
         p = em.prepared(n.name)
         shift = requant_shift(n.in_fmt, n.w_fmt, n.out_fmt)
         env[n.outputs[0]] = mac_int(x, p["w"], p["b"], shift=shift,
-                                    fmt=n.out_fmt, mode=mode)
+                                    fmt=n.out_fmt, mode=mode,
+                                    interpret=em.interpret)
 
     def reference(self, n: LinearNode, env: Dict, luts: Dict) -> None:
         src = env[n.inputs[0]]
@@ -595,7 +603,7 @@ class Conv1dTemplate(HWTemplate):
         xh = self._frames(x, n).reshape(B * t_out, n.kernel * n.channels)
         shift = requant_shift(n.in_fmt, n.w_fmt, n.out_fmt)
         y = mac_int(xh.contiguous(), p["w_mat"], p["b"], shift=shift,
-                    fmt=n.out_fmt, mode=mode)
+                    fmt=n.out_fmt, mode=mode, interpret=em.interpret)
         env[n.outputs[0]] = y.reshape(B, t_out, n.channels)
 
     def reference(self, n: Conv1dNode, env: Dict, luts: Dict) -> None:

@@ -127,7 +127,7 @@ def test_config_equals_reference_field_for_field(arch, smoke):
 
 
 def test_arch_ids_and_all_configs():
-    later = {"zamba2-7b", "rwkv6-7b"}
+    later = set()                 # every arch of the reference is ported
     assert tconfigs.ARCH_IDS == tuple(a for a in jconfigs.ARCH_IDS
                                       if a not in later)
     assert tconfigs.ALL_IDS == tuple(a for a in jconfigs.ALL_IDS
@@ -135,11 +135,14 @@ def test_arch_ids_and_all_configs():
     for smoke in (False, True):
         cfgs = tconfigs.all_configs(smoke=smoke)
         assert tuple(cfgs) == tconfigs.ALL_IDS
-        assert all(c.family in ("dense", "moe", "audio", "vlm", "lstm",
-                                "conv1d") for c in cfgs.values())
+        assert all(c.family in ("dense", "moe", "audio", "vlm", "hybrid",
+                                "ssm", "lstm", "conv1d")
+                   for c in cfgs.values())
     for a in later:
         with pytest.raises(KeyError, match="not ported"):
             get_config(a)
+    with pytest.raises(KeyError, match="unknown arch"):
+        get_config("no-such-arch")
 
 
 @pytest.mark.parametrize("arch", NEW)

@@ -21,7 +21,9 @@ counts on the card equal to its counts on ``meta``, B5 launched once a
 layer by a deployed prefill), and the LM families (the MoE oracle and its
 router's tie rule against the CPU, a DeepSeek-MoE-16B layer at full width
 with B5 against plain attention, whisper-tiny's decode through its cached
-cross K/V against a whole-sequence prefill).
+cross K/V against a whole-sequence prefill), the hybrid and RWKV families
+(``-k family``), and concurrent SEU flips against program replays, once
+and 240 times in one process (``-k flips_under``).
 
 Imports nothing of JAX, so it also runs where JAX is not installed:
 
@@ -1743,6 +1745,26 @@ def test_flips_under_concurrent_replays_on_card(cuda):
     assert torch.equal(em.run_int(x).outputs, want[0])
 
 
+@pytest.mark.parametrize("block", range(4))
+def test_flips_under_concurrent_replays_repeated_in_one_process(cuda, block):
+    """The test above 60 times in a row in one process, four blocks (ROADMAP
+    §C7: the capture race showed in such loops, not in one run a
+    process). Every run passes, and no device memory stays allocated
+    after a block: each run's programs go with its emulator. Their CUDA
+    Graph pools stay reserved by the caching allocator (ROADMAP §C10), so
+    each block ends by returning them."""
+    import gc
+
+    base = torch.cuda.memory_allocated(cuda)
+    try:
+        for _ in range(60):
+            test_flips_under_concurrent_replays_on_card(cuda)
+            gc.collect()
+        assert torch.cuda.memory_allocated(cuda) <= base
+    finally:
+        torch.cuda.empty_cache()
+
+
 # --------------------------------------------------------------------------- #
 # LM training on the card: B5's gradient, the train step, recovery,
 # checkpoints
@@ -2006,3 +2028,149 @@ def test_whisper_decode_after_prefill_full_size_on_card(cuda):
                 params, {"tokens": tokens[:, :i + 1], "frames": frames},
                 Ctx(cfg, SMOKE_MESH, "prefill", par=par, attn_impl="flash"))
             assert (got - full[:, -1]).abs().max().item() <= 1e-4
+
+
+# --------------------------------------------------------------------------- #
+# The hybrid and RWKV families on the card: B6 and B7 on every prefill
+# --------------------------------------------------------------------------- #
+
+
+def _family_smoke(arch):
+    """The smoke config at the full configs' head widths: Zamba2's SSD
+    heads of P = 64 with N = 64 (2 heads, 4 layers, the shared block after
+    the 2nd and 4th), RWKV6's WKV heads of 64 (2 heads, 2 layers)."""
+    from repro_torch.core.types import RWKVConfig, SSMConfig
+
+    cfg = get_config(arch, smoke=True)
+    if arch == "zamba2-7b":
+        return cfg.with_(ssm=SSMConfig(d_state=64, expand=2, headdim=64,
+                                       chunk=8))
+    return cfg.with_(d_model=128, rwkv=RWKVConfig(head_size=64,
+                                                  decay_lora=8, chunk=8))
+
+
+def _family_setup(arch, cuda, impl="flash"):
+    par = ParallelismConfig(compute_dtype="float32", attn_impl=impl)
+    cfg = _family_smoke(arch)
+    params = Stepper(cfg, ShapeConfig("p", "prefill", 32, 1), SMOKE_MESH,
+                     par).init(seed=26, device=cuda)
+    return cfg, par, params
+
+
+def _chunked_seams(monkeypatch):
+    """Point the blocks' scan seams at the chunked forms, as a CPU prefill
+    runs them."""
+    from repro_torch.model import rwkv as trwkv
+    from repro_torch.model import ssm as tssm
+
+    monkeypatch.setattr(tssm, "_ssd_scan", lambda x, dt, A, Bm, Cm, chunk,
+                        h0, mode: ssd_chunked(x, dt, A, Bm, Cm, chunk=chunk,
+                                              h0=h0))
+    monkeypatch.setattr(trwkv, "_wkv_scan", lambda r, k, v, w, u, h0, chunk,
+                        mode: wkv6_chunked(r, k, v, w, u, h0=h0,
+                                           chunk=chunk))
+
+
+def _scaled_err(got, want) -> float:
+    return ((got - want).abs().max()
+            / max(1.0, want.abs().max().item())).item()
+
+
+@pytest.mark.parametrize("arch,ops_mod,name", [
+    ("zamba2-7b", ssd_ops, "ssd"), ("rwkv6-7b", wkv_ops, "wkv6")])
+@pytest.mark.parametrize("S", [16, 13, 40])
+def test_family_prefill_runs_its_kernel_once_a_layer(cuda, monkeypatch,
+                                                     arch, ops_mod, name, S):
+    """One prefill launches B6 (Zamba2) or B7 (RWKV6) once a layer and no
+    other scan kernel; its logits and cache equal those of the same
+    prefill through the chunked forms within 1e-4 (of the leaf's largest
+    magnitude where above 1), at a ragged S too; a decode tick launches
+    neither kernel."""
+    from repro_torch.model.layers import tree_leaves
+    from repro_torch.model.lm import make_decode_step, make_prefill_step
+    from repro_torch.model.transformer import pad_cache
+    from repro_torch.verify.conformance import exact_f32_matmul
+
+    cfg, par, params = _family_setup(arch, cuda)
+    tokens = torch.as_tensor(np.random.default_rng(S).integers(
+        2, cfg.vocab_size, (2, S)), device=cuda)
+    prefill = make_prefill_step(cfg, SMOKE_MESH, par)
+    with exact_f32_matmul(), torch.no_grad():
+        before = (ssd_ops.launches, wkv_ops.launches)
+        logits, cache = prefill(params, {"tokens": tokens})
+        torch.cuda.synchronize()
+        ran = (ssd_ops.launches - before[0], wkv_ops.launches - before[1])
+        assert ran == ((cfg.n_layers, 0) if name == "ssd"
+                       else (0, cfg.n_layers))
+        assert ("shared" in cache) == (arch == "zamba2-7b")
+        got = [t.clone() for t in tree_leaves(cache)]
+        decode = make_decode_step(cfg, SMOKE_MESH, par)
+        before = (ssd_ops.launches, wkv_ops.launches)
+        _, _ = decode(params, tokens[:, -1:], pad_cache(cache, S + 2))
+        torch.cuda.synchronize()
+        assert (ssd_ops.launches, wkv_ops.launches) == before
+        with monkeypatch.context() as m:
+            _chunked_seams(m)
+            want_logits, want_cache = prefill(params, {"tokens": tokens})
+            assert (ssd_ops.launches, wkv_ops.launches) == before
+    assert _scaled_err(logits, want_logits) <= 1e-4
+    want = tree_leaves(want_cache)
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and g.dtype == w.dtype
+        if g.is_floating_point():
+            assert _scaled_err(g.float(), w.float()) <= 1e-4
+        else:
+            assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("arch", ["zamba2-7b", "rwkv6-7b"])
+def test_family_server_on_card_matches_the_chunked_path(cuda, monkeypatch,
+                                                        arch):
+    """The Server on the card with the kernels gives the greedy tokens of
+    the same Server with the scans' chunked forms: 3 requests, 4 new
+    tokens, 2 slots, f32."""
+    from repro_torch.verify.conformance import exact_f32_matmul
+
+    cfg, par, params = _family_setup(arch, cuda)
+    rng = np.random.default_rng(5)
+    prompts = [rng.integers(2, cfg.vocab_size, n).tolist()
+               for n in (12, 13, 7)]
+
+    def serve():
+        srv = Server(cfg, params, ServerConfig(batch_slots=2, max_len=24,
+                                               eos_token=-1), SMOKE_MESH,
+                     par, device=cuda)
+        for p in prompts:
+            srv.submit(p, max_new_tokens=4)
+        return [r.out_tokens for r in srv.run_until_drained()]
+
+    with exact_f32_matmul():
+        ops_mod = ssd_ops if arch == "zamba2-7b" else wkv_ops
+        before = ops_mod.launches
+        got = serve()
+        assert ops_mod.launches - before == 3 * cfg.n_layers
+        with monkeypatch.context() as m:
+            _chunked_seams(m)
+            want = serve()
+    assert got == want and all(len(t) == 4 for t in got)
+
+
+def test_family_training_runs_the_chunked_forms_on_card(cuda):
+    """B6 and B7 are forward-only: a train step on the card launches
+    neither."""
+    from repro_torch.model.layers import tree_leaves, value_and_grad
+    from repro_torch.model.lm import make_loss_fn
+
+    for arch in ("zamba2-7b", "rwkv6-7b"):
+        cfg, par, params = _family_setup(arch, cuda)
+        tok = torch.as_tensor(np.random.default_rng(1).integers(
+            2, cfg.vocab_size, (2, 16)), device=cuda)
+        before = (ssd_ops.launches, wkv_ops.launches)
+        (loss, _), grads = value_and_grad(make_loss_fn(
+            cfg, SMOKE_MESH, par), has_aux=True)(
+            params, {"tokens": tok, "targets": tok})
+        torch.cuda.synchronize()
+        assert (ssd_ops.launches, wkv_ops.launches) == before
+        assert torch.isfinite(loss)
+        assert all(torch.isfinite(g).all() for g in tree_leaves(grads))

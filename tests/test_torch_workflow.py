@@ -189,8 +189,11 @@ def test_component_registry():
         want = importlib.import_module("repro.core.registry") \
             .validate_config(j_get_config(arch, smoke=smoke))
         assert sorted(got) == sorted(want)
+    # the hybrid family's component is ported; an unknown one still raises
+    assert tregistry.get("mamba2").template == \
+        "repro_torch.kernels.mamba2.ops"
     with pytest.raises(KeyError, match="is not supported by the creator"):
-        tregistry.get("mamba2")
+        tregistry.get("mamba3")
 
 
 def test_creator_deprecated_spellings_and_measure():
