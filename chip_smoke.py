@@ -278,14 +278,40 @@ The hybrid and RWKV families, B6 and B7 on every prefill layer:
     farther from the card than from the CPU. One prefill and one decode tick
     profiled per model: device ms split into the scan kernel, B5, the
     GEMMs and the rest. Then B2 timed again as in phase 5;
-22. print the kernels line (B1's and B2's rows also carry the loop's
+Scan-over-layers (``ParallelismConfig.scan_layers``: each group's stacked
+layers as one scan, the serving cache stacked by group) and ROADMAP §C10:
+
+22. Yi-9B, Zamba2-7B and RWKV6-7B, each at full width and depth with
+    random bf16 weights drawn on the card: one 2,048-token prefill through
+    ``make_prefill_step`` (``attn_impl="flash"``) and 16 greedy decode
+    ticks on 4 slots of 4,096 positions, once unrolled and once scanned
+    (Zamba2 as 13 units of 6 Mamba-2 layers and the shared block, then 3
+    layers), from the same weights: the logits of the prefill and of every
+    tick equal bit for bit, the tokens equal; every launch count set to 0
+    just before each prefill and read just after: B5 ``sm90`` 48 (Yi-9B),
+    B6 81 and B5 13 (Zamba2), B7 32 (RWKV6) in both forms, and no kernel in
+    the ticks; each form's prefill and tick ms, and a tick's device memory
+    peak above what was allocated before it, the scanned one within 5% of
+    the unrolled one (so no tick copies a layer's cache whole). Then
+    ``launch.train.run(parse_args(["--arch", "stablelm-3b", "--full",
+    "--seq", "2048", "--batch", "4", "--steps", "2", "--scan", ...]))``
+    and the same run without ``--scan``: equal losses bit for bit, B5
+    ``sm90`` 2 x 32 a step in both. Then C7's scenario (six threads
+    replaying an emulator's program while another flips a W bit 40 times)
+    100 times in one process with no ``torch.cuda.empty_cache()`` of the
+    loop's own: every run passes, and ``memory_reserved()`` after run 100
+    lies within 2 GB of its reading after run 10 (the next capture returns
+    the dropped CUDA Graph pools);
+23. print the kernels line (B1's and B2's rows also carry the loop's
     launches, ``workflow_launches``, the farm's, ``farm_launches``, one
     multi-design replay's of each design, ``multi_launches``, and phase
     18's, ``resilience_launches``; B5's the host target's,
     ``host_target_launches`` and ``host_target_train_launches``, the
     8 training steps', ``train_launches``, and phases 20's and 21's by
     arch, ``families_launches``; B6's and B7's phase 21's,
-    ``families_launches``) and the card's name and power limit.
+    ``families_launches``; B5's, B6's and B7's one scanned prefill's by
+    arch and B5's two scanned training steps', ``scan_launches``) and the
+    card's name and power limit.
 
 Usage, from the repository root: ``python3 chip_smoke.py``. Needs one CUDA
 card and ``nvcc``; exits non-zero, printing no result, without them. The
@@ -3558,6 +3584,301 @@ def phase_scan_families(ops_by_name: dict, card: str) -> dict:
     return launches
 
 
+# scan-over-layers (phase 22): each model at full width, the scan form
+# (ParallelismConfig.scan_layers) against the unrolled form on the same
+# weights; the launches a prefill must make, by kernel
+SCAN_LAYER_ARCHS = {"yi-9b": {"flash_attention": 48},
+                    "zamba2-7b": {"ssd": 81, "flash_attention": 13},
+                    "rwkv6-7b": {"wkv6": 32}}
+SCAN_PROMPT, SCAN_TICKS = 2048, 16
+SCAN_TICK_MEM_RATIO = 1.05           # a scanned tick's peak over the unrolled
+TRAIN_SCAN_STEPS = 2
+C10_RUNS, C10_GROWTH_BAR = 100, 2e9  # ROADMAP §C10: reserved bytes
+
+
+def slots_cache(cache, stacked: bool):
+    """One prefilled sequence's cache padded to ``MAX_LEN`` positions and
+    repeated over ``SLOTS`` slots: the unrolled layout through
+    ``pad_cache``, the stacked one with K/V padded on axis 2 and the batch
+    on axis 1 (the reference's ``tests/test_scan_unroll.py::
+    _pad_stacked``)."""
+    import torch
+
+    from repro_torch.model.transformer import pad_cache
+
+    if not stacked:
+        pool = pad_cache(cache, MAX_LEN)
+        return {key: tuple(None if c is None else {
+            k: torch.cat([buf] * SLOTS) for k, buf in c.items()}
+            for c in pool[key]) for key in pool}
+    out = {}
+    for key, group in cache.items():
+        out[key] = None if group is None else {}
+        for k, buf in (group or {}).items():
+            if k in ("k", "v") and buf.shape[2] < MAX_LEN:
+                buf = torch.nn.functional.pad(
+                    buf, (0, 0, 0, 0, 0, MAX_LEN - buf.shape[2]))
+            out[key][k] = torch.cat([buf] * SLOTS, dim=1)
+    return out
+
+
+def scan_form_run(cfg, params, one, par, ops_by_name, zero_counts) -> dict:
+    """A warm-up prefill, then one counted ``SCAN_PROMPT``-token prefill
+    through ``make_prefill_step`` and ``SCAN_TICKS`` greedy ticks through
+    ``make_decode_step`` on ``SLOTS`` slots over ``MAX_LEN`` positions:
+    the logits of the prefill and of every tick, the tokens, the launches
+    of the prefill and of the ticks, host ms, and each tick's device memory
+    peak above what was allocated before it."""
+    import torch
+
+    from repro_torch.core.types import SMOKE_MESH
+    from repro_torch.model.lm import make_decode_step, make_prefill_step
+
+    prefill = make_prefill_step(cfg, SMOKE_MESH, par)
+    decode = make_decode_step(cfg, SMOKE_MESH, par)
+    with torch.no_grad():
+        prefill(params, one)
+        torch.cuda.synchronize()
+        zero_counts()
+        t0 = time.perf_counter()
+        logits, cache = prefill(params, one)
+        torch.cuda.synchronize()
+        prefill_ms = (time.perf_counter() - t0) * 1e3
+        counts = {k: m.launches for k, m in ops_by_name.items() if m.launches}
+        variants = dict(ops_by_name["flash_attention"].launches_by_variant)
+        cache = slots_cache(cache, par.scan_layers)
+        tok = logits.argmax(-1).reshape(1, 1).expand(SLOTS, 1).contiguous()
+        rows, tokens, tick_ms, extra = [logits.float().cpu()], [], [], []
+        zero_counts()
+        for _ in range(SCAN_TICKS):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            t0 = time.perf_counter()
+            out, cache = decode(params, tok, cache)
+            torch.cuda.synchronize()
+            tick_ms.append((time.perf_counter() - t0) * 1e3)
+            extra.append(torch.cuda.max_memory_allocated() - base)
+            rows.append(out.float().cpu())
+            tok = out.argmax(-1, keepdim=True)
+            tokens.append(tok[:, 0].tolist())
+        tick_counts = {k: m.launches for k, m in ops_by_name.items()
+                       if m.launches}
+        resident = torch.cuda.memory_allocated()
+        del cache
+    torch.cuda.empty_cache()
+    return {"rows": rows, "tokens": tokens, "counts": counts,
+            "variants": variants, "tick_counts": tick_counts,
+            "prefill_ms": prefill_ms, "tick_ms": sorted(tick_ms),
+            "extra": max(extra), "resident": resident}
+
+
+def flips_under_replays() -> None:
+    """ROADMAP §C7's scenario (``tests/test_torch_gpu.py::
+    test_flips_under_concurrent_replays_on_card``): six threads replay one
+    ``elastic-lstm`` emulator's program at 4,096 windows while another
+    flips W's bit 7 forty times (mma <-> simt); every answer must be the
+    unflipped or the flipped design's, and nothing may raise."""
+    import threading
+
+    import numpy as np
+    import torch
+
+    from repro_torch.quant.fixedpoint import FxpFormat
+    from repro_torch.rtl.emulator import RTLEmulator
+    from repro_torch.verify.vectors import canonical_graph
+
+    graph, _, _ = canonical_graph("elastic-lstm")
+    em = RTLEmulator(graph, device="cuda")
+    x = rand_codes(np.random.default_rng(17), FxpFormat(8, 4), (4096, 6, 1))
+    want = [em.run_int(x).outputs.clone()]
+    em.flip_bit("lstm_cell_l0", "w", 0, 7)
+    want.append(em.run_int(x).outputs.clone())
+    em.flip_bit("lstm_cell_l0", "w", 0, 7)
+    bad, errors, stop = [], [], threading.Event()
+
+    def run():
+        try:
+            while not stop.is_set():
+                got = em.run_int(x).outputs
+                if not any(torch.equal(got, w) for w in want):
+                    bad.append(got.cpu())
+        except Exception as e:           # noqa: BLE001 - reported below
+            errors.append(e)
+
+    def flip():
+        try:
+            for _ in range(40):
+                em.flip_bit("lstm_cell_l0", "w", 0, 7)
+        except Exception as e:           # noqa: BLE001 - reported below
+            errors.append(e)
+
+    prev = sys.getswitchinterval()
+    sys.setswitchinterval(1e-5)
+    try:
+        runners = [threading.Thread(target=run) for _ in range(6)]
+        flipper = threading.Thread(target=flip)
+        for t in runners + [flipper]:
+            t.start()
+        flipper.join(timeout=120)
+        stop.set()
+        for t in runners:
+            t.join(timeout=120)
+    finally:
+        sys.setswitchinterval(prev)
+    torch.cuda.synchronize()
+    if flipper.is_alive() or any(t.is_alive() for t in runners) or \
+            errors or bad or not torch.equal(em.run_int(x).outputs, want[0]):
+        raise AssertionError(f"C7's scenario: errors {errors!r}, "
+                             f"{len(bad)} wrong answers")
+
+
+def phase_scan_layers(ops_by_name: dict, card: str) -> dict:
+    """Phase 22, scan-over-layers and ROADMAP §C10 on the card (see the
+    module docstring). Returns the launches of a scanned prefill by arch
+    and of the scanned training run."""
+    import gc
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.types import (SMOKE_MESH, ParallelismConfig,
+                                        ShapeConfig)
+    from repro_torch.launch import train as launch_train
+    from repro_torch.model.lm import Stepper
+
+    torch.cuda.empty_cache()
+
+    def zero_counts():
+        for mod in ops_by_name.values():
+            mod.launches = 0
+            if hasattr(mod, "launches_by_variant"):
+                mod.launches_by_variant = dict.fromkeys(
+                    mod.launches_by_variant, 0)
+
+    launches: dict = {}
+    for arch, want in SCAN_LAYER_ARCHS.items():
+        cfg = get_config(arch)
+        params = Stepper(cfg, ShapeConfig("serve", "prefill", MAX_LEN,
+                                          SLOTS), SMOKE_MESH,
+                         ParallelismConfig()).init(
+            seed=SEED, device="cuda", dtype_override=torch.bfloat16)
+        prompt = np.random.default_rng(SEED + 22).integers(
+            2, cfg.vocab_size, SCAN_PROMPT)
+        one = {"tokens": torch.tensor([prompt.tolist()], dtype=torch.int64,
+                                      device="cuda")}
+        runs = {}
+        for scan in (False, True):
+            par = ParallelismConfig(compute_dtype="bfloat16",
+                                    scan_layers=scan, attn_impl="flash")
+            runs[scan] = scan_form_run(cfg, params, one, par, ops_by_name,
+                                       zero_counts)
+        del params
+        torch.cuda.empty_cache()
+        u, s = runs[False], runs[True]
+        want_variants = {"sm90": want.get("flash_attention", 0), "simt": 0}
+        for r in (u, s):
+            if r["counts"] != want or r["variants"] != want_variants or \
+                    r["tick_counts"]:
+                raise AssertionError(
+                    f"{arch}: a prefill launched {r['counts']} (B5 by "
+                    f"variant {r['variants']}), {SCAN_TICKS} ticks "
+                    f"{r['tick_counts']}; expected {want} and none")
+        unequal = {("prefill" if i == 0 else f"tick {i}"): max_err(a, b)
+                   for i, (a, b) in enumerate(zip(u["rows"], s["rows"]))
+                   if not torch.equal(a, b)}
+        if unequal or u["tokens"] != s["tokens"]:
+            raise AssertionError(
+                f"{arch}: scan vs unrolled logits differ (max |diff| by "
+                f"step: {unequal}); tokens equal: "
+                f"{u['tokens'] == s['tokens']}")
+        if s["extra"] > SCAN_TICK_MEM_RATIO * u["extra"]:
+            raise AssertionError(
+                f"{arch}: a scanned tick's peak {s['extra'] / 1e9:.3f} GB "
+                f"over its resident memory > {SCAN_TICK_MEM_RATIO} x the "
+                f"unrolled tick's {u['extra'] / 1e9:.3f} GB")
+        launches[arch] = s["counts"]
+        log(f"phase 22 {arch} ({cfg.n_layers} layers, full width, bf16, "
+            f"flash): one {SCAN_PROMPT}-token prefill and {SCAN_TICKS} "
+            f"greedy ticks on {SLOTS} slots of {MAX_LEN} positions, scan "
+            f"vs unrolled: logits of the prefill and of every tick equal "
+            f"bit for bit, tokens equal ({u['tokens'][0][0]}, ..., "
+            f"{u['tokens'][-1][0]}); launches a prefill "
+            f"{json.dumps(s['counts'])} in both forms (B5 by variant "
+            f"{json.dumps(s['variants'])}), none in the ticks; prefill ms "
+            f"{u['prefill_ms']:.1f} unrolled, {s['prefill_ms']:.1f} scan; "
+            f"tick ms median {u['tick_ms'][SCAN_TICKS // 2]:.2f} unrolled, "
+            f"{s['tick_ms'][SCAN_TICKS // 2]:.2f} scan; a tick's peak "
+            f"above its resident memory {u['extra'] / 1e9:.3f} GB unrolled,"
+            f" {s['extra'] / 1e9:.3f} GB scan (ratio "
+            f"{s['extra'] / u['extra']:.3f} <= {SCAN_TICK_MEM_RATIO}); "
+            f"resident {u['resident'] / 1e9:.2f} / {s['resident'] / 1e9:.2f}"
+            f" GB ({card})")
+
+    # launch/train.py --scan against the same run unrolled
+    _, _, seq, batch = TRAIN_SHAPE
+    n_layers = get_config(TRAIN_ARCH).n_layers
+    losses, steps_ms = {}, {}
+    for scan in (True, False):
+        with tempfile.TemporaryDirectory() as td:
+            args = launch_train.parse_args(
+                ["--arch", TRAIN_ARCH, "--full", "--seq", str(seq),
+                 "--batch", str(batch), "--steps", str(TRAIN_SCAN_STEPS),
+                 "--device", "cuda", "--ckpt-dir", td]
+                + (["--scan"] if scan else []))
+            zero_counts()
+            out = launch_train.run(args)
+            counts = {k: m.launches for k, m in ops_by_name.items()
+                      if m.launches}
+            variants = dict(ops_by_name["flash_attention"].launches_by_variant)
+        losses[scan] = [m["loss"] for m in out["metrics"]]
+        steps_ms[scan] = [round(m["sec"] * 1e3, 1) for m in out["metrics"]]
+        del out
+        gc.collect()
+        torch.cuda.empty_cache()
+        n = 2 * n_layers * TRAIN_SCAN_STEPS
+        if counts != {"flash_attention": n} or variants != {"sm90": n,
+                                                             "simt": 0}:
+            raise AssertionError(f"train --scan={scan}: launches {counts}, "
+                                 f"B5 by variant {variants}; expected {n}")
+        if scan:
+            launches["train"] = counts
+    if losses[True] != losses[False] or len(losses[True]) != \
+            TRAIN_SCAN_STEPS:
+        raise AssertionError(f"train: losses {losses[True]} with --scan, "
+                             f"{losses[False]} without")
+    log(f"phase 22 python -m repro_torch.launch.train --arch {TRAIN_ARCH} "
+        f"--full --seq {seq} --batch {batch} --steps {TRAIN_SCAN_STEPS} "
+        f"--scan: losses {losses[True]} equal to the unrolled run's bit for "
+        f"bit; B5 sm90 2 x {n_layers} a step in both; host ms a step "
+        f"{steps_ms[True]} scan, {steps_ms[False]} unrolled ({card})")
+
+    # ROADMAP §C10: dropped CUDA Graph pools are returned by the next
+    # capture; no torch.cuda.empty_cache() of this loop's own
+    gc.collect()
+    reserved = {0: torch.cuda.memory_reserved()}
+    t0 = time.perf_counter()
+    for run in range(1, C10_RUNS + 1):
+        flips_under_replays()
+        gc.collect()
+        if run in (10, C10_RUNS):
+            reserved[run] = torch.cuda.memory_reserved()
+    growth = reserved[C10_RUNS] - reserved[10]
+    log(f"phase 22 C10: {C10_RUNS} runs of C7's scenario in "
+        f"{time.perf_counter() - t0:.1f} s, all passed; memory_reserved "
+        + ", ".join(f"after run {k}: {v / 1e9:.3f} GB" if k else
+                    f"before: {v / 1e9:.3f} GB" for k, v in reserved.items())
+        + f"; growth from run 10 {growth / 1e9:.3f} GB (bar "
+        f"{C10_GROWTH_BAR / 1e9:.0f} GB; before the repair about 0.35 GB a "
+        f"run) ({card})")
+    if growth > C10_GROWTH_BAR:
+        raise AssertionError(f"C10: reserved memory grew {growth / 1e9:.3f}"
+                             f" GB from run 10 to run {C10_RUNS}")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -4326,7 +4647,15 @@ def main() -> int:
         f"{b2_again:.4f} ms (phase 5: {mac_rows['lstm_head'][0]:.4f} ms) "
         f"({smi})")
 
-    # ---- 22. report --------------------------------------------------------
+    # ---- 22. scan-over-layers and C10 --------------------------------------
+    scan_layers = phase_scan_layers(ops_by_name, smi)
+    for row in kernel_rows:
+        if row["name"] in ("flash_attention", "ssd", "wkv6"):
+            row["scan_launches"] = {
+                arch: n[row["name"]] for arch, n in scan_layers.items()
+                if row["name"] in n}
+
+    # ---- 23. report --------------------------------------------------------
     log(smi)                     # the card's name and power limit
     print(json.dumps({"kernels": kernel_rows}))
     print(json.dumps({"ok": True, "device": {

@@ -46,7 +46,7 @@ def _mod(arch_id: str):
 def get_config(arch_id: str, smoke: bool = False) -> ModelConfig:
     """The published configuration of ``arch_id``, or its smoke variant."""
     m = _mod(arch_id)
-    return m.smoke() if smoke and hasattr(m, "smoke") else m.config()
+    return m.smoke() if smoke else m.config()
 
 
 def all_configs(smoke: bool = False) -> Dict[str, ModelConfig]:

@@ -19,3 +19,7 @@ def config() -> ModelConfig:
         conv1d=Conv1dConfig(channels=3, seq_len=16, kernel=3, stride=2,
                             n_blocks=2, out_features=1, act="hard_tanh"),
     )
+
+
+def smoke() -> ModelConfig:
+    return config()  # the paper's scale is smoke scale already

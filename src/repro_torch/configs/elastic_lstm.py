@@ -18,3 +18,7 @@ def config() -> ModelConfig:
         lstm=LSTMConfig(hidden=20, n_layers=1, in_features=1, out_features=1,
                         seq_len=6),
     )
+
+
+def smoke() -> ModelConfig:
+    return config()  # the paper's scale is smoke scale already

@@ -357,34 +357,25 @@ def get_target(name) -> Target:
 # --------------------------------------------------------------------------- #
 
 
-def _meta(tree):
-    """A tree of ``meta`` tensors with the shapes and dtypes of ``tree``'s
-    tensors or :class:`~repro_torch.model.layers.PSpec` leaves."""
-    from repro_torch.model.layers import is_pspec, tree_map
-
-    return tree_map(
-        lambda s: torch.empty(s.shape, dtype=s.dtype, device="meta"),
-        tree, is_leaf=is_pspec)
-
-
 def abstract_inputs(st, kind: str, params=None) -> tuple:
     """The arguments of ``kind``'s step of the stepper ``st`` as ``meta``
-    tensors: params from ``params`` where given (shapes and dtypes only),
-    else from the schema; the batch from
-    :func:`~repro_torch.model.lm.input_specs`, the cache from the cache
-    schema, the optimizer state zeros beside the params."""
-    from repro_torch.model.lm import input_specs
+    tensors (:meth:`~repro_torch.model.lm.Stepper.abstract_inputs`), the
+    params from ``params`` where given (shapes and dtypes only), with the
+    optimizer state beside them."""
+    from repro_torch.model.layers import abstract_params
     from repro_torch.optim.adamw import init_opt_state
 
-    p = _meta(params if params is not None else st.schema)
-    batch = {name: torch.empty(shape, dtype=dtype, device="meta")
-             for name, (shape, dtype) in input_specs(
-                 st.cfg, dataclasses.replace(st.shape, kind=kind)).items()}
+    a = dataclasses.replace(
+        st, shape=dataclasses.replace(st.shape, kind=kind)).abstract_inputs()
+    if params is not None:
+        a["params"] = abstract_params(params)
+        if kind == "train":
+            a["opt_state"] = init_opt_state(a["params"])
     if kind == "train":
-        return p, init_opt_state(p), batch
+        return a["params"], a["opt_state"], a["batch"]
     if kind == "prefill":
-        return p, batch
-    return p, batch["tokens"], _meta(st.cache_schema())
+        return a["params"], a["batch"]
+    return a["params"], a["batch"]["tokens"], a["cache"]
 
 
 class TorchTarget:

@@ -4,9 +4,10 @@ shared attention block) and RWKV.
 
 Port of ``ModelConfig``/``MoEConfig``/``SSMConfig``/``RWKVConfig``/
 ``EncoderConfig``/``LSTMConfig``/``Conv1dConfig``, ``ShapeConfig`` with
-the shape tables, ``MeshConfig`` and ``ParallelismConfig`` from
-``repro/core/types.py``; ``ParallelismConfig`` keeps only the knobs that
-the port's one-card path reads.
+the shape tables, ``MeshConfig`` with ``SINGLE_POD``/``MULTI_POD`` and
+``ParallelismConfig`` from ``repro/core/types.py``. ``ParallelismConfig``
+leaves out the reference's ``param_dtype``, ``grad_compression`` and
+``pipeline_stages``, which nothing in the port reads yet.
 """
 from __future__ import annotations
 
@@ -145,6 +146,9 @@ class ModelConfig:
     dtype: str = "bfloat16"
     # Remat policy for the layer stack in training: "full" | "dots" | "none"
     remat: str = "full"
+    # replicate the input embedding table over the "model" axis instead of
+    # sharding its vocab (``layers.embed_schema``)
+    embed_replicated: bool = False
     # chunk the CE loss over positions (the (B, S, V) logits are never
     # alive at once)
     ce_chunked: bool = True
@@ -276,14 +280,34 @@ def skipped_shapes_for(cfg: ModelConfig) -> Tuple[str, ...]:
 
 @dataclass(frozen=True)
 class MeshConfig:
-    """The device mesh the reference shards over. The port runs on one
-    card and reads nothing from it yet; entry points take it so that
-    their signatures stay the reference's."""
+    """A device mesh's shape and axis names. The schema builders read it
+    for the layouts (``PSpec.pspec``); ``launch/mesh.py`` builds the
+    matching ``torch.distributed`` device mesh."""
 
     shape: Tuple[int, ...]
     axes: Tuple[str, ...]
 
+    @property
+    def n_devices(self) -> int:
+        n = 1
+        for s in self.shape:
+            n *= s
+        return n
 
+    @property
+    def dp_axes(self) -> Tuple[str, ...]:
+        return tuple(a for a in self.axes if a in ("pod", "data"))
+
+    @property
+    def tp_axis(self) -> str:
+        return "model"
+
+    def axis_size(self, name: str) -> int:
+        return dict(zip(self.axes, self.shape)).get(name, 1)
+
+
+SINGLE_POD = MeshConfig((16, 16), ("data", "model"))
+MULTI_POD = MeshConfig((2, 16, 16), ("pod", "data", "model"))
 SMOKE_MESH = MeshConfig((1, 1), ("data", "model"))
 
 ATTN_IMPLS = ("ref", "flash")
@@ -291,14 +315,25 @@ ATTN_IMPLS = ("ref", "flash")
 
 @dataclass(frozen=True)
 class ParallelismConfig:
-    """Runtime knobs of the LM path on one card.
+    """Runtime knobs of the LM path.
 
-    ``attn_impl``: ``"ref"`` (plain PyTorch einsum attention) or
-    ``"flash"`` (the B5 kernel for every causal prefill, whose plain
-    version runs on a CPU tensor). ``gqa_grouped`` contracts q-head groups
-    against unrepeated K/V instead of materialising repeated K/V.
+    The reference's ``param_dtype``, ``grad_compression`` and
+    ``pipeline_stages`` are left out until something in the port reads
+    them.
+
+    ``seq_shard_decode`` shards a KV cache's sequence axis over ``"model"``
+    where the KV heads do not divide it (a layout only). ``scan_layers``
+    runs each group's stacked layers as one scan over the stack and keeps
+    serving caches stacked (``{"g0": ..., "shared": ...}`` with a leading
+    layer axis); the numbers are the unrolled path's. ``attn_impl``:
+    ``"ref"`` (plain PyTorch einsum attention) or ``"flash"`` (the B5
+    kernel for every causal prefill, whose plain version runs on a CPU
+    tensor). ``gqa_grouped`` contracts q-head groups against unrepeated
+    K/V instead of materialising repeated K/V.
     """
 
+    seq_shard_decode: bool = False
+    scan_layers: bool = False
     compute_dtype: str = "bfloat16"
     attn_impl: str = "ref"
     gqa_grouped: bool = False

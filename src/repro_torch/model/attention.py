@@ -14,7 +14,8 @@ import torch
 
 from repro_torch.core.types import ModelConfig
 from repro_torch.model.layers import (Ctx, PSpec, apply_rope, checkpoint,
-                                      rms_head_norm, rope_angles)
+                                      pspec, rms_head_norm, rope_angles,
+                                      shard_axis)
 
 # Sequences longer than this use the q-chunked (flash-style, O(S) memory) path.
 FULL_ATTN_MAX_SEQ = 1024
@@ -22,21 +23,24 @@ Q_CHUNK = 512
 NEG_INF = -1e30
 
 
-def attn_schema(cfg: ModelConfig, cross: bool = False, d_in: int = 0,
-                d_out: int = 0, n_heads: int = 0, n_kv_heads: int = 0):
+def attn_schema(cfg: ModelConfig, tp: int = 16, cross: bool = False,
+                d_in: int = 0, d_out: int = 0, n_heads: int = 0,
+                n_kv_heads: int = 0):
     """One attention layer's leaves; ``d_in``/``d_out``/``n_heads``/
     ``n_kv_heads`` default to the config's (``cross`` changes nothing: a
     cross-attention has the same leaves, its K/V projections applied to
-    the encoder's output)."""
+    the encoder's output). Heads shard over ``"model"`` where their count
+    divides ``tp``; K/V stay replicated where theirs does not."""
     d = d_in or cfg.d_model
     h = n_heads or cfg.n_heads
     kv = n_kv_heads or cfg.n_kv_heads
     hd = cfg.hd
+    ha, kva = shard_axis(h, tp), shard_axis(kv, tp)
     sch = {
-        "wq": PSpec((d, h * hd)),
-        "wk": PSpec((d, kv * hd)),
-        "wv": PSpec((d, kv * hd)),
-        "wo": PSpec((h * hd, d_out or d)),
+        "wq": PSpec((d, h * hd), (None, ha)),
+        "wk": PSpec((d, kv * hd), (None, kva)),
+        "wv": PSpec((d, kv * hd), (None, kva)),
+        "wo": PSpec((h * hd, d_out or d), (ha, None)),
     }
     if cfg.qk_norm:
         sch["q_norm"] = PSpec((hd,), init="ones")
@@ -204,11 +208,24 @@ def attn_apply(
     return out, new_cache
 
 
-def cache_schema(cfg: ModelConfig, batch: int, seq: int):
-    """KV-cache schema for one attention layer (serving)."""
+def cache_schema(cfg: ModelConfig, batch: int, seq: int, tp: int = 16,
+                 dp_axes: Tuple[str, ...] = ("data",),
+                 seq_shard: bool = False):
+    """KV-cache schema for one attention layer (serving). The layout: batch
+    over ``dp_axes`` where it reaches 16, else the sequence over
+    ``"data"``; KV heads over ``"model"`` where they divide ``tp``, else
+    (``seq_shard``, a batch of 16 or more) the sequence over ``"model"``."""
+    kva = shard_axis(cfg.n_kv_heads, tp)
+    if batch >= 16:
+        if seq_shard and kva is None:
+            kspec = pspec(dp_axes, "model", None, None)
+        else:
+            kspec = pspec(dp_axes, None, kva, None)
+    else:
+        kspec = pspec(None, "data", kva, None)
     shape = (batch, seq, cfg.n_kv_heads, cfg.hd)
     return {
-        "k": PSpec(shape, dtype=torch.bfloat16, init="zeros"),
-        "v": PSpec(shape, dtype=torch.bfloat16, init="zeros"),
+        "k": PSpec(shape, kspec, dtype=torch.bfloat16, init="zeros"),
+        "v": PSpec(shape, kspec, dtype=torch.bfloat16, init="zeros"),
         "pos": PSpec((batch,), dtype=torch.int32, init="zeros"),
     }

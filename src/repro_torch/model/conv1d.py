@@ -20,13 +20,15 @@ from repro_torch.quant.qat import hard_sigmoid, hard_tanh
 def conv1d_schema(cfg: ModelConfig):
     c = cfg.conv1d
     blocks = [{
-        "w": PSpec((c.kernel, c.channels), torch.float32),
-        "b": PSpec((c.channels,), torch.float32, init="zeros"),
+        "w": PSpec((c.kernel, c.channels), dtype=torch.float32),
+        "b": PSpec((c.channels,), dtype=torch.float32, init="zeros"),
     } for _ in range(c.n_blocks)]
     return {
         "blocks": blocks,
-        "head_w": PSpec((c.flat_features, c.out_features), torch.float32),
-        "head_b": PSpec((c.out_features,), torch.float32, init="zeros"),
+        "head_w": PSpec((c.flat_features, c.out_features),
+                        dtype=torch.float32),
+        "head_b": PSpec((c.out_features,), dtype=torch.float32,
+                        init="zeros"),
     }
 
 

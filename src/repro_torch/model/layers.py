@@ -2,21 +2,24 @@
 ``repro/model/layers.py``).
 
 A model's parameters are described once as nested dicts (and tuples or
-lists) of :class:`PSpec` leaves: shape, dtype, init. :func:`init_params`
-draws real tensors from the same schema that ``convert.params_from_jax``
-checks a carried-over tree against.
+lists) of :class:`PSpec` leaves: shape, layout, dtype, init.
+:func:`init_params` draws real tensors from the same schema that
+``convert.params_from_jax`` checks a carried-over tree against;
+:func:`abstract_params` gives ``meta`` tensors of it and :func:`shardings`
+each leaf's placement on a ``torch.distributed`` device mesh.
 
-Sharding has no meaning on one card: the reference's partition specs
-(``PSpec.pspec``, ``shardings``, ``abstract_params``) and activation
-constraints (``Ctx.constrain``, ``shard_axis``) are dropped, and every
-tensor lives whole on its device. The multi-GPU slice brings them back as
-``torch.distributed`` layouts.
+A leaf's layout (``PSpec.pspec``) is the reference's partition spec as a
+tuple: one entry per leading dim, each None (replicated), a mesh axis name
+or a tuple of them (the dim split over their product, the first axis
+major); missing trailing entries are None. The port runs on one card, so
+no tensor is split yet: the layouts are the metadata the collectives are
+built on.
 """
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Any, Callable, Optional, Tuple
+from typing import Any, Callable, Optional, Sequence, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -29,11 +32,28 @@ from repro_torch.core.types import (MeshConfig, ModelConfig,
 # ---------------------------------------------------------------------------
 
 
+#: one dim's entry of a layout: replicated, one mesh axis, or several
+Axis = Union[None, str, Tuple[str, ...]]
+
+
+def pspec(*entries: Union[Axis, Sequence[str]]) -> Tuple[Axis, ...]:
+    """A layout tuple, as ``tuple(jax.sharding.PartitionSpec(*entries))``
+    gives it: a one-axis tuple entry becomes the axis name."""
+    out = []
+    for e in entries:
+        if isinstance(e, (tuple, list)):
+            e = e[0] if len(e) == 1 else tuple(e)
+        out.append(e)
+    return tuple(out)
+
+
 @dataclass(frozen=True)
 class PSpec:
-    """One parameter leaf: shape + dtype + init, the single source of truth."""
+    """One parameter leaf: shape + layout + dtype + init, the single source
+    of truth."""
 
     shape: Tuple[int, ...]
+    pspec: Tuple[Axis, ...] = ()
     dtype: torch.dtype = torch.float32
     init: str = "normal"          # normal | zeros | ones | embed
     scale: Optional[float] = None  # stddev override (default: 1/sqrt(fan_in))
@@ -85,6 +105,104 @@ def _init_leaf(spec: PSpec, gen: torch.Generator,
     x = torch.randn(spec.shape, generator=gen, dtype=torch.float32,
                     device=dev)
     return x.mul_(std).to(dtype)
+
+
+def tree_map_pspec(fn: Callable[[PSpec], Any], schema):
+    return tree_map(fn, schema, is_leaf=is_pspec)
+
+
+def pspecs(schema):
+    """The layout of every leaf."""
+    return tree_map_pspec(lambda s: s.pspec, schema)
+
+
+def abstract_params(schema, dtype_override: Optional[torch.dtype] = None):
+    """``meta`` tensors of every leaf's shape and dtype (``dtype_override``
+    where given, as the reference's ``abstract_params``): no memory. The
+    leaves are :class:`PSpec` or tensors."""
+    return tree_map_pspec(lambda s: torch.empty(
+        s.shape, dtype=dtype_override or s.dtype, device="meta"), schema)
+
+
+@dataclass(frozen=True)
+class Sharding:
+    """A leaf's placement on a ``torch.distributed`` device mesh: one
+    ``Shard(dim)`` or ``Replicate()`` per mesh dim (the reference's
+    ``NamedSharding(mesh, pspec)``). A dim split over several mesh dims is
+    split over the first of them in mesh order, then each part over the
+    next."""
+
+    mesh: Any                                   # a DeviceMesh
+    placements: Tuple[Any, ...]
+
+    def _splits(self, ndim: int):
+        """Per tensor dim, the indices of the mesh dims that split it, in
+        mesh order."""
+        out = [[] for _ in range(ndim)]
+        for i, p in enumerate(self.placements):
+            if p.is_shard():
+                out[p.dim].append(i)
+        return out
+
+    def local_shape_and_offset(self, shape: Sequence[int],
+                               coordinate: Optional[Sequence[int]] = None
+                               ) -> Tuple[Tuple[int, ...], Tuple[int, ...]]:
+        """This rank's (or ``coordinate``'s) block of a ``shape`` leaf: its
+        shape and its offset in the global tensor. Parts are
+        ``torch.chunk``'s (ceil-sized; the last ones may be short or
+        empty), as DTensor's ``Shard`` cuts them."""
+        coord = (self.mesh.get_coordinate() if coordinate is None
+                 else list(coordinate))
+        if coord is None:
+            raise ValueError("this rank holds no part of the mesh")
+        sizes, offsets = list(shape), [0] * len(shape)
+        for d, mesh_dims in enumerate(self._splits(len(shape))):
+            for m in mesh_dims:
+                n = self.mesh.size(m)
+                part = -(-sizes[d] // n)
+                start = min(coord[m] * part, sizes[d])
+                offsets[d] += start
+                sizes[d] = min(part, sizes[d] - start)
+        return tuple(sizes), tuple(offsets)
+
+    def shard_shape(self, shape: Sequence[int]) -> Tuple[int, ...]:
+        """The block shape of a ``shape`` leaf at mesh coordinate 0 (the
+        reference's ``NamedSharding.shard_shape``)."""
+        return self.local_shape_and_offset(
+            shape, [0] * len(self.placements))[0]
+
+
+def placements(mesh, layout: Sequence[Axis]) -> Tuple[Any, ...]:
+    """``layout``'s ``Shard``/``Replicate`` for each dim of ``mesh``
+    (named by ``mesh.mesh_dim_names``). An entry of several axes must
+    name them in the mesh's order, the one order ``Shard`` expresses (the
+    reference's layouts all do: ``("pod", "data")``)."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    names = list(mesh.mesh_dim_names)
+    out: list = [Replicate()] * len(names)
+    for dim, entry in enumerate(layout):
+        axes = (entry,) if isinstance(entry, str) else tuple(entry or ())
+        for axis in axes:
+            if axis not in names:
+                raise ValueError(f"layout {tuple(layout)} names {axis!r}, "
+                                 f"not an axis of the mesh {names}")
+            if out[names.index(axis)].is_shard():
+                raise ValueError(f"layout {tuple(layout)} uses mesh axis "
+                                 f"{axis!r} twice")
+            out[names.index(axis)] = Shard(dim)
+        if list(axes) != sorted(axes, key=names.index):
+            # Shard placements split a dim over mesh dims in mesh order
+            raise ValueError(f"layout {tuple(layout)} splits dim {dim} over "
+                             f"{axes}, not in the mesh's order {names}")
+    return tuple(out)
+
+
+def shardings(schema, mesh):
+    """Every leaf's :class:`Sharding` on ``mesh`` (a ``DeviceMesh`` whose
+    dim names are the layouts' axis names)."""
+    return tree_map_pspec(
+        lambda s: Sharding(mesh, placements(mesh, s.pspec)), schema)
 
 
 def init_params(schema, generator: torch.Generator,
@@ -150,6 +268,11 @@ def _save_dots(ctx, op, *args, **kwargs):
 
 _DOTS = {torch.ops.aten.mm, torch.ops.aten.bmm, torch.ops.aten.addmm,
          torch.ops.aten.baddbmm}
+
+
+def shard_axis(n: int, tp: int) -> Optional[str]:
+    """'model' if n shards evenly over the TP axis, else replicate (None)."""
+    return "model" if tp > 0 and n % tp == 0 and n >= tp else None
 
 
 def param_count(schema) -> int:
@@ -243,12 +366,15 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 
-def mlp_schema(cfg: ModelConfig, d_ff: Optional[int] = None):
+def mlp_schema(cfg: ModelConfig, d_ff: Optional[int] = None, tp: int = 16):
     d, f = cfg.d_model, d_ff or cfg.d_ff
+    fa = shard_axis(f, tp)
     if cfg.act in ("gelu", "relu_sq"):
-        return {"wi": PSpec((d, f)), "wo": PSpec((f, d))}
-    return {"w_gate": PSpec((d, f)), "w_up": PSpec((d, f)),
-            "wo": PSpec((f, d))}
+        return {"wi": PSpec((d, f), (None, fa)),
+                "wo": PSpec((f, d), (fa, None))}
+    return {"w_gate": PSpec((d, f), (None, fa)),
+            "w_up": PSpec((d, f), (None, fa)),
+            "wo": PSpec((f, d), (fa, None))}
 
 
 def apply_mlp(p, x: torch.Tensor, cfg: ModelConfig, ctx: Ctx) -> torch.Tensor:
@@ -272,11 +398,13 @@ def apply_mlp(p, x: torch.Tensor, cfg: ModelConfig, ctx: Ctx) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def embed_schema(cfg: ModelConfig):
+def embed_schema(cfg: ModelConfig, tp: int = 16):
     v = cfg.padded_vocab
-    sch: Any = {"embedding": PSpec((v, cfg.d_model), init="embed")}
+    va = None if cfg.embed_replicated else shard_axis(v, tp)
+    sch: Any = {"embedding": PSpec((v, cfg.d_model), (va, None),
+                                   init="embed")}
     if not cfg.tie_embeddings:
-        sch["lm_head"] = PSpec((cfg.d_model, v))
+        sch["lm_head"] = PSpec((cfg.d_model, v), (None, shard_axis(v, tp)))
     return sch
 
 

@@ -3,31 +3,34 @@
 
 The step builders return plain callables: PyTorch runs eagerly, so nothing
 is jit-compiled, and the LM decode step updates the cache it is given in
-place. The train step of every family is the reference's: the window MSE
-for ``lstm``/``conv1d``, the (chunked) cross-entropy for the LMs, then
-AdamW; ``donate=True`` gives the form whose update reuses the parameter and
+place (its K/V buffers; with ``scan_layers`` every stacked leaf). The
+train step of every family is the reference's: the window MSE for
+``lstm``/``conv1d``, the (chunked) cross-entropy for the LMs, then AdamW;
+``donate=True`` gives the form whose update reuses the parameter and
 moment buffers it is given, as the reference's trainer donates them to
 ``jax.jit``.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, Optional, Tuple, Union
+from typing import Any, Dict, Optional, Tuple, Union
 
 import torch
 
 from repro_torch.core.types import (MeshConfig, ModelConfig,
                                     ParallelismConfig, ShapeConfig)
 from repro_torch.device import resolve_device
-from repro_torch.model.layers import (Ctx, checkpoint, init_params,
+from repro_torch.model.layers import (Axis, Ctx, abstract_params, checkpoint,
+                                      init_params, pspec, pspecs, shardings,
                                       value_and_grad)
 from repro_torch.model.transformer import (apply_model, head_logits,
                                            model_cache_schema, param_schema)
-from repro_torch.optim.adamw import AdamWConfig, adamw_update, adamw_update_
+from repro_torch.optim.adamw import (AdamWConfig, adamw_update,
+                                     adamw_update_, opt_state_schema)
 
 __all__ = ["param_schema", "cross_entropy", "chunked_ce_loss",
            "make_loss_fn", "make_train_step", "make_prefill_step",
-           "make_decode_step", "input_specs", "Stepper"]
+           "make_decode_step", "input_specs", "batch_pspecs", "Stepper"]
 
 WINDOW_FAMILIES = ("lstm", "conv1d")
 
@@ -209,22 +212,80 @@ def input_specs(cfg: ModelConfig, shape: ShapeConfig
     return specs
 
 
+def _batch_axis(mesh_cfg: MeshConfig,
+                batch: int) -> Optional[Tuple[str, ...]]:
+    dp = mesh_cfg.dp_axes
+    n = 1
+    for a in dp:
+        n *= mesh_cfg.axis_size(a)
+    return dp if (n > 1 and batch % n == 0) else None
+
+
+def batch_pspecs(cfg: ModelConfig, shape: ShapeConfig,
+                 mesh_cfg: MeshConfig) -> Dict[str, Tuple[Axis, ...]]:
+    """The layout of every model input of this cell: the batch over the
+    data axes where it divides them."""
+    ba = _batch_axis(mesh_cfg, shape.global_batch)
+    if cfg.family in WINDOW_FAMILIES:
+        return {"x": pspec(ba, None, None), "y": pspec(ba, None)}
+    specs = {"tokens": pspec(ba, None)}
+    if shape.kind == "train":
+        specs["targets"] = pspec(ba, None)
+    if shape.kind in ("train", "prefill"):
+        if cfg.frontend == "vision":
+            specs["patches"] = pspec(ba, None, None)
+        if cfg.frontend == "audio":
+            specs["frames"] = pspec(ba, None, None)
+    return specs
+
+
 @dataclass
 class Stepper:
-    """Schema and step functions of one (arch x shape) cell on one card."""
+    """Schema, layouts and step functions of one (arch x shape x mesh)
+    cell. ``mesh`` is the ``torch.distributed`` device mesh of
+    ``mesh_cfg`` (``launch/mesh.py``), needed only by :meth:`shardings`;
+    the steps run on one card."""
 
     cfg: ModelConfig
     shape: ShapeConfig
     mesh_cfg: MeshConfig
     par: ParallelismConfig
+    mesh: Optional[Any] = None
     opt_cfg: AdamWConfig = AdamWConfig()
 
     def __post_init__(self):
-        self.schema = param_schema(self.cfg)
+        tp = self.mesh_cfg.axis_size("model")
+        self.schema = param_schema(self.cfg, tp=tp)
+        self.param_pspecs = pspecs(self.schema)
+
+    def abstract_inputs(self):
+        """``meta`` tensors of every input of the cell's step: params,
+        and the optimizer state (train) or the cache (decode), and the
+        batch."""
+        batch = {k: torch.empty(shape, dtype=dtype, device="meta")
+                 for k, (shape, dtype) in input_specs(
+                     self.cfg, self.shape).items()}
+        out = {"params": abstract_params(self.schema), "batch": batch}
+        if self.shape.kind == "train":
+            out["opt_state"] = abstract_params(
+                opt_state_schema(self.schema, self.mesh_cfg))
+        elif self.shape.kind == "decode":
+            out["cache"] = abstract_params(self.cache_schema())
+        return out
 
     def cache_schema(self):
+        tp = self.mesh_cfg.axis_size("model")
         return model_cache_schema(self.cfg, self.shape.global_batch,
-                                  self.shape.seq_len)
+                                  self.shape.seq_len, self.mesh_cfg, tp=tp,
+                                  stacked=self.par.scan_layers,
+                                  seq_shard=self.par.seq_shard_decode)
+
+    def shardings(self, tree_schema):
+        """Every leaf's placement on ``self.mesh`` (``layers.Sharding``)."""
+        if self.mesh is None:
+            raise ValueError("Stepper.shardings needs a mesh "
+                             "(launch/mesh.py)")
+        return shardings(tree_schema, self.mesh)
 
     def train_fn(self, donate: bool = False):
         return make_train_step(self.cfg, self.mesh_cfg, self.par,

@@ -24,13 +24,14 @@ def lstm_schema(cfg: ModelConfig):
         d_in = c.in_features if i == 0 else c.hidden
         layers.append({
             # gate order: i, f, g, o (fused)
-            "w": PSpec((d_in + c.hidden, 4 * c.hidden), torch.float32),
-            "b": PSpec((4 * c.hidden,), torch.float32, init="zeros"),
+            "w": PSpec((d_in + c.hidden, 4 * c.hidden), dtype=torch.float32),
+            "b": PSpec((4 * c.hidden,), dtype=torch.float32, init="zeros"),
         })
     return {
         "cells": layers,
-        "head_w": PSpec((c.hidden, c.out_features), torch.float32),
-        "head_b": PSpec((c.out_features,), torch.float32, init="zeros"),
+        "head_w": PSpec((c.hidden, c.out_features), dtype=torch.float32),
+        "head_b": PSpec((c.out_features,), dtype=torch.float32,
+                          init="zeros"),
     }
 
 

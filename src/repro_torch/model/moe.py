@@ -27,25 +27,27 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.types import ModelConfig
-from repro_torch.model.layers import Ctx, PSpec
+from repro_torch.model.layers import Ctx, PSpec, shard_axis
 
 
-def moe_schema(cfg: ModelConfig):
+def moe_schema(cfg: ModelConfig, tp: int = 16):
     m = cfg.moe
     d = cfg.d_model
+    ea = shard_axis(m.n_experts, tp)
     sch = {
         "router": PSpec((d, m.n_experts), dtype=torch.float32,
                         keep_dtype=True),
-        "w_gate": PSpec((m.n_experts, d, m.d_expert)),
-        "w_up": PSpec((m.n_experts, d, m.d_expert)),
-        "w_down": PSpec((m.n_experts, m.d_expert, d)),
+        "w_gate": PSpec((m.n_experts, d, m.d_expert), (ea, None, None)),
+        "w_up": PSpec((m.n_experts, d, m.d_expert), (ea, None, None)),
+        "w_down": PSpec((m.n_experts, m.d_expert, d), (ea, None, None)),
     }
     if m.n_shared > 0:
         fs = m.n_shared * m.d_shared
+        fa = shard_axis(fs, tp)
         sch["shared"] = {
-            "w_gate": PSpec((d, fs)),
-            "w_up": PSpec((d, fs)),
-            "wo": PSpec((fs, d)),
+            "w_gate": PSpec((d, fs), (None, fa)),
+            "w_up": PSpec((d, fs), (None, fa)),
+            "wo": PSpec((fs, d), (fa, None)),
         }
     return sch
 

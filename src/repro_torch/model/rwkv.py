@@ -28,7 +28,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.types import ModelConfig
-from repro_torch.model.layers import Ctx, PSpec
+from repro_torch.model.layers import Ctx, PSpec, pspec, shard_axis
 
 SUBCHUNK = 16
 MIX_RANK = 32
@@ -45,49 +45,56 @@ def rwkv_dims(cfg: ModelConfig) -> Tuple[int, int]:
     return H, N
 
 
-def rwkv_time_schema(cfg: ModelConfig):
+def rwkv_time_schema(cfg: ModelConfig, tp: int = 16):
     d = cfg.d_model
     H, N = rwkv_dims(cfg)
     da = d  # d_att == d_model in rwkv6
+    ha = shard_axis(H, tp)
+    aa = shard_axis(da, tp)
     lora = cfg.rwkv.decay_lora
     return {
         "maa_x": PSpec((d,), init="zeros"),
         "maa_wkvrg": PSpec((5, d), init="zeros"),
         "maa_w1": PSpec((d, 5 * MIX_RANK), scale=0.01),
         "maa_w2": PSpec((5, MIX_RANK, d), scale=0.01),
-        "decay": PSpec((da,), init="zeros"),      # resting log-log decay
+        "decay": PSpec((da,), (aa,), init="zeros"),  # resting log-log decay
         "decay_w1": PSpec((d, lora), scale=0.01),
-        "decay_w2": PSpec((lora, da), scale=0.01),
-        "u": PSpec((H, N), init="zeros"),          # time_faaaa bonus
-        "wr": PSpec((d, da)),
-        "wk": PSpec((d, da)),
-        "wv": PSpec((d, da)),
-        "wg": PSpec((d, da)),
-        "ln_x_scale": PSpec((da,), init="ones"),
-        "ln_x_bias": PSpec((da,), init="zeros"),
-        "wo": PSpec((da, d)),
+        "decay_w2": PSpec((lora, da), (None, aa), scale=0.01),
+        "u": PSpec((H, N), (ha, None), init="zeros"),  # time_faaaa bonus
+        "wr": PSpec((d, da), (None, aa)),
+        "wk": PSpec((d, da), (None, aa)),
+        "wv": PSpec((d, da), (None, aa)),
+        "wg": PSpec((d, da), (None, aa)),
+        "ln_x_scale": PSpec((da,), (aa,), init="ones"),
+        "ln_x_bias": PSpec((da,), (aa,), init="zeros"),
+        "wo": PSpec((da, d), (aa, None)),
     }
 
 
-def rwkv_channel_schema(cfg: ModelConfig):
+def rwkv_channel_schema(cfg: ModelConfig, tp: int = 16):
     d, f = cfg.d_model, cfg.d_ff
+    fa = shard_axis(f, tp)
     return {
         "maa_k": PSpec((d,), init="zeros"),
         "maa_r": PSpec((d,), init="zeros"),
-        "wk": PSpec((d, f)),
-        "wv": PSpec((f, d)),
+        "wk": PSpec((d, f), (None, fa)),
+        "wv": PSpec((f, d), (fa, None)),
         "wr": PSpec((d, d)),
     }
 
 
-def rwkv_state_schema(cfg: ModelConfig, batch: int):
+def rwkv_state_schema(cfg: ModelConfig, batch: int,
+                      dp_axes: Tuple[str, ...] = ("data",), tp: int = 16):
     H, N = rwkv_dims(cfg)
+    ha = shard_axis(H, tp)
+    bspec = dp_axes if batch >= 16 else None
     return {
-        "wkv": PSpec((batch, H, N, N), dtype=torch.float32, init="zeros"),
-        "shift_att": PSpec((batch, cfg.d_model), dtype=torch.bfloat16,
-                           init="zeros"),
-        "shift_ffn": PSpec((batch, cfg.d_model), dtype=torch.bfloat16,
-                           init="zeros"),
+        "wkv": PSpec((batch, H, N, N), pspec(bspec, ha, None, None),
+                     dtype=torch.float32, init="zeros"),
+        "shift_att": PSpec((batch, cfg.d_model), pspec(bspec, None),
+                           dtype=torch.bfloat16, init="zeros"),
+        "shift_ffn": PSpec((batch, cfg.d_model), pspec(bspec, None),
+                           dtype=torch.bfloat16, init="zeros"),
     }
 
 

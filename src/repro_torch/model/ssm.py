@@ -29,7 +29,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.types import ModelConfig
-from repro_torch.model.layers import Ctx, PSpec
+from repro_torch.model.layers import Ctx, PSpec, pspec, shard_axis
 
 # ---------------------------------------------------------------------------
 # Schema
@@ -43,42 +43,50 @@ def mamba_dims(cfg: ModelConfig) -> Tuple[int, int, int, int]:
     return d_inner, n_heads, s.headdim, s.d_state
 
 
-def mamba_schema(cfg: ModelConfig):
+def mamba_schema(cfg: ModelConfig, tp: int = 16):
     s = cfg.ssm
     d = cfg.d_model
     d_inner, H, _, N = mamba_dims(cfg)
     gN = s.n_groups * N
+    ia = shard_axis(d_inner, tp)
+    ha = shard_axis(H, tp)
     w = s.conv_width
     return {
-        "w_z": PSpec((d, d_inner)),
-        "w_x": PSpec((d, d_inner)),
-        "w_B": PSpec((d, gN)),
-        "w_C": PSpec((d, gN)),
-        "w_dt": PSpec((d, H)),
-        "conv_x": PSpec((w, d_inner), scale=0.5),
-        "conv_B": PSpec((w, gN), scale=0.5),
-        "conv_C": PSpec((w, gN), scale=0.5),
-        "A_log": PSpec((H,), init="zeros"),       # A = -exp(A_log) = -1
-        "dt_bias": PSpec((H,), init="zeros"),
-        "D": PSpec((H,), init="ones"),
-        "norm_scale": PSpec((d_inner,), init="ones"),
-        "w_out": PSpec((d_inner, d)),
+        "w_z": PSpec((d, d_inner), (None, ia)),
+        "w_x": PSpec((d, d_inner), (None, ia)),
+        "w_B": PSpec((d, gN), (None, None)),
+        "w_C": PSpec((d, gN), (None, None)),
+        "w_dt": PSpec((d, H), (None, ha)),
+        "conv_x": PSpec((w, d_inner), (None, ia), scale=0.5),
+        "conv_B": PSpec((w, gN), (None, None), scale=0.5),
+        "conv_C": PSpec((w, gN), (None, None), scale=0.5),
+        "A_log": PSpec((H,), (ha,), init="zeros"),   # A = -exp(A_log) = -1
+        "dt_bias": PSpec((H,), (ha,), init="zeros"),
+        "D": PSpec((H,), (ha,), init="ones"),
+        "norm_scale": PSpec((d_inner,), (ia,), init="ones"),
+        "w_out": PSpec((d_inner, d), (ia, None)),
     }
 
 
-def mamba_state_schema(cfg: ModelConfig, batch: int):
+def mamba_state_schema(cfg: ModelConfig, batch: int,
+                       dp_axes: Tuple[str, ...] = ("data",), tp: int = 16):
     s = cfg.ssm
     d_inner, H, Pd, N = mamba_dims(cfg)
     gN = s.n_groups * N
+    ha = shard_axis(H, tp)
+    ia = shard_axis(d_inner, tp)
+    # batch-replicated states are tiny for B=1 (long_500k); shard otherwise
+    bspec = dp_axes if batch >= 16 else None
     w = s.conv_width
     return {
-        "ssm": PSpec((batch, H, Pd, N), dtype=torch.float32, init="zeros"),
-        "conv_x": PSpec((batch, w - 1, d_inner), dtype=torch.bfloat16,
-                        init="zeros"),
-        "conv_B": PSpec((batch, w - 1, gN), dtype=torch.bfloat16,
-                        init="zeros"),
-        "conv_C": PSpec((batch, w - 1, gN), dtype=torch.bfloat16,
-                        init="zeros"),
+        "ssm": PSpec((batch, H, Pd, N), pspec(bspec, ha, None, None),
+                     dtype=torch.float32, init="zeros"),
+        "conv_x": PSpec((batch, w - 1, d_inner), pspec(bspec, None, ia),
+                        dtype=torch.bfloat16, init="zeros"),
+        "conv_B": PSpec((batch, w - 1, gN), pspec(bspec, None, None),
+                        dtype=torch.bfloat16, init="zeros"),
+        "conv_C": PSpec((batch, w - 1, gN), pspec(bspec, None, None),
+                        dtype=torch.bfloat16, init="zeros"),
     }
 
 

@@ -9,6 +9,14 @@ a reference tree carries across leaf for leaf. The stack is applied as a
 Python loop over layer views; in training each block runs under the
 config's remat policy (``ModelConfig.remat``).
 
+``ParallelismConfig.scan_layers`` selects the reference's scan-over-layers
+form. PyTorch has no compile to save, so the scan is the same loop over the
+same views, with the same numbers; what differs is the serving cache,
+stacked a group at a time (``{"g0": ..., "shared": ...}``, each leaf with a
+leading layer axis) where the unrolled form keeps a tuple of layers
+(``{"layers": ...}``), and, for zamba2, the remat unit (:func:`_runs`):
+``shared_attn_every`` Mamba-2 layers and the shared block.
+
 Block kinds:
   attn       - pre-norm attention + MLP (dense archs)
   attn_dense - the same, with ``moe.d_ff_dense`` (an MoE model's leading
@@ -24,8 +32,10 @@ Block kinds:
   enc/dec    - whisper encoder (non-causal) and decoder (causal + cross)
 
 The Mamba-2 and RWKV-6 blocks run the SSD (B6) and WKV6 (B7) kernels in
-every CUDA prefill (``model/ssm.py``, ``model/rwkv.py``). Scan-over-layers
-waits for the slice that ports it.
+every CUDA prefill (``model/ssm.py``, ``model/rwkv.py``).
+
+Every schema builder takes the reference's ``tp`` (the ``"model"`` axis
+size) and gives each leaf the reference's layout (``PSpec.pspec``).
 """
 from __future__ import annotations
 
@@ -34,7 +44,7 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
-from repro_torch.core.types import ModelConfig
+from repro_torch.core.types import SMOKE_MESH, MeshConfig, ModelConfig
 from repro_torch.model import frontend as fe
 from repro_torch.model import moe as moe_mod
 from repro_torch.model import rwkv as rwkv_mod
@@ -42,8 +52,8 @@ from repro_torch.model import ssm as ssm_mod
 from repro_torch.model.attention import attn_apply, attn_schema, cache_schema
 from repro_torch.model.layers import (Ctx, PSpec, apply_mlp, apply_norm,
                                       checkpoint, embed_schema, embed_tokens,
-                                      is_pspec, lm_logits, mlp_schema,
-                                      norm_schema, tree_leaves, tree_map)
+                                      lm_logits, mlp_schema, norm_schema,
+                                      tree_leaves, tree_map, tree_map_pspec)
 
 # ---------------------------------------------------------------------------
 # Group structure
@@ -69,76 +79,77 @@ def group_structure(cfg: ModelConfig) -> List[Tuple[str, int]]:
     return [("attn", cfg.n_layers)]
 
 
-def block_schema(cfg: ModelConfig, kind: str):
+def block_schema(cfg: ModelConfig, kind: str, tp: int = 16):
     if kind in ("attn", "attn_dense"):
         d_ff = cfg.moe.d_ff_dense if (kind == "attn_dense"
                                       and cfg.moe) else cfg.d_ff
         return {
             "norm1": norm_schema(cfg),
-            "attn": attn_schema(cfg),
+            "attn": attn_schema(cfg, tp),
             "norm2": norm_schema(cfg),
-            "mlp": mlp_schema(cfg, d_ff=d_ff),
+            "mlp": mlp_schema(cfg, d_ff=d_ff, tp=tp),
         }
     if kind == "moe":
         return {
             "norm1": norm_schema(cfg),
-            "attn": attn_schema(cfg),
+            "attn": attn_schema(cfg, tp),
             "norm2": norm_schema(cfg),
-            "moe": moe_mod.moe_schema(cfg),
+            "moe": moe_mod.moe_schema(cfg, tp),
         }
     if kind == "mamba2":
         return {"norm1": norm_schema(cfg),
-                "mamba": ssm_mod.mamba_schema(cfg)}
+                "mamba": ssm_mod.mamba_schema(cfg, tp)}
     if kind == "rwkv6":
         return {
             "ln1": norm_schema(cfg),
-            "att": rwkv_mod.rwkv_time_schema(cfg),
+            "att": rwkv_mod.rwkv_time_schema(cfg, tp),
             "ln2": norm_schema(cfg),
-            "ffn": rwkv_mod.rwkv_channel_schema(cfg),
+            "ffn": rwkv_mod.rwkv_channel_schema(cfg, tp),
         }
     if kind == "enc":
         return {
             "norm1": norm_schema(cfg),
-            "attn": attn_schema(cfg),
+            "attn": attn_schema(cfg, tp),
             "norm2": norm_schema(cfg),
-            "mlp": mlp_schema(cfg),
+            "mlp": mlp_schema(cfg, tp=tp),
         }
     if kind == "dec":
         return {
             "norm1": norm_schema(cfg),
-            "self_attn": attn_schema(cfg),
+            "self_attn": attn_schema(cfg, tp),
             "norm2": norm_schema(cfg),
-            "cross_attn": attn_schema(cfg, cross=True),
+            "cross_attn": attn_schema(cfg, tp, cross=True),
             "norm3": norm_schema(cfg),
-            "mlp": mlp_schema(cfg),
+            "mlp": mlp_schema(cfg, tp=tp),
         }
     raise ValueError(kind)
 
 
-def shared_block_schema(cfg: ModelConfig):
+def shared_block_schema(cfg: ModelConfig, tp: int = 16):
     """zamba2 shared attention block on concat(h, emb0): width 2·d_model,
     projected back to d_model by ``out_proj``."""
     d2 = 2 * cfg.d_model
+    fa = "model" if cfg.d_ff % tp == 0 and tp > 1 else None
     return {
         "norm1": norm_schema(cfg, d=d2),
-        "attn": attn_schema(cfg, d_in=d2, d_out=d2),
+        "attn": attn_schema(cfg, tp, d_in=d2, d_out=d2),
         "norm2": norm_schema(cfg, d=d2),
         "mlp": {
-            "w_gate": PSpec((d2, cfg.d_ff)),
-            "w_up": PSpec((d2, cfg.d_ff)),
-            "wo": PSpec((cfg.d_ff, d2)),
+            "w_gate": PSpec((d2, cfg.d_ff), (None, fa)),
+            "w_up": PSpec((d2, cfg.d_ff), (None, fa)),
+            "wo": PSpec((cfg.d_ff, d2), (fa, None)),
         },
         "out_proj": PSpec((d2, cfg.d_model)),
     }
 
 
 def _stack(n: int, tree):
-    """Prepend a layer axis to every PSpec leaf."""
-    return tree_map(lambda s: dataclasses.replace(s, shape=(n, *s.shape)),
-                    tree, is_leaf=is_pspec)
+    """Prepend a layer axis (replicated) to every PSpec leaf."""
+    return tree_map_pspec(lambda s: dataclasses.replace(
+        s, shape=(n, *s.shape), pspec=(None, *s.pspec)), tree)
 
 
-def param_schema(cfg: ModelConfig):
+def param_schema(cfg: ModelConfig, tp: int = 16):
     if cfg.family == "lstm":
         from repro_torch.model.lstm import lstm_schema
 
@@ -147,11 +158,11 @@ def param_schema(cfg: ModelConfig):
         from repro_torch.model.conv1d import conv1d_schema
 
         return conv1d_schema(cfg)
-    sch: Dict[str, Any] = {"embed": embed_schema(cfg)}
+    sch: Dict[str, Any] = {"embed": embed_schema(cfg, tp)}
     for gi, (kind, count) in enumerate(group_structure(cfg)):
-        sch[f"g{gi}"] = _stack(count, block_schema(cfg, kind))
+        sch[f"g{gi}"] = _stack(count, block_schema(cfg, kind, tp))
     if cfg.family == "hybrid" and cfg.shared_attn_every:
-        sch["shared"] = shared_block_schema(cfg)
+        sch["shared"] = shared_block_schema(cfg, tp)
     if cfg.family == "ssm":
         sch["ln0"] = norm_schema(cfg)
     if cfg.frontend:
@@ -162,41 +173,74 @@ def param_schema(cfg: ModelConfig):
     return sch
 
 
-def model_cache_schema(cfg: ModelConfig, batch: int, seq: int):
+def model_cache_schema(cfg: ModelConfig, batch: int, seq: int,
+                       mesh_cfg: Optional[MeshConfig] = None, tp: int = 16,
+                       stacked: bool = False, seq_shard: bool = False):
     """Cache tree for prefill/decode of ``batch`` sequences of at most
-    ``seq`` positions: ``{"layers": (one entry per layer, ...)}``, and for
-    zamba2 ``"shared"``: one attention cache per shared-block invocation.
-    An encoder layer's entry is None, a decoder layer's also holds the
+    ``seq`` positions, laid out over ``mesh_cfg`` (None: ``SMOKE_MESH``):
+    ``{"layers": (one entry per layer, ...)}``, and for zamba2
+    ``"shared"``: one attention cache per shared-block invocation. An
+    encoder layer's entry is None, a decoder layer's also holds the
     encoder's K/V for its cross-attention (``ck``/``cv``), a Mamba-2 or
-    RWKV-6 layer's is its recurrent state."""
+    RWKV-6 layer's is its recurrent state.
+
+    ``stacked=True`` gives the scan-over-layers layout: one entry per group
+    with a leading layer axis (``{"g0": ..., "shared": ...}``, the shared
+    block's caches in invocation order) in place of the tuple."""
+    mesh_cfg = mesh_cfg or SMOKE_MESH
+    if stacked:
+        return _stacked_cache_schema(cfg, batch, seq, mesh_cfg, tp,
+                                     seq_shard)
     layers: List[Any] = []
     for kind, count in group_structure(cfg):
-        for _ in range(count):
-            layers.append(_group_cache_entry(cfg, kind, batch, seq))
+        layers.extend(_group_cache_entry(cfg, kind, batch, seq, mesh_cfg,
+                                         tp, seq_shard)
+                      for _ in range(count))
     out: Dict[str, Any] = {"layers": tuple(layers)}
     if cfg.family == "hybrid" and cfg.shared_attn_every:
-        out["shared"] = tuple(cache_schema(cfg, batch, seq)
+        out["shared"] = tuple(cache_schema(cfg, batch, seq, tp,
+                                           mesh_cfg.dp_axes)
                               for _ in cfg.shared_attn_points())
     return out
 
 
-def _group_cache_entry(cfg: ModelConfig, kind: str, batch: int, seq: int):
+def _group_cache_entry(cfg: ModelConfig, kind: str, batch: int, seq: int,
+                       mesh_cfg: MeshConfig, tp: int,
+                       seq_shard: bool = False):
     """One layer's cache entry of block kind ``kind``."""
+    dp = mesh_cfg.dp_axes
     if kind in ("attn", "attn_dense", "moe"):
-        return cache_schema(cfg, batch, seq)
+        return cache_schema(cfg, batch, seq, tp, dp, seq_shard=seq_shard)
     if kind == "mamba2":
-        return ssm_mod.mamba_state_schema(cfg, batch)
+        return ssm_mod.mamba_state_schema(cfg, batch, dp, tp)
     if kind == "rwkv6":
-        return rwkv_mod.rwkv_state_schema(cfg, batch)
+        return rwkv_mod.rwkv_state_schema(cfg, batch, dp, tp)
     if kind == "enc":
         return None                           # the encoder is stateless
     if kind == "dec":
-        c = cache_schema(cfg, batch, seq)
+        c = cache_schema(cfg, batch, seq, tp, dp, seq_shard=seq_shard)
         enc = (batch, cfg.encoder.n_positions, cfg.n_kv_heads, cfg.hd)
-        c["ck"] = PSpec(enc, dtype=torch.bfloat16, init="zeros")
-        c["cv"] = PSpec(enc, dtype=torch.bfloat16, init="zeros")
+        kspec = c["k"].pspec
+        layout = (kspec[0] if batch >= 16 else None, None, kspec[2], None)
+        c["ck"] = PSpec(enc, layout, dtype=torch.bfloat16, init="zeros")
+        c["cv"] = PSpec(enc, layout, dtype=torch.bfloat16, init="zeros")
         return c
     raise ValueError(kind)
+
+
+def _stacked_cache_schema(cfg: ModelConfig, batch: int, seq: int,
+                          mesh_cfg: MeshConfig, tp: int,
+                          seq_shard: bool = False):
+    out: Dict[str, Any] = {}
+    for gi, (kind, count) in enumerate(group_structure(cfg)):
+        entry = _group_cache_entry(cfg, kind, batch, seq, mesh_cfg, tp,
+                                   seq_shard)
+        out[f"g{gi}"] = None if entry is None else _stack(count, entry)
+    if cfg.family == "hybrid" and cfg.shared_attn_every:
+        out["shared"] = _stack(len(cfg.shared_attn_points()),
+                               cache_schema(cfg, batch, seq, tp,
+                                            mesh_cfg.dp_axes))
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -279,6 +323,21 @@ def _apply_dec_block(p, x, ctx: Ctx, cache, enc_kv):
     return x + m, new_cache, None
 
 
+def _dec_inputs(pl, enc_out, c_in, ctx: Ctx):
+    """A decoder layer's cross K/V (from the encoder's output, else from
+    its cache entry) and its self-attention cache."""
+    if enc_out is not None:
+        kvd = _dec_cross_kv(pl["cross_attn"], enc_out, ctx)
+    elif c_in is not None and "ck" in c_in:
+        kvd = (c_in["ck"].to(ctx.compute_dtype),
+               c_in["cv"].to(ctx.compute_dtype))
+    else:
+        raise ValueError("whisper decode needs frames or cache")
+    self_c = {k: v for k, v in (c_in or {}).items()
+              if k in ("k", "v", "pos")} or None
+    return kvd, self_c
+
+
 def _dec_cross_kv(p_cross, enc_out, ctx: Ctx):
     """The encoder output's K/V for one decoder layer's cross-attention,
     (B, S_enc, KV, hd) each, in the compute dtype."""
@@ -329,7 +388,11 @@ def _encode(params, frames: torch.Tensor, ctx: Ctx) -> torch.Tensor:
         ctx, mode="train" if ctx.mode == "train" else "prefill",
         positions=torch.arange(n, device=frames.device)[None].expand(B, n))
     e = fe.embed_audio(params["frontend"], frames, ctx)
-    block = _maybe_ckpt(lambda p_, e_: _apply_enc_block(p_, e_, enc_ctx), ctx)
+    block = lambda p_, e_: _apply_enc_block(p_, e_, enc_ctx)  # noqa: E731
+    if not ctx.par.scan_layers:
+        block = _maybe_ckpt(block, ctx)
+    elif ctx.mode == "train" and cfg.remat != "none":
+        block = checkpoint(block)     # the scan body, as the reference's
     for gi, (kind, count) in enumerate(group_structure(cfg)):
         if kind == "enc":
             for pl in _layers(params[f"g{gi}"], count):
@@ -351,14 +414,22 @@ def apply_model(
     ``batch`` holds ``tokens`` and, for the frontends, ``patches`` (vlm:
     projected embeddings replace the first ``min(n_frontend_tokens, S)``
     token embeddings) or ``frames`` (audio: the encoder's input; without
-    them a decoder layer takes its cross K/V from the cache)."""
+    them a decoder layer takes its cross K/V from the cache).
+
+    Under ``ctx.par.scan_layers`` the cache given and returned is in the
+    stacked layout (``model_cache_schema(stacked=True)``): the loop reads
+    each layer's views of it, a tick writes each layer's new entries into
+    them (:func:`_write`) and returns the cache it was given, and a prefill
+    stacks each group once (:func:`_stack_groups`)."""
     cfg = ctx.cfg
     tokens = batch["tokens"]
     B, S = tokens.shape
+    stacked = ctx.par.scan_layers
 
     if ctx.positions is None:
         if ctx.mode == "decode":
-            pos0 = _decode_positions(cfg, cache, B, tokens.device)
+            pos0 = _decode_positions(cfg, cache, B, tokens.device,
+                                     stacked=stacked)
             ctx = dataclasses.replace(ctx, positions=pos0.reshape(B, 1))
         else:
             ctx = dataclasses.replace(ctx, positions=torch.arange(
@@ -379,51 +450,77 @@ def apply_model(
         enc_out = _encode(params, batch["frames"], ctx)
 
     emb0 = x if cfg.family == "hybrid" else None
-    shared_points = set(cfg.shared_attn_points())
-    caches = cache["layers"] if cache is not None else None
-    shared_caches = cache.get("shared", ()) if cache is not None else ()
-    new_layer_caches: List[Any] = []
-    new_shared_caches: List[Any] = []
-    li = 0          # global layer index (cache slot)
-    si = 0          # shared-attn invocation index
+    shared_at = {l: i for i, l in enumerate(cfg.shared_attn_points())}
+    if cache is None:
+        caches = shared_caches = None
+    elif stacked:
+        caches, shared_caches = _layer_views(cfg, cache)
+    else:
+        caches, shared_caches = cache["layers"], cache.get("shared")
+    kinds: List[str] = []
+    p_layers: List[Any] = []
     for gi, (kind, count) in enumerate(group_structure(cfg)):
-        if kind == "enc":                # ran above, from the frames
-            li += count
-            new_layer_caches.extend([None] * count)
-            continue
-        block = _maybe_ckpt(_block_apply_fn(kind, ctx), ctx)
-        for pl in _layers(params[f"g{gi}"], count):
-            c_in = caches[li] if caches is not None else None
+        kinds.extend([kind] * count)
+        p_layers.extend([None] * count if kind == "enc"
+                        else _layers(params[f"g{gi}"], count))
+
+    def run_layers(lo: int, hi: int, x, whole: bool):
+        """Layers ``lo``..``hi - 1``, each followed by the shared block at
+        a shared point: (x', each layer's (cache, shared cache, aux)).
+        ``whole``: the run is under one checkpoint, its layers under none
+        of their own."""
+        out = []
+        for l in range(lo, hi):
+            kind = kinds[l]
+            if kind == "enc":                # ran above, from the frames
+                out.append((None, None, None))
+                continue
+            block = _block_apply_fn(kind, ctx)
+            if not whole:
+                block = _maybe_ckpt(block, ctx)
+            pl = p_layers[l]
+            c_in = caches[l] if caches is not None else None
             if kind == "dec":
-                if enc_out is not None:
-                    kvd = _dec_cross_kv(pl["cross_attn"], enc_out, ctx)
-                elif c_in is not None and "ck" in c_in:
-                    kvd = (c_in["ck"].to(ctx.compute_dtype),
-                           c_in["cv"].to(ctx.compute_dtype))
-                else:
-                    raise ValueError("whisper decode needs frames or cache")
-                self_c = {k: v for k, v in (c_in or {}).items()
-                          if k in ("k", "v", "pos")} or None
+                kvd, self_c = _dec_inputs(pl, enc_out, c_in, ctx)
                 x, c_new, a_ = block(pl, x, self_c, kvd)
                 if c_new is not None:
                     c_new = dict(c_new, ck=kvd[0], cv=kvd[1])
             else:
                 x, c_new, a_ = block(pl, x, c_in)
-            if a_ is not None:
-                aux = aux + a_
-            new_layer_caches.append(c_new)
-            li += 1
-            if (li - 1) in shared_points:
-                sc_in = shared_caches[si] if shared_caches else None
+            sc_new = None
+            if l in shared_at:
+                sc_in = (shared_caches[shared_at[l]] if shared_caches
+                         else None)
                 x, sc_new = _apply_shared_block(params["shared"], x, emb0,
                                                 ctx, sc_in)
+            out.append((c_new, sc_new, a_))
+        return x, out
+
+    new_layer_caches: List[Any] = []
+    new_shared_caches: List[Any] = []
+    for lo, hi, whole in _runs(cfg, ctx, len(kinds)):
+        x, out = (checkpoint(run_layers) if whole else run_layers)(
+            lo, hi, x, whole)
+        for l, (c_new, sc_new, a_) in zip(range(lo, hi), out):
+            if a_ is not None:
+                aux = aux + a_
+            if stacked and ctx.mode == "decode":   # a layer at a time
+                _write(caches[l], c_new)
+                if l in shared_at:
+                    _write(shared_caches[shared_at[l]], sc_new)
+                continue
+            new_layer_caches.append(c_new)
+            if l in shared_at:
                 new_shared_caches.append(sc_new)
-                si += 1
 
     x = apply_norm(params["final_norm"], x, cfg)
     logits = x if return_hidden else head_logits(params, x, ctx)
     new_cache = None
-    if ctx.mode in ("prefill", "decode"):
+    if stacked and ctx.mode == "decode":
+        new_cache = cache
+    elif stacked and ctx.mode == "prefill":
+        new_cache = _stack_groups(cfg, new_layer_caches, new_shared_caches)
+    elif ctx.mode in ("prefill", "decode"):
         new_cache = {"layers": tuple(new_layer_caches)}
         if new_shared_caches:
             new_cache["shared"] = tuple(new_shared_caches)
@@ -445,6 +542,72 @@ def _block_apply_fn(kind: str, ctx: Ctx):
     if kind == "dec":
         return lambda p, x, c, kv: _apply_dec_block(p, x, ctx, c, kv)
     raise ValueError(kind)
+
+
+def _runs(cfg: ModelConfig, ctx: Ctx, n: int) -> List[Tuple[int, int, bool]]:
+    """The runs of layers ``[lo, hi)`` that one call of the layer loop
+    applies, and whether the run is checkpointed whole: one layer each,
+    except zamba2's scan form in training, which runs each unit
+    (``shared_attn_every`` Mamba-2 layers and the shared block) under one
+    checkpoint, the reference's remat granularity, and the remaining
+    layers one by one."""
+    lo, runs = 0, []
+    if (ctx.par.scan_layers and cfg.family == "hybrid"
+            and ctx.mode == "train" and cfg.remat != "none"):
+        for _ in cfg.shared_attn_points():
+            runs.append((lo, lo + cfg.shared_attn_every, True))
+            lo += cfg.shared_attn_every
+    runs.extend((l, l + 1, False) for l in range(lo, n))
+    return runs
+
+
+def _layer_views(cfg: ModelConfig, cache):
+    """A stacked cache's per-layer views, in layer order (an encoder
+    layer's None), and the shared block's, one per invocation."""
+    layers: List[Any] = []
+    for gi, (_, count) in enumerate(group_structure(cfg)):
+        g = cache.get(f"g{gi}")
+        for l in range(count):
+            layers.append(None if g is None
+                          else tree_map(lambda a: a[l], g))
+    sh = cache.get("shared")
+    shared = None if sh is None else [
+        tree_map(lambda a: a[u], sh)
+        for u in range(len(cfg.shared_attn_points()))]
+    return layers, shared
+
+
+def _write(view, entry) -> None:
+    """A layer's new cache ``entry`` written into ``view``, its slice of
+    the stacked cache, where the layer did not already write it there in
+    place (attention's K/V): a tick copies no cache whole."""
+    def one(dst, t):
+        if t.data_ptr() != dst.data_ptr() or t.stride() != dst.stride():
+            dst.copy_(t)
+
+    if entry is not None:
+        tree_map(one, view, entry)
+
+
+def _stack_groups(cfg: ModelConfig, layers: List[Any], shared: List[Any]):
+    """A prefill's per-layer caches in the stacked layout, each group
+    stacked once; a decoder's cross K/V in bf16, as the reference's scan
+    stacks them."""
+    def stack(entries):
+        return tree_map(lambda *ls: torch.stack(ls), *entries)
+
+    out: Dict[str, Any] = {}
+    li = 0
+    for gi, (kind, count) in enumerate(group_structure(cfg)):
+        entries = layers[li:li + count]
+        li += count
+        if kind == "dec":
+            entries = [dict(c, ck=c["ck"].to(torch.bfloat16),
+                            cv=c["cv"].to(torch.bfloat16)) for c in entries]
+        out[f"g{gi}"] = None if kind == "enc" else stack(entries)
+    if shared:
+        out["shared"] = stack(shared)
+    return out
 
 
 def head_logits(params, x: torch.Tensor, ctx: Ctx) -> torch.Tensor:
@@ -478,12 +641,20 @@ def pad_cache(cache, target_len: int):
     return new
 
 
-def _decode_positions(cfg: ModelConfig, cache, B: int,
-                      device) -> torch.Tensor:
+def _decode_positions(cfg: ModelConfig, cache, B: int, device,
+                      stacked: bool = False) -> torch.Tensor:
     """Current sequence lengths (B,) from whichever cache entry tracks
     them: the first attention layer's, else the first shared block's
     (zamba2); zeros for a model without attention (rwkv: positions
-    unused)."""
+    unused). ``stacked``: the scan layout's, copied, since the tick then
+    writes each layer's new position into that buffer."""
+    if stacked:
+        for gi, (kind, _) in enumerate(group_structure(cfg)):
+            if kind in ("attn", "attn_dense", "moe", "dec"):
+                return cache[f"g{gi}"]["pos"][0].clone()
+        if "shared" in cache:
+            return cache["shared"]["pos"][0].clone()
+        return torch.zeros((B,), dtype=torch.int32, device=device)
     ai = _first_attn_idx(cfg)
     if ai is not None:
         return cache["layers"][ai]["pos"]

@@ -26,16 +26,27 @@ and the glue) with no Python in between.
   back, and each replay adds them again: the counters go on counting kernel
   work that ran.
 * A capture that fails raises. Nothing falls back to the eager walk.
-* The graph and its memory pool live as long as this object: the LRU entry
-  that holds it. Eviction and ``ProgramLRU.clear`` free them.
+* The graph and its private memory pool live as long as this object: the
+  LRU entry that holds it, or a replay under way. Once it is gone
+  (evicted, ``ProgramLRU.clear``, an emulator's ``flip_bit``, its
+  emulator collected) the pool's blocks are free but stay reserved by
+  PyTorch's caching allocator, and an allocation during a capture cannot
+  return them to the device. So every capture takes one process-wide lock
+  (:func:`capturing`), and the first capture after a program was dropped
+  calls ``torch.cuda.empty_cache()`` under it, before its
+  ``capture_begin``: then no capture is under way in any thread. A
+  capture does not empty the cache otherwise, since that would turn later
+  allocations into ``cudaMalloc`` calls.
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 import importlib
 import sys
 import threading
-from typing import Callable, Dict, Hashable, Optional, Tuple
+import weakref
+from typing import Callable, Dict, Hashable, Iterator, Optional, Tuple
 
 import torch
 
@@ -74,6 +85,53 @@ def add_launches(delta: Launches) -> None:
             mod.launches += n
         else:
             mod.launches_by_variant[variant] += n
+
+
+# Every capture of this module holds this lock from its cache release to
+# its capture_end. _DROPPED gets one entry a dropped program, by an append
+# (atomic, and lock-free: a finalizer may run from the garbage collector in
+# a thread that holds the lock); a release takes the entries it saw.
+_CAPTURE_LOCK = threading.Lock()
+_DROPPED: list = []
+
+
+class _Pool:
+    """What a capture allocated from its private pool: the graph and the
+    walk's output env."""
+
+    def __init__(self):
+        self.graph: Optional[torch.cuda.CUDAGraph] = None
+        self.env: Env = {}
+
+    def free(self) -> None:
+        self.env, self.graph = {}, None
+
+
+def _dropped(pool: Optional[_Pool]) -> None:
+    if pool is not None:
+        pool.free()             # the graph and its outputs go first
+    _DROPPED.append(None)
+
+
+def track(program, pool: Optional[_Pool] = None) -> None:
+    """Count ``program`` as dropped once it is collected, after freeing
+    ``pool``, so that the next capture returns the pool's memory."""
+    weakref.finalize(program, _dropped, pool)
+
+
+@contextlib.contextmanager
+def capturing() -> Iterator[None]:
+    """Hold the process-wide capture lock; on entry, if a program was
+    dropped since the last release, return the caching allocator's free
+    blocks (the dropped pools among them) with one
+    ``torch.cuda.empty_cache()``. Enter it around ``capture_begin`` ...
+    ``capture_end``."""
+    with _CAPTURE_LOCK:
+        n = len(_DROPPED)
+        if n:
+            del _DROPPED[:n]
+            torch.cuda.empty_cache()
+        yield
 
 
 def _clone_params(params: Params) -> Params:
@@ -117,31 +175,41 @@ class CapturedProgram:
                 for k, v in warm.items()}
             del warm
             before = read_launches()
-            self.graph = torch.cuda.CUDAGraph()
+            self._pool = _Pool()
+            track(self, self._pool)
+            self._pool.graph = torch.cuda.CUDAGraph()
             # captured on a side stream, as torch.cuda.graph does, but
-            # without its torch.cuda.empty_cache(): a process builds
-            # programs again and again, and flushing the caching allocator
-            # at each would turn later allocations into cudaMalloc calls
-            # The side stream is this capture's own: other threads queue
-            # their work on their own current streams, never on it. The
-            # capture checks only this thread's CUDA calls
+            # without its torch.cuda.empty_cache() at every capture (see
+            # capturing: the cache is emptied only after a program was
+            # dropped). The side stream is this capture's own: other
+            # threads queue their work on their own current streams, never
+            # on it. The capture checks only this thread's CUDA calls
             # ("thread_local"): the default ("global") also fails it when
             # another thread syncs meanwhile (a runner reading its answer
             # with torch.equal while a flip's next run captures again).
             current = torch.cuda.current_stream(self.device)
             side = torch.cuda.Stream(self.device)
             side.wait_stream(current)
-            with torch.cuda.stream(side):
-                self.graph.capture_begin(capture_error_mode="thread_local")
+            with capturing(), torch.cuda.stream(side):
+                self._pool.graph.capture_begin(
+                    capture_error_mode="thread_local")
                 try:
-                    self.env: Env = walk(self.static_x)
+                    self._pool.env = walk(self.static_x)
                 finally:
-                    self.graph.capture_end()
+                    self._pool.graph.capture_end()
             current.wait_stream(side)
             after = read_launches()
         self.launches: Launches = {k: after[k] - before[k] for k in after
                                    if after[k] != before[k]}
         add_launches({k: -n for k, n in self.launches.items()})
+
+    @property
+    def graph(self) -> torch.cuda.CUDAGraph:
+        return self._pool.graph
+
+    @property
+    def env(self) -> Env:
+        return self._pool.env
 
     def take_first(self) -> Env:
         """The warm-up run's env (once; the building call's result)."""
