@@ -301,14 +301,34 @@ layers as one scan, the serving cache stacked by group) and ROADMAP §C10:
     100 times in one process with no ``torch.cuda.empty_cache()`` of the
     loop's own: every run passes, and ``memory_reserved()`` after run 100
     lies within 2 GB of its reading after run 10 (the next capture returns
-    the dropped CUDA Graph pools);
-23. print the kernels line (B1's and B2's rows also carry the loop's
+    the dropped CUDA Graph pools).
+
+The collectives on one card (a ``torch.distributed`` NCCL group of world
+size 1, started and destroyed by the phase; it runs inside phase 20, on
+phase 20's DeepSeek-MoE-16B weights, before they are freed):
+
+23. (a) ``Server(mesh=)`` on the (1, 1) mesh with each of
+    ``impl="psum"``, ``"a2a"`` and ``"dense"``: 4 requests of 2,048 prompt
+    tokens and 16 new ones, B5 ``sm90`` 28 a request and no other kernel;
+    prefill ms, median tick ms, tokens/s and the assignments the capacity
+    dropped (the config's 1.25: dropping is the reference's semantics);
+    (b) full width, 4 layers, f32, ``capacity_factor = n_experts /
+    top_k``: ``psum`` and ``a2a`` logits within 1e-4 of the largest of
+    ``dense``'s, greedy tokens identical; (c) StableLM-3B at full width
+    and 8 of 32 layers (phase 19's shape, ``grad_compression=True``): 2
+    ``Trainer`` steps on the mesh equal the meshless ``Stepper``'s losses
+    bit for bit, ``resume_elastic`` with the mesh's shardings restores
+    every leaf bit for bit, and the next step's loss equals the meshless
+    resume's;
+
+Then print the kernels line (B1's and B2's rows also carry the loop's
     launches, ``workflow_launches``, the farm's, ``farm_launches``, one
     multi-design replay's of each design, ``multi_launches``, and phase
     18's, ``resilience_launches``; B5's the host target's,
     ``host_target_launches`` and ``host_target_train_launches``, the
     8 training steps', ``train_launches``, and phases 20's and 21's by
-    arch, ``families_launches``; B6's and B7's phase 21's,
+    arch, ``families_launches``, and phase 23's by impl,
+    ``collectives_launches``; B6's and B7's phase 21's,
     ``families_launches``; B5's, B6's and B7's one scanned prefill's by
     arch and B5's two scanned training steps', ``scan_launches``) and the
     card's name and power limit.
@@ -2829,7 +2849,7 @@ def profile_moe_step(moe_mod, fn, label: str, card: str) -> None:
         + f" ({card})")
 
 
-def greedy_run(cfg, params, batch, par, steps: int, forced=None):
+def greedy_run(cfg, params, batch, par, steps: int, forced=None, mesh=None):
     """Prefill ``batch`` then ``steps`` greedy decode steps (fed
     ``forced`` (B, steps + 1) tokens instead of its own where given):
     (the last-position logits of each of the steps + 1 positions, f32 on
@@ -2841,8 +2861,8 @@ def greedy_run(cfg, params, batch, par, steps: int, forced=None):
     from repro_torch.model.transformer import pad_cache
 
     S = batch["tokens"].shape[1]
-    prefill = make_prefill_step(cfg, SMOKE_MESH, par)
-    decode = make_decode_step(cfg, SMOKE_MESH, par)
+    prefill = make_prefill_step(cfg, SMOKE_MESH, par, mesh)
+    decode = make_decode_step(cfg, SMOKE_MESH, par, mesh)
     with torch.no_grad():
         logits, cache = prefill(params, batch)
         cache = pad_cache(cache, S + steps)
@@ -3206,7 +3226,12 @@ def phase_families(ops_by_name: dict, card: str) -> dict:
                          f"one decode tick of {SLOTS} slots over a "
                          f"{MAX_LEN}-position cache, {cfg.n_layers} layers",
                          card)
-    del params, pool, prefill, decode
+    del pool, prefill, decode
+    torch.cuda.empty_cache()
+    # phase 23 on these weights (before they are freed)
+    launches["collectives"] = phase_collectives(ops_by_name, card, cfg,
+                                                params)
+    del params
     torch.cuda.empty_cache()
     # f32 at full width and 4 layers: identical greedy tokens
     cfg4 = cfg.with_(n_layers=FAMILY_F32_LAYERS)
@@ -3297,6 +3322,300 @@ def phase_families(ops_by_name: dict, card: str) -> dict:
         held_f32(cfg, p32, batch, FAMILY_DECODE_STEPS, card,
                  f"prefill + {FAMILY_DECODE_STEPS} steps")
         del p32
+    return launches
+
+
+# the collectives on one card (phase 23): the EP impls' serving run, their
+# f32 parity (full width, 4 layers) and the mesh trainer (StableLM-3B at 8
+# of its 32 layers, phase 19's shape)
+EP_IMPLS = ("psum", "a2a", "dense")
+EP_PROMPT, EP_REQUESTS = 2048, 4
+EP_F32_LAYERS, EP_F32_STEPS, EP_F32_TOL = 4, 4, 1e-4
+MESH_TRAIN_LAYERS, MESH_TRAIN_STEPS = 8, 2
+
+
+@contextlib.contextmanager
+def world_of_one():
+    """A ``torch.distributed`` NCCL group of one rank (the card) and the
+    (1, 1) ("data", "model") mesh on it; the group is destroyed on the way
+    out, so that no later phase sees it."""
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_smoke_mesh
+
+    torch.cuda.set_device(0)
+    with tempfile.TemporaryDirectory() as td:
+        dist.init_process_group("nccl", init_method="file://" + os.path.join(
+            td, "store"), rank=0, world_size=1)
+        try:
+            yield make_smoke_mesh((1, 1))
+        finally:
+            dist.destroy_process_group()
+
+
+@contextlib.contextmanager
+def routed(moe_mod, record: list):
+    """Every router call's (tokens, expert ids), appended to ``record``."""
+    real = moe_mod._router
+
+    def router(p, x, m, dtype=None):
+        out = real(p, x, m) if dtype is None else real(p, x, m, dtype)
+        record.append((x.shape[0], out[1].detach()))
+        return out
+
+    moe_mod._router = router
+    try:
+        yield
+    finally:
+        moe_mod._router = real
+
+
+def dropped(moe_mod, record: list, m, impl: str) -> tuple:
+    """(assignments the capacity dropped, assignments routed) over the
+    router calls in ``record`` on a model axis of 1: ``moe_psum`` keeps
+    each expert's ``_capacity(T)`` heaviest tokens, ``moe_a2a`` its one
+    destination's ``_capacity(T) * top_k`` heaviest assignments."""
+    import torch
+
+    drop = total = 0
+    for t, ids in record:
+        total += ids.numel()
+        if impl == "psum":
+            cap = min(moe_mod._capacity(t, m), t)
+            per = torch.bincount(ids.reshape(-1), minlength=m.n_experts)
+            drop += int(torch.clamp(per - cap, min=0).sum())
+        elif impl == "a2a":
+            drop += max(0, ids.numel() - min(
+                moe_mod._capacity(t, m) * m.top_k, t * m.top_k))
+    return drop, total
+
+
+def phase_collectives(ops_by_name: dict, card: str, cfg, params) -> dict:
+    """Phase 23, the collectives on one card: a ``torch.distributed`` NCCL
+    group of world size 1 and the (1, 1) mesh on it, started here and
+    destroyed at the end. It runs inside phase 20, on phase 20's
+    DeepSeek-MoE-16B weights (full width and depth, bf16), before they are
+    freed. (a) ``Server(mesh=)`` with each of ``impl="psum"``, ``"a2a"``
+    and ``"dense"``: 4 requests of 2,048 prompt tokens and 16 new ones;
+    prefill ms, median tick ms, tokens/s, the assignments the capacity
+    dropped (at the config's 1.25 the EP impls drop, as the reference's),
+    B5 launches (28 a request, all ``sm90``). (b) full width, 4 layers,
+    f32, ``capacity_factor = n_experts / top_k`` (nothing dropped): a
+    2,048-token prefill and 4 greedy steps through each impl, the logits
+    within 1e-4 of the largest of ``dense``'s, greedy tokens identical.
+    (c) StableLM-3B at full width and 8 of 32 layers, phase 19's shape,
+    ``grad_compression=True``: 2 ``Trainer`` steps on the mesh give the
+    meshless ``Stepper``'s losses bit for bit (compression needs more than
+    one rank); the mesh trainer's checkpoint restored by
+    ``resume_elastic`` with the mesh's shardings equals the trained state
+    bit for bit, and the next step's loss on it equals the meshless
+    resume's. Returns B5's launches in (a) by impl."""
+    import dataclasses
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.types import (SMOKE_MESH, ParallelismConfig,
+                                        ShapeConfig)
+    from repro_torch.data.pipeline import LMDataConfig, lm_batch_for_step
+    from repro_torch.model import moe as moe_mod
+    from repro_torch.model.layers import tree_leaves
+    from repro_torch.model.lm import Stepper
+    from repro_torch.obs import Tracer, find_spans, set_tracer
+    from repro_torch.runtime import Trainer, TrainerConfig
+    from repro_torch.runtime.server import Server, ServerConfig
+    from repro_torch.verify.conformance import exact_f32_matmul
+
+    flash_ops = ops_by_name["flash_attention"]
+    flash = ParallelismConfig(compute_dtype="bfloat16", attn_impl="flash")
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(SEED + 23)
+    prompts = [rng.integers(2, cfg.vocab_size, EP_PROMPT).tolist()
+               for _ in range(EP_REQUESTS)]
+    launches = {}
+
+    def zero_counts():
+        for mod in ops_by_name.values():
+            mod.launches = 0
+            if hasattr(mod, "launches_by_variant"):
+                mod.launches_by_variant = dict.fromkeys(
+                    mod.launches_by_variant, 0)
+
+    with world_of_one() as mesh:
+        log(f"phase 23 NCCL process group of world size 1, mesh "
+            f"{tuple(mesh.mesh.shape)} {mesh.mesh_dim_names} on "
+            f"{torch.cuda.get_device_name(0)}")
+        # ---- (a) EP serving at full width and depth ----------------------
+        for impl in EP_IMPLS:
+            c = cfg.with_(moe=dataclasses.replace(cfg.moe, impl=impl))
+            srv = Server(c, params, ServerConfig(
+                batch_slots=EP_REQUESTS, max_len=EP_PROMPT + MAX_NEW,
+                eos_token=-1), SMOKE_MESH, flash, mesh=mesh)
+            warm = Server(c, params, ServerConfig(batch_slots=1, max_len=64,
+                                                  eos_token=-1), SMOKE_MESH,
+                          flash, mesh=mesh)
+            warm.submit(prompts[0][:32], max_new_tokens=2)
+            warm.run_until_drained()
+            del warm
+            tracer, record = Tracer(), []
+            prev = set_tracer(tracer)
+            zero_counts()
+            t0 = time.perf_counter()
+            with routed(moe_mod, record):
+                for prompt in prompts:
+                    srv.submit(prompt, max_new_tokens=MAX_NEW)
+                done = srv.run_until_drained()
+                torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            set_tracer(prev)
+            counts = {key: mod.launches for key, mod in ops_by_name.items()}
+            variants = dict(flash_ops.launches_by_variant)
+            want = cfg.n_layers * EP_REQUESTS
+            if not done.drained or len(done) != EP_REQUESTS or any(
+                    len(r.out_tokens) != MAX_NEW for r in done):
+                raise AssertionError(f"phase 23a {impl}: not every request "
+                                     f"served: {done.stats}")
+            if variants != {"sm90": want, "simt": 0} or any(
+                    n for key, n in counts.items()
+                    if key != "flash_attention"):
+                raise AssertionError(f"phase 23a {impl}: launches {counts}, "
+                                     f"B5 {variants}, expected {want} sm90")
+            launches[impl] = counts["flash_attention"]
+            drop, total = dropped(moe_mod, record, cfg.moe, impl)
+            pre = [sp.duration * 1e3
+                   for sp in find_spans(tracer.spans, "server.prefill")]
+            ticks = sorted(sp.duration * 1e3
+                           for sp in find_spans(tracer.spans,
+                                                "server.decode"))
+            n_tok = sum(len(r.out_tokens) for r in done)
+            log(f"phase 23a {cfg.name} impl={impl} on the (1, 1) mesh: "
+                f"{EP_REQUESTS} requests of {EP_PROMPT} + {MAX_NEW} tokens "
+                f"in {wall:.3f} s = {n_tok / wall:.2f} tokens/s; prefill ms "
+                f"(host clock) median {sorted(pre)[len(pre) // 2]:.1f} "
+                f"({', '.join(f'{v:.1f}' for v in pre)}); decode tick ms "
+                f"median {ticks[len(ticks) // 2]:.2f} ({len(ticks)} ticks); "
+                f"assignments dropped by capacity {drop} of {total} "
+                f"(capacity_factor {cfg.moe.capacity_factor}); B5 launches "
+                f"{json.dumps(variants)} = {cfg.n_layers} a request ({card})")
+            del srv, done, record
+            torch.cuda.empty_cache()
+
+        # ---- (b) EP parity: full width, 4 layers, f32, nothing dropped ---
+        m = cfg.moe
+        c4 = cfg.with_(n_layers=EP_F32_LAYERS, moe=dataclasses.replace(
+            m, capacity_factor=m.n_experts / m.top_k))
+        p4 = Stepper(c4, ShapeConfig("check", "prefill", EP_PROMPT, 1),
+                     SMOKE_MESH, flash).init(seed=SEED + 23, device="cuda")
+        one = {"tokens": torch.tensor([prompts[0]], dtype=torch.int64,
+                                      device="cuda")}
+        f32 = ParallelismConfig(compute_dtype="float32", attn_impl="flash")
+        runs = {}
+        with exact_f32_matmul():
+            for impl in ("dense", "psum", "a2a"):
+                ci = c4.with_(moe=dataclasses.replace(c4.moe, impl=impl))
+                record = []
+                t0 = time.perf_counter()
+                with routed(moe_mod, record):
+                    runs[impl] = greedy_run(ci, p4, one, f32, EP_F32_STEPS,
+                                            mesh=mesh)
+                torch.cuda.synchronize()
+                d, total = dropped(moe_mod, record, ci.moe, impl)
+                if d:
+                    raise AssertionError(f"phase 23b {impl}: {d} of {total} "
+                                         "assignments dropped")
+                runs[impl] += (time.perf_counter() - t0,)
+        want_logits, want_tok, _ = runs["dense"]
+        scale = max(o.abs().max().item() for o in want_logits)
+        for impl in ("psum", "a2a"):
+            logits, tok, sec = runs[impl]
+            err = max((a - b).abs().max().item()
+                      for a, b in zip(logits, want_logits))
+            if err > EP_F32_TOL * scale or not torch.equal(tok, want_tok):
+                raise AssertionError(
+                    f"phase 23b {impl}: logits max abs {err} (bar "
+                    f"{EP_F32_TOL} x {scale}), tokens {tok.tolist()} vs "
+                    f"dense {want_tok.tolist()}")
+            log(f"phase 23b {c4.name} full width, {EP_F32_LAYERS} layers, "
+                f"f32, capacity_factor {c4.moe.capacity_factor:.4f} (no "
+                f"assignment dropped): impl={impl} vs dense on a "
+                f"{EP_PROMPT}-token prefill + {EP_F32_STEPS} greedy steps: "
+                f"logits max abs {err:.3e} <= {EP_F32_TOL} x {scale:.3f}, "
+                f"greedy tokens identical {tok.tolist()}; {sec:.2f} s "
+                f"(dense {runs['dense'][2]:.2f} s, host clock) ({card})")
+        del p4, runs
+        torch.cuda.empty_cache()
+
+        # ---- (c) the mesh trainer and the reshard ------------------------
+        tcfg = get_config(TRAIN_ARCH).with_(n_layers=MESH_TRAIN_LAYERS)
+        par = ParallelismConfig(compute_dtype="bfloat16", attn_impl="flash",
+                                grad_compression=True)
+        shape = ShapeConfig(*TRAIN_SHAPE)
+        dcfg = LMDataConfig(vocab_size=tcfg.vocab_size,
+                            seq_len=shape.seq_len,
+                            global_batch=shape.global_batch, seed=SEED)
+        st0 = Stepper(tcfg, shape, SMOKE_MESH, par)
+        st1 = Stepper(tcfg, shape, SMOKE_MESH, par, mesh=mesh)
+        with tempfile.TemporaryDirectory() as td:
+            t0 = time.perf_counter()
+            tr0 = Trainer(st0, dcfg, TrainerConfig(
+                total_steps=MESH_TRAIN_STEPS, ckpt_every=MESH_TRAIN_STEPS + 1,
+                ckpt_dir=td, log_every=1), device="cuda")
+            loss0 = [r["loss"] for r in tr0.train()["metrics"]]
+            t_meshless = time.perf_counter() - t0
+            torch.cuda.empty_cache()
+            t0 = time.perf_counter()
+            tr1 = Trainer(st1, dcfg, TrainerConfig(
+                total_steps=MESH_TRAIN_STEPS, ckpt_every=1, ckpt_dir=td,
+                log_every=1), device="cuda")
+            out1 = tr1.train()
+            loss1 = [r["loss"] for r in out1["metrics"]]
+            t_mesh = time.perf_counter() - t0
+            if loss1 != loss0:
+                raise AssertionError(f"phase 23c: mesh losses {loss1} != "
+                                     f"meshless {loss0}")
+            trained = out1["state"]
+            t0 = time.perf_counter()
+            step, restored = tr1.resume_elastic(
+                st1, shardings=st1.state_shardings())
+            t_restore = time.perf_counter() - t0
+            unequal = sum(not torch.equal(a, b) for a, b in zip(
+                tree_leaves(restored), tree_leaves(trained)))
+            n_leaves = len(tree_leaves(trained))
+            del trained, out1
+            if step != MESH_TRAIN_STEPS or unequal:
+                raise AssertionError(f"phase 23c: resumed at {step}, "
+                                     f"{unequal} of {n_leaves} leaves differ")
+            batch = {k: torch.as_tensor(v, device="cuda")
+                     for k, v in lm_batch_for_step(dcfg, step).items()}
+            _, _, m1 = st1.train_fn(donate=True)(
+                restored["params"], restored["opt"], batch)
+            next1 = m1["loss"].item()
+            del restored, m1
+            torch.cuda.empty_cache()
+            step0, restored0 = tr0.resume_elastic(st0)
+            _, _, m0 = st0.train_fn(donate=True)(
+                restored0["params"], restored0["opt"], batch)
+            next0 = m0["loss"].item()
+            del restored0, m0
+            if step0 != step or next1 != next0:
+                raise AssertionError(f"phase 23c: next loss on the mesh "
+                                     f"{next1} != meshless resume's {next0}")
+        log(f"phase 23c {TRAIN_ARCH} full width, {MESH_TRAIN_LAYERS} of 32 "
+            f"layers, {shape.global_batch} x {shape.seq_len}, bf16, "
+            f"grad_compression=True: {MESH_TRAIN_STEPS} steps on the (1, 1) "
+            f"mesh, losses {loss1} = the meshless Stepper's bit for bit "
+            f"({t_mesh:.2f} s vs {t_meshless:.2f} s with the checkpoint, "
+            f"host clock); resume_elastic with the mesh's shardings at step "
+            f"{step}: {n_leaves} leaves equal the trained state bit for bit "
+            f"({t_restore:.2f} s); next loss {next1!r} = the meshless "
+            f"resume's ({card})")
+    log(f"phase 23 took {time.perf_counter() - t_phase:.1f} s; the process "
+        f"group is destroyed ({card})")
     return launches
 
 
@@ -4620,10 +4939,13 @@ def main() -> int:
             row["host_target_train_launches"] = train["host_train_launches"]
 
     # ---- 20. the LM families ----------------------------------------------
+    # (phase 23, the collectives, runs inside it on its DeepSeek weights)
     families = phase_families(ops_by_name, smi)
+    collectives = families.pop("collectives")
     for row in kernel_rows:
         if row["name"] == "flash_attention":
             row["families_launches"] = families
+            row["collectives_launches"] = collectives
 
     # ---- 21. the hybrid and RWKV families ----------------------------------
     scans = phase_scan_families(ops_by_name, smi)
@@ -4655,7 +4977,7 @@ def main() -> int:
                 arch: n[row["name"]] for arch, n in scan_layers.items()
                 if row["name"] in n}
 
-    # ---- 23. report --------------------------------------------------------
+    # ---- report -------------------------------------------------------------
     log(smi)                     # the card's name and power limit
     print(json.dumps({"kernels": kernel_rows}))
     print(json.dumps({"ok": True, "device": {

@@ -14,8 +14,12 @@ Layout:  <dir>/step_<n>/
   train loop waits only for the device-to-host copy and may update its
   tensors in place right after.
 * **elastic**: a restore places each leaf on the device of the matching
-  leaf of ``like`` (the port's stand-in for the reference's shardings), so
-  a checkpoint written on the CPU restores onto the card and back.
+  leaf of ``like``, so a checkpoint written on the CPU restores onto the
+  card and back; given ``shardings`` (``layers.shardings`` on a device
+  mesh), each rank gets its block of each leaf, so a checkpoint written
+  on one mesh restores onto any other. A multi-rank run writes one set
+  of whole arrays (:func:`gather_tree` brings them to rank 0, which
+  saves them), the files a one-device run writes.
 * **bounded**: keeps the last ``keep`` checkpoints and deletes older ones.
 
 Keys are ``/``-joined paths in the reference's flatten order (dict keys
@@ -27,7 +31,9 @@ reference's ``astype`` cannot do.
 """
 from __future__ import annotations
 
+import itertools
 import json
+import math
 import os
 import shutil
 import threading
@@ -137,26 +143,112 @@ def latest_step(path: str) -> Optional[int]:
     return s
 
 
-def load_checkpoint(path: str, step: int, like: Any) -> Any:
+def load_checkpoint(path: str, step: int, like: Any,
+                    shardings: Optional[Any] = None) -> Any:
     """Restore into the structure of ``like`` (a tree of tensors): each
-    leaf a tensor of the ``like`` leaf's dtype on its device. A shape that differs raises
-    ``ValueError``."""
+    leaf a tensor of the ``like`` leaf's dtype on its device. With
+    ``shardings`` (a tree of ``layers.Sharding`` of ``like``'s structure;
+    a None subtree restores whole), each leaf is this rank's block of the
+    saved array, and its ``like`` leaf may be whole or that block. A shape
+    that differs raises ``ValueError``."""
     d = os.path.join(path, f"step_{step:08d}")
     with open(os.path.join(d, "manifest.json")) as f:
         dtypes = {k: v["dtype"] for k, v in json.load(f)["keys"].items()}
     with np.load(os.path.join(d, "arrays.npz")) as z:
         flat = {k: z[k] for k in z.files}
+    shard_of = dict(_sharding_items(like, shardings))
     restored = []
     for key, leaf in _items(like):
         arr = flat[key]
-        if tuple(arr.shape) != tuple(leaf.shape):
+        sh = shard_of.get(key)
+        want = tuple(arr.shape)
+        if sh is not None:
+            shape, off = sh.local_shape_and_offset(arr.shape)
+            if tuple(leaf.shape) not in (want, tuple(shape)):
+                raise ValueError(f"{key}: checkpoint {arr.shape} (block "
+                                 f"{tuple(shape)}) != {tuple(leaf.shape)}")
+            arr = arr[tuple(slice(o, o + n) for o, n in zip(off, shape))]
+        elif tuple(leaf.shape) != want:
             raise ValueError(f"{key}: checkpoint {arr.shape} != "
                              f"{tuple(leaf.shape)}")
+        arr = np.require(arr, requirements="C")
         t = (torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
              if dtypes[key] == "bfloat16" else torch.from_numpy(arr))
         restored.append(t.to(device=leaf.device, dtype=leaf.dtype))
     it = iter(restored)                  # tree_map visits _items' order
     return tree_map(lambda _: next(it), like)
+
+
+def _sharding_items(like, shardings, prefix=()):
+    """(key, Sharding) of every leaf of ``like`` that ``shardings`` places
+    (a None subtree places none)."""
+    if shardings is None:
+        return
+    if isinstance(like, dict):
+        for k in sorted(like):
+            yield from _sharding_items(like[k], shardings[k], prefix + (
+                str(k),))
+    elif isinstance(like, (list, tuple)):
+        for i, t in enumerate(like):
+            yield from _sharding_items(t, shardings[i], prefix + (str(i),))
+    elif like is not None:
+        yield "/".join(prefix), shardings
+
+
+@torch.no_grad()
+def gather_tree(tree: Any, shardings: Any, mesh: Any) -> Optional[Any]:
+    """Every leaf whole on the host of the writer, the rank at ``mesh``'s
+    coordinate 0, from each rank's blocks of it (``shardings``, as
+    :func:`load_checkpoint`'s; a leaf split over no axis is the writer's
+    own): collective, so every rank of the mesh calls it; the others get
+    None. Leaf by leaf, the ranks that hold a distinct block send it to the
+    writer alone, which copies each to the host as it arrives: no rank
+    holds more than its own blocks and one more on its device. Splits
+    must be even."""
+    coord = mesh.get_coordinate()
+    writer = coord is not None and not any(coord)
+    shard_of = dict(_sharding_items(tree, shardings))
+    out = [_gather_leaf(key, t, shard_of.get(key), writer)
+           for key, t in _items(tree)]
+    if not writer:
+        return None
+    it = iter(out)
+    return tree_map(lambda _: next(it), tree)
+
+
+def _gather_leaf(key: str, t: torch.Tensor, sh, writer: bool):
+    import torch.distributed as dist
+
+    splits = sh._splits(t.ndim) if sh is not None else [[]] * t.ndim
+    split = {m for ms in splits for m in ms}
+    if not split:
+        return t if writer else None
+    mesh = sh.mesh
+    shape = tuple(n * math.prod(mesh.size(m) for m in ms)
+                  for n, ms in zip(t.shape, splits))
+    if sh.local_shape_and_offset(shape)[0] != tuple(t.shape):
+        raise ValueError(f"{key}: the block {tuple(t.shape)} is not an even "
+                         f"part of {shape}")
+    me = dist.get_rank()
+    whole = torch.empty(shape, dtype=t.dtype) if writer else None
+    grid = mesh.mesh
+    for coord in itertools.product(*(range(n) for n in grid.shape)):
+        if any(c for m, c in enumerate(coord) if m not in split):
+            continue                 # a replica of a block sent already
+        src = int(grid[coord])
+        if writer:
+            if src == me:
+                block = t
+            else:
+                block = torch.empty_like(
+                    t, memory_format=torch.contiguous_format)
+                dist.recv(block, src=src)
+            size, off = sh.local_shape_and_offset(shape, coord)
+            whole[tuple(slice(o, o + n) for o, n in zip(off, size))] = \
+                block.cpu()
+        elif src == me:
+            dist.send(t.contiguous(), dst=int(grid[(0,) * grid.ndim]))
+    return whole
 
 
 class CheckpointManager:
@@ -194,9 +286,9 @@ class CheckpointManager:
     def latest(self) -> Optional[int]:
         return latest_step(self.path)
 
-    def restore(self, like: Any, step: Optional[int] = None
-                ) -> Tuple[int, Any]:
+    def restore(self, like: Any, shardings: Optional[Any] = None,
+                step: Optional[int] = None) -> Tuple[int, Any]:
         step = step if step is not None else self.latest()
         if step is None:
             raise FileNotFoundError(f"no checkpoint under {self.path}")
-        return step, load_checkpoint(self.path, step, like)
+        return step, load_checkpoint(self.path, step, like, shardings)

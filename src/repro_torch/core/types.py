@@ -6,8 +6,8 @@ Port of ``ModelConfig``/``MoEConfig``/``SSMConfig``/``RWKVConfig``/
 ``EncoderConfig``/``LSTMConfig``/``Conv1dConfig``, ``ShapeConfig`` with
 the shape tables, ``MeshConfig`` with ``SINGLE_POD``/``MULTI_POD`` and
 ``ParallelismConfig`` from ``repro/core/types.py``. ``ParallelismConfig``
-leaves out the reference's ``param_dtype``, ``grad_compression`` and
-``pipeline_stages``, which nothing in the port reads yet.
+has every field of the reference's; its ``pipeline_stages`` and
+``param_dtype``, which nothing reads, refuse any value but the default.
 """
 from __future__ import annotations
 
@@ -315,11 +315,14 @@ ATTN_IMPLS = ("ref", "flash")
 
 @dataclass(frozen=True)
 class ParallelismConfig:
-    """Runtime knobs of the LM path.
+    """Runtime knobs of the LM path, the reference's fields.
 
-    The reference's ``param_dtype``, ``grad_compression`` and
-    ``pipeline_stages`` are left out until something in the port reads
-    them.
+    ``grad_compression``: on a mesh of more than one rank the train step
+    reduces gradients over the data axes with the int8 butterfly
+    (``optim/compress.py``); on one rank it is not read, as the
+    reference's. ``pipeline_stages`` and ``param_dtype`` are the
+    reference's fields, which nothing reads there either: any value but
+    the default raises, so that neither can be set and silently ignored.
 
     ``seq_shard_decode`` shards a KV cache's sequence axis over ``"model"``
     where the KV heads do not divide it (a layout only). ``scan_layers``
@@ -332,13 +335,22 @@ class ParallelismConfig:
     K/V instead of materialising repeated K/V.
     """
 
+    grad_compression: bool = False
+    pipeline_stages: int = 0
     seq_shard_decode: bool = False
     scan_layers: bool = False
+    param_dtype: str = "float32"
     compute_dtype: str = "bfloat16"
     attn_impl: str = "ref"
     gqa_grouped: bool = False
 
     def __post_init__(self):
+        for name in ("pipeline_stages", "param_dtype"):
+            default = type(self).__dataclass_fields__[name].default
+            if getattr(self, name) != default:
+                raise NotImplementedError(
+                    f"ParallelismConfig.{name}={getattr(self, name)!r}: "
+                    f"only the default {default!r} (nothing reads it)")
         if self.attn_impl not in ATTN_IMPLS:
             raise ValueError(f"attn_impl {self.attn_impl!r} is not one of "
                              f"{ATTN_IMPLS}")

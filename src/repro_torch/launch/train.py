@@ -6,12 +6,15 @@ plus ``--device``).
         [--scan] [--device cpu]
 
 Trains the arch's smoke config (``--full``: its published widths and
-depth) from seeded random parameters on one device with the fault-tolerant
-``Trainer``: async checkpoints, restore and deterministic replay included.
-Attention goes through kernel B5 (its plain version on the CPU). Without
+depth) from seeded random parameters with the fault-tolerant ``Trainer``:
+async checkpoints, restore and deterministic replay included. Attention
+goes through kernel B5 (its plain version on the CPU). Without
 ``--device`` it runs on CUDA or raises. ``--scan`` runs the layer stack in
 its scan-over-layers form (``ParallelismConfig.scan_layers``), whose losses
-are the unrolled form's.
+are the unrolled form's. ``--production`` (``--multi-pod``) trains on the
+16 x 16 (2 x 16 x 16) mesh of ``launch/mesh.py`` over the process group
+the caller initialised (every rank runs this launcher); without one of
+256 (512) ranks it raises ``make_production_mesh``'s RuntimeError.
 """
 from __future__ import annotations
 
@@ -28,11 +31,9 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--smoke", action="store_true", default=True)
     ap.add_argument("--full", dest="smoke", action="store_false")
     ap.add_argument("--production", action="store_true",
-                    help="the 16x16 production mesh (needs the "
-                    "collectives; not ported yet)")
-    ap.add_argument("--multi-pod", action="store_true",
-                    help="the two-pod mesh (needs the collectives; not "
-                    "ported yet)")
+                    help="build the 16x16 production mesh (needs an "
+                    "initialised process group of 256 ranks)")
+    ap.add_argument("--multi-pod", action="store_true")
     ap.add_argument("--seq", type=int, default=128)
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--lr", type=float, default=3e-4)
@@ -62,23 +63,25 @@ def run(args) -> dict:
                                         ShapeConfig)
     from repro_torch.data.pipeline import LMDataConfig
     from repro_torch.device import resolve_device
+    from repro_torch.launch.mesh import make_production_mesh, mesh_config
     from repro_torch.model.lm import Stepper
     from repro_torch.optim.adamw import AdamWConfig
     from repro_torch.runtime.trainer import Trainer, TrainerConfig
 
-    if args.production or args.multi_pod:
-        raise NotImplementedError(
-            "--production and --multi-pod train over a multi-device mesh "
-            "(launch/mesh.py), which needs the collectives of the multi-GPU "
-            "slice (shardmap.py's port), not ported yet")
     device = resolve_device(args.device)
+    if args.production:
+        mesh = make_production_mesh(multi_pod=args.multi_pod,
+                                    device_type=device.type)
+        mcfg = mesh_config(multi_pod=args.multi_pod)
+    else:
+        mesh, mcfg = None, SMOKE_MESH
     cfg = get_config(args.arch, smoke=args.smoke)
     dtype = args.compute_dtype or (
         "bfloat16" if device.type == "cuda" else "float32")
     par = ParallelismConfig(compute_dtype=dtype, scan_layers=args.scan,
                             attn_impl="flash")
     shape = ShapeConfig("train", "train", args.seq, args.batch)
-    st = Stepper(cfg, shape, SMOKE_MESH, par,
+    st = Stepper(cfg, shape, mcfg, par, mesh=mesh,
                  opt_cfg=AdamWConfig(lr=args.lr, total_steps=args.steps,
                                      warmup_steps=max(10, args.steps // 20)))
     dcfg = LMDataConfig(vocab_size=cfg.vocab_size, seq_len=args.seq,

@@ -11,9 +11,10 @@ each leaf's placement on a ``torch.distributed`` device mesh.
 A leaf's layout (``PSpec.pspec``) is the reference's partition spec as a
 tuple: one entry per leading dim, each None (replicated), a mesh axis name
 or a tuple of them (the dim split over their product, the first axis
-major); missing trailing entries are None. The port runs on one card, so
-no tensor is split yet: the layouts are the metadata the collectives are
-built on.
+major); missing trailing entries are None. :func:`local_blocks` cuts a
+whole tree to a rank's blocks; the mesh train step (``model/lm.py``) and
+the MoE's expert parallelism (``model/moe.py``) compute on them through
+``shardmap.py``.
 """
 from __future__ import annotations
 
@@ -38,19 +39,27 @@ Axis = Union[None, str, Tuple[str, ...]]
 
 def pspec(*entries: Union[Axis, Sequence[str]]) -> Tuple[Axis, ...]:
     """A layout tuple, as ``tuple(jax.sharding.PartitionSpec(*entries))``
-    gives it: a one-axis tuple entry becomes the axis name."""
+    gives it: a one-axis tuple entry becomes the axis name, an empty one
+    None."""
     out = []
     for e in entries:
         if isinstance(e, (tuple, list)):
-            e = e[0] if len(e) == 1 else tuple(e)
+            e = None if not e else e[0] if len(e) == 1 else tuple(e)
         out.append(e)
     return tuple(out)
+
+
+def axes_of(entry: Axis) -> Tuple[str, ...]:
+    """The mesh axes one layout entry names, in order."""
+    return (entry,) if isinstance(entry, str) else tuple(entry or ())
 
 
 @dataclass(frozen=True)
 class PSpec:
     """One parameter leaf: shape + layout + dtype + init, the single source
-    of truth."""
+    of truth. ``experts`` marks a routed expert stack, which the MoE's
+    ``psum``/``a2a`` dispatches take as each rank's block over
+    ``"model"`` (the mesh train step leaves it split, ``model/lm.py``)."""
 
     shape: Tuple[int, ...]
     pspec: Tuple[Axis, ...] = ()
@@ -58,6 +67,7 @@ class PSpec:
     init: str = "normal"          # normal | zeros | ones | embed
     scale: Optional[float] = None  # stddev override (default: 1/sqrt(fan_in))
     keep_dtype: bool = False       # no dtype_override (the f32 MoE router)
+    experts: bool = False          # a routed expert stack (class doc)
 
 
 def is_pspec(x) -> bool:
@@ -182,7 +192,7 @@ def placements(mesh, layout: Sequence[Axis]) -> Tuple[Any, ...]:
     names = list(mesh.mesh_dim_names)
     out: list = [Replicate()] * len(names)
     for dim, entry in enumerate(layout):
-        axes = (entry,) if isinstance(entry, str) else tuple(entry or ())
+        axes = axes_of(entry)
         for axis in axes:
             if axis not in names:
                 raise ValueError(f"layout {tuple(layout)} names {axis!r}, "
@@ -203,6 +213,38 @@ def shardings(schema, mesh):
     dim names are the layouts' axis names)."""
     return tree_map_pspec(
         lambda s: Sharding(mesh, placements(mesh, s.pspec)), schema)
+
+
+def local_blocks(tree, shardings_tree):
+    """This rank's block of every leaf of ``tree`` (whole tensors) under
+    ``shardings_tree`` (:func:`shardings`; a None subtree keeps its leaves
+    whole): a copy where the leaf is split, the leaf itself where not."""
+    def one(t, sh):
+        if sh is None:
+            return t
+        shape, off = sh.local_shape_and_offset(t.shape)
+        if tuple(shape) == tuple(t.shape):
+            return t
+        block = t
+        for d, (n, o) in enumerate(zip(shape, off)):
+            block = block.narrow(d, o, n)
+        return block.clone()
+
+    return _zip_map(one, tree, shardings_tree)
+
+
+def _zip_map(fn, tree, other):
+    """``fn(leaf, other_leaf)`` over ``tree``, ``other`` a tree of the same
+    structure whose None subtrees pass None to every leaf below them."""
+    if isinstance(tree, dict):
+        return {k: _zip_map(fn, tree[k], None if other is None else other[k])
+                for k in sorted(tree)}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_zip_map(fn, t, None if other is None else other[i])
+                          for i, t in enumerate(tree))
+    if tree is None:
+        return None
+    return fn(tree, other)
 
 
 def init_params(schema, generator: torch.Generator,
@@ -239,8 +281,9 @@ def checkpoint(fn: Callable, save_dots: bool = False) -> Callable:
     """``jax.checkpoint``: ``fn`` whose intermediates are recomputed in the
     backward instead of kept. Non-reentrant, so ``torch.autograd.grad``
     (:func:`value_and_grad`) runs through it; no RNG state is kept, as no
-    op of a step draws random numbers. ``save_dots`` keeps the matmuls'
-    outputs and recomputes the rest (``checkpoint_policies.
+    op of a step draws random numbers; a recompute in the backward runs in
+    the ``shardmap`` regions its forward ran in. ``save_dots`` keeps the
+    matmuls' outputs and recomputes the rest (``checkpoint_policies.
     checkpoint_dots``)."""
     import functools
 
@@ -253,8 +296,16 @@ def checkpoint(fn: Callable, save_dots: bool = False) -> Callable:
             create_selective_checkpoint_contexts, _save_dots)
 
     def run(*args):
-        return ckpt(fn, *args, use_reentrant=False, preserve_rng_state=False,
-                    **kw)
+        from repro_torch import shardmap
+
+        regions = shardmap.regions()
+
+        def body(*a):             # a recompute runs in the forward's regions
+            with shardmap.regions_as(regions):
+                return fn(*a)
+
+        return ckpt(body, *args, use_reentrant=False,
+                    preserve_rng_state=False, **kw)
 
     return run
 
@@ -286,18 +337,59 @@ def param_count(schema) -> int:
 
 @dataclass
 class Ctx:
-    """Threaded through every block's ``apply``."""
+    """Threaded through every block's ``apply``. ``mesh`` is the
+    ``torch.distributed`` device mesh of ``mesh_cfg`` (``launch/mesh.py``)
+    or None (one device)."""
 
     cfg: ModelConfig
     mesh_cfg: MeshConfig
     mode: str                          # "train" | "prefill" | "decode"
+    mesh: Optional[Any] = None
     par: ParallelismConfig = ParallelismConfig()
     positions: Optional[torch.Tensor] = None   # (B, S) absolute positions
     attn_impl: str = "ref"                     # "ref" | "flash" (kernel B5)
 
     @property
+    def dp(self) -> Tuple[str, ...]:
+        if self.par.grad_compression:
+            return ()   # inside the manual-DP region: batch dims are local
+        return self.mesh_cfg.dp_axes
+
+    @property
+    def tp_size(self) -> int:
+        return self.mesh_cfg.axis_size("model")
+
+    @property
     def compute_dtype(self) -> torch.dtype:
         return torch_dtype(self.par.compute_dtype)
+
+    def constrain(self, x: torch.Tensor, spec=None) -> torch.Tensor:
+        """The reference pins an activation's layout here (batch over the
+        data axes, the rest replicated by default). Every rank holds its
+        activations whole over the axes it computes replicated, so this
+        moves no data: it returns ``x`` after checking that its batch dim
+        is what the layout says: the local batch of the operands a manual
+        region cut over those axes, or a global batch they divide."""
+        if self.mesh is None or self.mesh.size() == 1:
+            return x
+        from repro_torch import shardmap
+
+        axes = axes_of(pspec(self.dp if spec is None else (
+            spec[0] if spec else None))[0])
+        r = shardmap.current_region()
+        manual = tuple(a for a in axes if r is not None and a in r.manual)
+        if manual:
+            local = dict(r.batch).get(manual)
+            if local is not None and x.shape[0] != local:
+                raise ValueError(
+                    f"activation batch {x.shape[0]} is not the local batch "
+                    f"{local} of the layout over {manual}")
+        elif axes:
+            n = math.prod(self.mesh_cfg.axis_size(a) for a in axes)
+            if x.shape[0] % n:
+                raise ValueError(f"activation batch {x.shape[0]} does not "
+                                 f"split over {axes} ({n} ranks)")
+        return x
 
 
 # ---------------------------------------------------------------------------

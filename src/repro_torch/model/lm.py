@@ -9,6 +9,23 @@ train step of every family is the reference's: the window MSE for
 ``donate=True`` gives the form whose update reuses the parameter and
 moment buffers it is given, as the reference's trainer donates them to
 ``jax.jit``.
+
+Given a ``torch.distributed`` device mesh (``launch/mesh.py``), the steps
+run on every rank of it. The serving steps see the whole batch on every
+rank; the MoE's ``psum``/``a2a`` dispatches split their experts over
+``"model"`` (``model/moe.py``). The train step takes and returns each
+rank's blocks of the parameters (their layouts, ``Stepper.shardings``)
+and its slices of the moments (ZeRO-1, ``optim/adamw.py``): the batch is
+split over the data axes (a ``shard_map`` region over them), the loss
+runs in a nested region over ``"model"`` whose operands are the blocks
+as ``DTensor``s (each ``"model"``-sharded dense leaf gathered over
+``"model"``, the expert stacks left split, since the MoE consumes them
+so), the gradients are reduced over the data axes (an f32 all-reduce, or
+``optim/compress.py``'s int8 butterfly under ``grad_compression``), and
+the update keeps each rank's slices. The
+numbers are the reference's; what differs is how a step's compute is
+split over ``"model"``: each rank of the axis computes the whole of it
+here, where the reference's XLA partitions the matmuls over it.
 """
 from __future__ import annotations
 
@@ -22,11 +39,12 @@ from repro_torch.core.types import (MeshConfig, ModelConfig,
 from repro_torch.device import resolve_device
 from repro_torch.model.layers import (Axis, Ctx, abstract_params, checkpoint,
                                       init_params, pspec, pspecs, shardings,
-                                      value_and_grad)
+                                      tree_map, value_and_grad)
 from repro_torch.model.transformer import (apply_model, head_logits,
                                            model_cache_schema, param_schema)
 from repro_torch.optim.adamw import (AdamWConfig, adamw_update,
-                                     adamw_update_, opt_state_schema)
+                                     adamw_update_, adamw_update_sharded,
+                                     opt_state_schema)
 
 __all__ = ["param_schema", "cross_entropy", "chunked_ce_loss",
            "make_loss_fn", "make_train_step", "make_prefill_step",
@@ -85,9 +103,9 @@ def chunked_ce_loss(hidden: torch.Tensor, targets: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 
-def _mk_ctx(cfg, mesh_cfg, mode, par):
-    return Ctx(cfg=cfg, mesh_cfg=mesh_cfg, mode=mode, par=par,
-               attn_impl=par.attn_impl)
+def _mk_ctx(cfg, mesh_cfg, mode, mesh, par, attn_impl=None):
+    return Ctx(cfg=cfg, mesh_cfg=mesh_cfg, mode=mode, mesh=mesh, par=par,
+               attn_impl=attn_impl or par.attn_impl)
 
 
 def _window_apply(cfg: ModelConfig):
@@ -99,7 +117,7 @@ def _window_apply(cfg: ModelConfig):
 
 
 def make_loss_fn(cfg: ModelConfig, mesh_cfg: MeshConfig,
-                 par: ParallelismConfig):
+                 par: ParallelismConfig, mesh: Optional[Any] = None):
     """(params, batch) -> (loss, metrics): the window MSE, or the LM's
     cross-entropy (chunked over positions where ``cfg.ce_chunked``) plus
     the auxiliary loss, with ``{"loss", "aux", "n_tok"}``."""
@@ -114,7 +132,7 @@ def make_loss_fn(cfg: ModelConfig, mesh_cfg: MeshConfig,
         return window_loss
 
     def loss_fn(params, batch):
-        ctx = _mk_ctx(cfg, mesh_cfg, "train", par)
+        ctx = _mk_ctx(cfg, mesh_cfg, "train", mesh, par)
         hidden, _, aux = apply_model(params, batch, ctx, return_hidden=True)
         if cfg.ce_chunked:
             ce, n_tok = chunked_ce_loss(hidden, batch["targets"],
@@ -129,18 +147,21 @@ def make_loss_fn(cfg: ModelConfig, mesh_cfg: MeshConfig,
 
 def make_train_step(cfg: ModelConfig, mesh_cfg: MeshConfig,
                     par: ParallelismConfig, opt_cfg: AdamWConfig,
-                    donate: bool = False):
+                    mesh: Optional[Any] = None, donate: bool = False):
     """(params, opt_state, batch) -> (params', opt_state', metrics).
 
     ``donate=True``: params' and opt_state' are the buffers of params and
     opt_state, updated in place (:func:`~repro_torch.optim.adamw.
     adamw_update_`), so a step holds one copy of the state; the numbers are
-    the same bit for bit. The reference's int8-ring gradient reduction
-    needs a mesh of more than one device; on one card the gradient is the
-    plain one, as the reference's is on one device.
+    the same bit for bit. With ``mesh``: the step of every rank of it, on
+    its blocks (see the module doc); the int8 gradient reduction runs only
+    on a mesh of more than one rank, as the reference's.
     """
-    grad_fn = value_and_grad(make_loss_fn(cfg, mesh_cfg, par),
-                             has_aux=True)
+    loss_fn = make_loss_fn(cfg, mesh_cfg, par, mesh)
+    if mesh is not None:
+        return _mesh_train_step(cfg, mesh_cfg, par, opt_cfg, mesh, loss_fn,
+                                donate)
+    grad_fn = value_and_grad(loss_fn, has_aux=True)
     update = adamw_update_ if donate else adamw_update
 
     def step(params, opt_state, batch):
@@ -152,8 +173,74 @@ def make_train_step(cfg: ModelConfig, mesh_cfg: MeshConfig,
     return step
 
 
+def _model_specs(cfg: ModelConfig, schema):
+    """The block of each parameter leaf the loss computes with, inside
+    the step's region over ``"model"``: a routed expert stack that the
+    MoE's ``psum``/``a2a`` consume split (``PSpec.experts``) keeps its
+    layout; every other leaf is whole."""
+    from repro_torch.model.layers import is_pspec
+    from repro_torch.shardmap import P
+
+    ep = cfg.moe is not None and cfg.moe.impl != "dense"
+    return tree_map(lambda s: P(*s.pspec) if ep and s.experts else P(),
+                    schema, is_leaf=is_pspec)
+
+
+def _mesh_train_step(cfg, mesh_cfg, par, opt_cfg, mesh, loss_fn, donate):
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch import shardmap as sm
+    from repro_torch.model.layers import is_pspec, placements
+    from repro_torch.optim.compress import (data_parallel_grad_fn,
+                                            f32_mean_tree, int8_mean_tree)
+    from repro_torch.shardmap import P
+
+    if tuple(mesh.mesh_dim_names) != tuple(mesh_cfg.axes):
+        raise ValueError(f"mesh axes {mesh.mesh_dim_names} are not "
+                         f"{mesh_cfg.axes}")
+    schema = param_schema(cfg, tp=mesh_cfg.axis_size("model"))
+    tp_mesh = mesh["model"]
+    # a parameter layout names "model" alone (placements raises otherwise)
+    stored = tree_map(lambda s: placements(tp_mesh, s.pspec), schema,
+                      is_leaf=is_pspec)
+    # every rank of "model" computes the loss whole; each leaf enters as a
+    # DTensor of its blocks, redistributed to its spec (a gather over
+    # "model", its backward a reduce-scatter; the experts as they lie)
+    model_loss = sm.shard_map(loss_fn, mesh=mesh,
+                              in_specs=(_model_specs(cfg, schema), P()),
+                              out_specs=P(), axis_names={"model"})
+
+    def local_loss(params, batch):
+        leaves = tree_map(
+            lambda t, pl: DTensor.from_local(t, tp_mesh, pl,
+                                             run_check=False),
+            params, stored)
+        return model_loss(leaves, batch)
+
+    # the int8 reduction needs more than one rank, as the reference's
+    reduce_grads = (int8_mean_tree
+                    if par.grad_compression and mesh.size() > 1
+                    else f32_mean_tree)
+
+    def step(params, opt_state, batch):
+        gb = next(iter(batch.values())).shape[0]
+        ba = _batch_axis(mesh_cfg, gb)
+        bspec = {k: P(ba, *([None] * (v.ndim - 1)))
+                 for k, v in batch.items()}
+        grad_fn = data_parallel_grad_fn(local_loss, mesh, mesh_cfg, bspec,
+                                        reduce_grads)
+        _, metrics, grads = grad_fn(params, batch)
+        with sm.region(mesh):
+            new_params, new_opt, info = adamw_update_sharded(
+                grads, opt_state, params, opt_cfg, schema=schema,
+                mesh_cfg=mesh_cfg, donate=donate)
+        return new_params, new_opt, dict(metrics, **info)
+
+    return step
+
+
 def make_prefill_step(cfg: ModelConfig, mesh_cfg: MeshConfig,
-                      par: ParallelismConfig):
+                      par: ParallelismConfig, mesh: Optional[Any] = None):
     """(params, batch) -> (last_logits (B, V) f32, cache).
 
     For the window families "prefill" is one window inference: (params,
@@ -168,7 +255,7 @@ def make_prefill_step(cfg: ModelConfig, mesh_cfg: MeshConfig,
         return window_step
 
     def step(params, batch):
-        ctx = _mk_ctx(cfg, mesh_cfg, "prefill", par)
+        ctx = _mk_ctx(cfg, mesh_cfg, "prefill", mesh, par)
         logits, cache, _ = apply_model(params, batch, ctx)
         return logits[:, -1], cache
 
@@ -176,12 +263,12 @@ def make_prefill_step(cfg: ModelConfig, mesh_cfg: MeshConfig,
 
 
 def make_decode_step(cfg: ModelConfig, mesh_cfg: MeshConfig,
-                     par: ParallelismConfig):
+                     par: ParallelismConfig, mesh: Optional[Any] = None):
     """(params, tokens (B, 1), cache) -> (logits (B, V) f32, cache'); the
     K/V buffers of ``cache`` are updated in place and returned in cache'."""
 
     def step(params, tokens, cache):
-        ctx = _mk_ctx(cfg, mesh_cfg, "decode", par)
+        ctx = _mk_ctx(cfg, mesh_cfg, "decode", mesh, par)
         logits, new_cache, _ = apply_model(params, {"tokens": tokens}, ctx,
                                            cache=cache)
         return logits[:, -1], new_cache
@@ -243,8 +330,9 @@ def batch_pspecs(cfg: ModelConfig, shape: ShapeConfig,
 class Stepper:
     """Schema, layouts and step functions of one (arch x shape x mesh)
     cell. ``mesh`` is the ``torch.distributed`` device mesh of
-    ``mesh_cfg`` (``launch/mesh.py``), needed only by :meth:`shardings`;
-    the steps run on one card."""
+    ``mesh_cfg`` (``launch/mesh.py``) or None (one device); with one, the
+    train step takes and returns this rank's blocks
+    (:meth:`state_shardings`, ``layers.local_blocks``)."""
 
     cfg: ModelConfig
     shape: ShapeConfig
@@ -287,15 +375,24 @@ class Stepper:
                              "(launch/mesh.py)")
         return shardings(tree_schema, self.mesh)
 
+    def state_shardings(self):
+        """``{"params", "opt"}``: the placement of every leaf of the
+        training state on ``self.mesh``, the moments' with ZeRO-1."""
+        return {"params": self.shardings(self.schema),
+                "opt": self.shardings(opt_state_schema(self.schema,
+                                                       self.mesh_cfg))}
+
     def train_fn(self, donate: bool = False):
         return make_train_step(self.cfg, self.mesh_cfg, self.par,
-                               self.opt_cfg, donate)
+                               self.opt_cfg, self.mesh, donate)
 
     def prefill_fn(self):
-        return make_prefill_step(self.cfg, self.mesh_cfg, self.par)
+        return make_prefill_step(self.cfg, self.mesh_cfg, self.par,
+                                 self.mesh)
 
     def decode_fn(self):
-        return make_decode_step(self.cfg, self.mesh_cfg, self.par)
+        return make_decode_step(self.cfg, self.mesh_cfg, self.par,
+                                self.mesh)
 
     def init(self, seed: int = 0, *,
              device: Optional[Union[str, torch.device]] = None,

@@ -1,33 +1,43 @@
-"""Mixture-of-experts FFN on one card (port of ``repro/model/moe.py``).
+"""Mixture-of-experts FFN with expert parallelism over the mesh's
+``"model"`` axis (port of ``repro/model/moe.py``).
 
-The reference selects a dispatch by ``MoEConfig.impl``: ``dense`` (every
-expert on every token, combined by the routing weights: the oracle),
-``psum`` and ``a2a`` (expert parallelism over the mesh's ``"model"``
-axis). Without a device mesh ``psum`` and ``a2a`` fall back to the dense
-oracle (``moe.py:137-138``, ``:183-184``); the port runs on one card with
-no mesh, so every ``impl`` runs :func:`moe_dense`, as the reference does on
-one device. ``_capacity``, ``_local_expert_pass``, ``moe_psum`` and
-``moe_a2a`` come with the multi-GPU slice.
+Three dispatches, selected by ``MoEConfig.impl``:
 
-The experts' products are plain matmuls, as in the reference, where they
-run outside any Pallas kernel. The reference loops over the experts in
-Python and stacks their outputs; :func:`moe_dense` batches the loop over
-the expert axis instead (one broadcast matmul a projection, giving the
-same ``(E, T, D)`` stack), which is the same arithmetic a token and an
-expert.
+- ``dense``: every expert on every token, combined by the routing weights:
+  the oracle. The reference loops over the experts in Python and stacks
+  their outputs; :func:`moe_dense` batches the loop over the expert axis
+  (one broadcast matmul a projection, the same ``(E, T, D)`` stack).
+- ``psum``: activations stay replicated over ``"model"``; each rank runs
+  its ``n_local`` experts on the tokens routed to them (each expert's
+  ``_capacity`` highest-weighted tokens), and the partial outputs are
+  summed over ``"model"``.
+- ``a2a``: the tokens are split over ``"model"``, routed, sent to their
+  expert's rank with ``all_to_all`` (``_capacity`` x ``top_k`` slots a
+  destination), computed, sent back and gathered.
 
-The router's top-k takes one documented rule on every device: a stable
-descending sort of the probabilities, the lowest expert index first among
-equal ones. ``jax.lax.top_k`` breaks ties in an order of XLA's own, which
-no rule reproduces (ROADMAP §C); on rows without ties the two agree.
+``psum`` and ``a2a`` run in a ``shardmap.shard_map`` region with the
+reference's specs: the expert leaves enter as ``("model", None, None)``,
+so a rank computes only its own experts. Without a mesh, or where the
+experts do not divide the model axis, they fall back as the reference's
+do (``moe_psum`` to :func:`moe_dense`, ``moe_a2a`` to :func:`moe_psum`).
+Both drop the assignments over capacity, as the reference's do.
+
+The router's top-k (and the capacity selections) take one documented
+rule on every device: a stable descending sort, the lowest index first
+among equal values. ``jax.lax.top_k`` breaks ties in an order of XLA's
+own, which no rule reproduces (ROADMAP §C5); on rows without ties the two
+agree. At a capacity boundary a tie between two tokens' weights may keep
+a different token.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch import shardmap as sm
 from repro_torch.core.types import ModelConfig
 from repro_torch.model.layers import Ctx, PSpec, shard_axis
+from repro_torch.shardmap import P
 
 
 def moe_schema(cfg: ModelConfig, tp: int = 16):
@@ -37,9 +47,12 @@ def moe_schema(cfg: ModelConfig, tp: int = 16):
     sch = {
         "router": PSpec((d, m.n_experts), dtype=torch.float32,
                         keep_dtype=True),
-        "w_gate": PSpec((m.n_experts, d, m.d_expert), (ea, None, None)),
-        "w_up": PSpec((m.n_experts, d, m.d_expert), (ea, None, None)),
-        "w_down": PSpec((m.n_experts, m.d_expert, d), (ea, None, None)),
+        "w_gate": PSpec((m.n_experts, d, m.d_expert), (ea, None, None),
+                        experts=True),
+        "w_up": PSpec((m.n_experts, d, m.d_expert), (ea, None, None),
+                      experts=True),
+        "w_down": PSpec((m.n_experts, m.d_expert, d), (ea, None, None),
+                        experts=True),
     }
     if m.n_shared > 0:
         fs = m.n_shared * m.d_shared
@@ -111,8 +124,149 @@ def moe_dense(p, x: torch.Tensor, cfg: ModelConfig, ctx: Ctx):
     return ys.reshape(b, s, d).to(x.dtype), aux
 
 
-# With no mesh the reference's expert-parallel dispatches are moe_dense.
-IMPLS = {"dense": moe_dense, "psum": moe_dense, "a2a": moe_dense}
+def _capacity(n_tokens: int, m) -> int:
+    per_expert = n_tokens * m.top_k / m.n_experts
+    return max(4, int(per_expert * m.capacity_factor + 0.999))
+
+
+# ---------------------------------------------------------------------------
+# psum EP
+# ---------------------------------------------------------------------------
+
+
+def _local_expert_pass(xt, top_w, top_i, wg, wu, wd, e_lo, n_local, cap,
+                       dt):
+    """Capacity-bounded compute of ``n_local`` experts [e_lo, e_lo +
+    n_local): each expert's ``cap`` highest-weighted tokens."""
+    t = xt.shape[0]
+    y = torch.zeros((t, xt.shape[1]), dtype=dt, device=xt.device)
+    for j in range(n_local):
+        e = e_lo + j
+        w_e = torch.sum(torch.where(top_i == e, top_w, 0.0), dim=-1)  # (T,)
+        sel_w, sel_i = top_k(w_e, min(cap, t))
+        ye = _expert_ffn(xt[sel_i], wg[j], wu[j], wd[j], dt)
+        y = y.index_add(0, sel_i, sel_w[:, None].to(dt) * ye)
+    return y
+
+
+def moe_psum(p, x: torch.Tensor, cfg: ModelConfig, ctx: Ctx):
+    m = cfg.moe
+    dt = ctx.compute_dtype
+    b, s, d = x.shape
+    mesh = ctx.mesh
+    tp = ctx.tp_size
+    ea = shard_axis(m.n_experts, tp)
+    if mesh is None or ea is None:
+        return moe_dense(p, x, cfg, ctx)
+    n_local = m.n_experts // tp
+    dp = ctx.dp
+
+    def body(xt, router, wg, wu, wd):
+        t = xt.shape[0] * xt.shape[1]
+        xf = xt.reshape(t, d).to(dt)
+        top_w, top_i, aux = _router({"router": router}, xf, m)
+        cap = _capacity(t, m)
+        mi = sm.axis_index("model")
+        y = _local_expert_pass(xf, top_w, top_i, wg, wu, wd, mi * n_local,
+                               n_local, cap, dt)
+        y = sm.psum(y, "model")
+        aux = sm.pmean(sm.pvary(aux, ("model",)), dp + ("model",))
+        return y.reshape(xt.shape).to(xt.dtype), aux
+
+    fn = sm.shard_map(
+        body,
+        mesh=mesh,
+        in_specs=(P(dp, None, None), P(), P("model", None, None),
+                  P("model", None, None), P("model", None, None)),
+        out_specs=(P(dp, None, None), P()),
+    )
+    y, aux = fn(x, p["router"], p["w_gate"], p["w_up"], p["w_down"])
+    if m.n_shared > 0:
+        y = y + _shared_ffn(p["shared"], x.to(dt), dt).to(x.dtype)
+    return y, aux
+
+
+# ---------------------------------------------------------------------------
+# all_to_all EP
+# ---------------------------------------------------------------------------
+
+
+def moe_a2a(p, x: torch.Tensor, cfg: ModelConfig, ctx: Ctx):
+    m = cfg.moe
+    dt = ctx.compute_dtype
+    b, s, d = x.shape
+    mesh = ctx.mesh
+    tp = ctx.tp_size
+    ea = shard_axis(m.n_experts, tp)
+    if mesh is None or ea is None or (b * s) % tp != 0:
+        return moe_psum(p, x, cfg, ctx)
+    n_local = m.n_experts // tp
+    dp = ctx.dp
+
+    def body(xt, router, wg, wu, wd):
+        t_loc = xt.shape[0] * xt.shape[1]
+        xf = xt.reshape(t_loc, d).to(dt)
+        mi = sm.axis_index("model")
+        t_m = t_loc // tp
+        # sequence-split across the model axis: this rank's token slice
+        xs = xf[mi * t_m:(mi + 1) * t_m]
+        top_w, top_i, aux = _router({"router": router}, xs, m)
+        # flatten the (token, k) assignments
+        a_tok = torch.arange(t_m, device=xs.device).repeat_interleave(
+            m.top_k)
+        a_exp = top_i.reshape(-1)
+        a_w = top_w.reshape(-1)
+        a_dst = a_exp // n_local
+        cs = _capacity(t_m, m) * max(1, m.top_k)  # per-destination slots
+        cs = min(cs, t_m * m.top_k)
+        send_x, send_meta, send_tok, send_w = [], [], [], []
+        for dst in range(tp):
+            w_d = torch.where(a_dst == dst, a_w, -1.0)
+            sel_w, sel = top_k(w_d, cs)
+            valid = sel_w > 0
+            send_x.append(xs[a_tok[sel]] * valid[:, None])
+            send_meta.append(torch.where(valid, a_exp[sel] % n_local,
+                                         n_local))
+            send_tok.append(a_tok[sel])
+            send_w.append(torch.where(valid, sel_w, 0.0))
+        sx = torch.stack(send_x)                    # (tp, cs, d)
+        smeta = torch.stack(send_meta)              # (tp, cs) local ids
+        # exchange tokens with the experts' owners
+        rx = sm.all_to_all(sx, "model", 0, 0, tiled=False)
+        rm = sm.all_to_all(smeta, "model", 0, 0, tiled=False)
+        rxf = rx.reshape(tp * cs, d)
+        rmf = rm.reshape(tp * cs)
+        ry = torch.zeros_like(rxf)
+        for j in range(n_local):
+            mask = (rmf == j).to(dt)[:, None]
+            ry = ry + mask * _expert_ffn(rxf, wg[j], wu[j], wd[j], dt)
+        # return the outputs to the tokens' owners
+        back = sm.all_to_all(ry.reshape(tp, cs, d), "model", 0, 0,
+                             tiled=False)
+        ys = torch.zeros((t_m, d), dtype=dt, device=xs.device)
+        for dst in range(tp):
+            ys = ys.index_add(0, send_tok[dst],
+                              send_w[dst][:, None].to(dt) * back[dst])
+        # restore model-replicated activations
+        y = sm.all_gather(ys, "model", axis=0, tiled=True)
+        aux = sm.pmean(aux, dp + ("model",))
+        return y.reshape(xt.shape).to(xt.dtype), aux
+
+    fn = sm.shard_map(
+        body,
+        mesh=mesh,
+        in_specs=(P(dp, None, None), P(), P("model", None, None),
+                  P("model", None, None), P("model", None, None)),
+        out_specs=(P(dp, None, None), P()),
+        check_vma=False,   # all_to_all round-trip defeats replication inference
+    )
+    y, aux = fn(x, p["router"], p["w_gate"], p["w_up"], p["w_down"])
+    if m.n_shared > 0:
+        y = y + _shared_ffn(p["shared"], x.to(dt), dt).to(x.dtype)
+    return y, aux
+
+
+IMPLS = {"dense": moe_dense, "psum": moe_psum, "a2a": moe_a2a}
 
 
 def moe_apply(p, x: torch.Tensor, cfg: ModelConfig, ctx: Ctx):

@@ -53,7 +53,8 @@ from repro_torch.model.attention import attn_apply, attn_schema, cache_schema
 from repro_torch.model.layers import (Ctx, PSpec, apply_mlp, apply_norm,
                                       checkpoint, embed_schema, embed_tokens,
                                       lm_logits, mlp_schema, norm_schema,
-                                      tree_leaves, tree_map, tree_map_pspec)
+                                      pspec, tree_leaves, tree_map,
+                                      tree_map_pspec)
 
 # ---------------------------------------------------------------------------
 # Group structure
@@ -251,30 +252,30 @@ def _stacked_cache_schema(cfg: ModelConfig, batch: int, seq: int,
 def _apply_attn_block(p, x, ctx: Ctx, cache):
     a, new_cache = attn_apply(p["attn"], apply_norm(p["norm1"], x, ctx.cfg),
                               ctx, cache=cache)
-    x = x + a
+    x = ctx.constrain(x + a)
     m = apply_mlp(p["mlp"], apply_norm(p["norm2"], x, ctx.cfg), ctx.cfg, ctx)
-    return x + m, new_cache, None
+    return ctx.constrain(x + m), new_cache, None
 
 
 def _apply_moe_block(p, x, ctx: Ctx, cache):
     a, new_cache = attn_apply(p["attn"], apply_norm(p["norm1"], x, ctx.cfg),
                               ctx, cache=cache)
-    x = x + a
+    x = ctx.constrain(x + a)
     m, aux = moe_mod.moe_apply(p["moe"], apply_norm(p["norm2"], x, ctx.cfg),
                                ctx.cfg, ctx)
-    return x + m, new_cache, aux
+    return ctx.constrain(x + m), new_cache, aux
 
 
 def _apply_mamba_block(p, x, ctx: Ctx, cache):
     m, new_cache = ssm_mod.mamba_apply(
         p["mamba"], apply_norm(p["norm1"], x, ctx.cfg), ctx, state=cache)
-    return x + m, new_cache, None
+    return ctx.constrain(x + m), new_cache, None
 
 
 def _apply_rwkv_block(p, x, ctx: Ctx, cache):
     a, st_a = rwkv_mod.rwkv_time_mix(
         p["att"], apply_norm(p["ln1"], x, ctx.cfg), ctx, state=cache)
-    x = x + a
+    x = ctx.constrain(x + a)
     f, st_f = rwkv_mod.rwkv_channel_mix(
         p["ffn"], apply_norm(p["ln2"], x, ctx.cfg), ctx, state=cache)
     new_cache = None
@@ -283,7 +284,7 @@ def _apply_rwkv_block(p, x, ctx: Ctx, cache):
         if cache is not None:  # keep untouched entries (a stable tree)
             for k in cache:
                 new_cache.setdefault(k, cache[k])
-    return x + f, new_cache, None
+    return ctx.constrain(x + f), new_cache, None
 
 
 def _apply_shared_block(p, x, emb0, ctx: Ctx, cache):
@@ -300,27 +301,27 @@ def _apply_shared_block(p, x, emb0, ctx: Ctx, cache):
         un @ mp["w_up"].to(dt))
     u = u + (h @ mp["wo"].to(dt)).to(u.dtype)
     out = (u.to(dt) @ p["out_proj"].to(dt)).to(x.dtype)
-    return x + out, new_cache
+    return ctx.constrain(x + out), new_cache
 
 
 def _apply_enc_block(p, x, ctx: Ctx):
     a, _ = attn_apply(p["attn"], apply_norm(p["norm1"], x, ctx.cfg), ctx,
                       causal=False)
-    x = x + a
+    x = ctx.constrain(x + a)
     m = apply_mlp(p["mlp"], apply_norm(p["norm2"], x, ctx.cfg), ctx.cfg, ctx)
-    return x + m
+    return ctx.constrain(x + m)
 
 
 def _apply_dec_block(p, x, ctx: Ctx, cache, enc_kv):
     a, new_cache = attn_apply(p["self_attn"],
                               apply_norm(p["norm1"], x, ctx.cfg), ctx,
                               cache=cache)
-    x = x + a
+    x = ctx.constrain(x + a)
     c, _ = attn_apply(p["cross_attn"], apply_norm(p["norm2"], x, ctx.cfg),
                       ctx, cross_kv=enc_kv)
-    x = x + c
+    x = ctx.constrain(x + c)
     m = apply_mlp(p["mlp"], apply_norm(p["norm3"], x, ctx.cfg), ctx.cfg, ctx)
-    return x + m, new_cache, None
+    return ctx.constrain(x + m), new_cache, None
 
 
 def _dec_inputs(pl, enc_out, c_in, ctx: Ctx):
@@ -611,8 +612,14 @@ def _stack_groups(cfg: ModelConfig, layers: List[Any], shared: List[Any]):
 
 
 def head_logits(params, x: torch.Tensor, ctx: Ctx) -> torch.Tensor:
-    """LM head: (B, S, D) -> (B, S, padded_vocab) f32."""
-    return lm_logits(params["embed"], x, ctx.cfg, ctx)
+    """LM head: (B, S, D) -> (B, S, padded_vocab) f32. On a mesh the
+    reference pins the logits' layout (batch over the data axes, vocab
+    over ``"model"`` where it divides): :meth:`Ctx.constrain`."""
+    logits = lm_logits(params["embed"], x, ctx.cfg, ctx)
+    if ctx.mesh is not None and ctx.mesh.size() > 1:
+        va = "model" if ctx.cfg.padded_vocab % ctx.tp_size == 0 else None
+        logits = ctx.constrain(logits, pspec(ctx.dp, None, va))
+    return logits
 
 
 def pad_cache(cache, target_len: int):

@@ -8,8 +8,14 @@ parameters, all optimizer math runs in f32 on the parameters' device, and
 every constant enters as the reference's weakly typed f32 does.
 :func:`adamw_update_` is the same update written into the buffers it is
 given, the port's stand-in for the reference trainer's donation to
-``jax.jit``. The ZeRO sharding of the state (the reference's
-``opt_state_schema`` given a mesh) comes with the multi-GPU slice.
+``jax.jit``.
+
+ZeRO-1: given a mesh, ``opt_state_schema`` shards each moment's largest
+unsharded dimension that divides the data axes over them, and
+:func:`adamw_update_sharded` (inside a manual region over every mesh
+axis, ``shardmap.region``) updates each rank's own slices: the global
+norm is summed over the ranks that hold parts of a leaf, and the updated
+parameter slices are gathered back over the data axes.
 """
 from __future__ import annotations
 
@@ -20,7 +26,8 @@ from typing import Any, Dict, Tuple
 
 import torch
 
-from repro_torch.model.layers import PSpec, is_pspec, tree_leaves, tree_map
+from repro_torch.model.layers import (PSpec, axes_of, is_pspec, pspec,
+                                      tree_leaves, tree_map)
 
 
 @dataclass(frozen=True)
@@ -61,17 +68,50 @@ def init_opt_state(params) -> Dict[str, Any]:
 
 def opt_state_schema(param_schema_tree, mesh_cfg=None):
     """PSpec tree of the optimizer state (mirrors the parameter schema):
-    f32 zero moments and an int32 step. The reference's ZeRO-1 shards
-    each moment over the data axes of ``mesh_cfg``; on one card every
-    tensor is whole and ``mesh_cfg`` is not read: ZeRO comes with the
-    multi-GPU slice, as ``torch.distributed``."""
+    f32 zero moments and an int32 step.
+
+    ZeRO-1: when a ``mesh_cfg`` is given, each moment additionally shards
+    its largest still-unsharded dimension that divides the data axes'
+    size over them: the moments are touched only by the update, so this
+    costs the forward and backward nothing and cuts each rank's optimizer
+    bytes by |dp|."""
+    dp_axes = tuple(mesh_cfg.dp_axes) if mesh_cfg is not None else ()
+    dp_n = 1
+    for a in dp_axes:
+        dp_n *= mesh_cfg.axis_size(a)
+
+    def zero_shard(s: PSpec) -> PSpec:
+        spec = list(s.pspec) + [None] * (len(s.shape) - len(s.pspec))
+        if dp_n > 1 and len(s.shape) >= 2:
+            # shard the largest unsharded dim that divides the dp size
+            cands = [i for i, ax in enumerate(spec) if ax is None
+                     and s.shape[i] % dp_n == 0]
+            if cands:
+                best = max(cands, key=lambda i: s.shape[i])
+                spec[best] = dp_axes if len(dp_axes) > 1 else dp_axes[0]
+        return dataclasses.replace(s, dtype=torch.float32, init="zeros",
+                                   pspec=pspec(*spec))
+
     def moments():
-        return tree_map(lambda s: dataclasses.replace(
-            s, dtype=torch.float32, init="zeros"), param_schema_tree,
-            is_leaf=is_pspec)
+        return tree_map(zero_shard, param_schema_tree, is_leaf=is_pspec)
 
     return {"mu": moments(), "nu": moments(),
             "step": PSpec((), dtype=torch.int32, init="zeros")}
+
+
+def zero_dims(param_schema_tree, mesh_cfg) -> list:
+    """Per parameter leaf (in leaf order), the dim ZeRO-1 shards its
+    moments along over the data axes, or None."""
+    dp = set(mesh_cfg.dp_axes)
+
+    def dim(s: PSpec):
+        for i, e in enumerate(s.pspec):
+            if dp & set(axes_of(e)):
+                return i
+        return None
+
+    mu = opt_state_schema(param_schema_tree, mesh_cfg)["mu"]
+    return [dim(s) for s in tree_leaves(mu, is_pspec)]
 
 
 def global_norm(tree) -> torch.Tensor:
@@ -84,10 +124,10 @@ def global_norm(tree) -> torch.Tensor:
     return torch.sqrt(total)
 
 
-def _scalars(grads, step: torch.Tensor, cfg: AdamWConfig):
+def _scalars(grads, step: torch.Tensor, cfg: AdamWConfig, gnorm=None):
     """(lr, gnorm, clip scale, bc1, bc2) of the step numbered ``step``."""
     lr = schedule(cfg, step)
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads) if gnorm is None else gnorm
     # a tensor numerator: ``float / tensor`` is a reciprocal and a product
     # in torch
     scale = torch.clamp(torch.full_like(gnorm, cfg.clip_norm)
@@ -98,6 +138,19 @@ def _scalars(grads, step: torch.Tensor, cfg: AdamWConfig):
     return lr, gnorm, scale, bc1, bc2
 
 
+def _upd(p, g, mu, nu, lr, scale, bc1, bc2, cfg: AdamWConfig):
+    g = g.to(torch.float32) * scale
+    mu = cfg.b1 * mu + (1 - cfg.b1) * g
+    nu = cfg.b2 * nu + (1 - cfg.b2) * torch.square(g)
+    mhat = mu / bc1
+    nhat = nu / bc2
+    delta = mhat / (torch.sqrt(nhat) + cfg.eps)
+    # decoupled weight decay — skip 1-d tensors (norms, biases)
+    wd = cfg.weight_decay if p.ndim >= 2 else 0.0
+    newp = p.to(torch.float32) * (1 - lr * wd) - lr * delta
+    return newp.to(p.dtype), mu, nu
+
+
 @torch.no_grad()
 def adamw_update(grads, opt_state, params, cfg: AdamWConfig
                  ) -> Tuple[Any, Dict[str, Any], Dict[str, torch.Tensor]]:
@@ -105,22 +158,9 @@ def adamw_update(grads, opt_state, params, cfg: AdamWConfig
     structure of ``params``. New tensors throughout; nothing in place."""
     step = opt_state["step"] + 1
     lr, gnorm, scale, bc1, bc2 = _scalars(grads, step, cfg)
-    b1, b2 = cfg.b1, cfg.b2
-
-    def upd(p, g, mu, nu):
-        g = g.to(torch.float32) * scale
-        mu = b1 * mu + (1 - b1) * g
-        nu = b2 * nu + (1 - b2) * torch.square(g)
-        mhat = mu / bc1
-        nhat = nu / bc2
-        delta = mhat / (torch.sqrt(nhat) + cfg.eps)
-        # decoupled weight decay — skip 1-d tensors (norms, biases)
-        wd = cfg.weight_decay if p.ndim >= 2 else 0.0
-        newp = p.to(torch.float32) * (1 - lr * wd) - lr * delta
-        return newp.to(p.dtype), mu, nu
-
-    out = [upd(*leaves) for leaves in zip(*(tree_leaves(t) for t in (
-        params, grads, opt_state["mu"], opt_state["nu"])))]
+    out = [_upd(*leaves, lr, scale, bc1, bc2, cfg) for leaves in zip(
+        *(tree_leaves(t) for t in (params, grads, opt_state["mu"],
+                                   opt_state["nu"])))]
 
     def rebuild(i):
         it = iter(o[i] for o in out)
@@ -164,3 +204,75 @@ def adamw_update_(grads, opt_state, params, cfg: AdamWConfig
             p.copy_(p32)
         del g, tmp, mhat, nhat, delta, p32
     return params, opt_state, {"gnorm": gnorm, "lr": lr}
+
+
+@torch.no_grad()
+def adamw_update_sharded(grads, opt_state, params, cfg: AdamWConfig, *,
+                         schema, mesh_cfg, donate: bool = False
+                         ) -> Tuple[Any, Dict[str, Any], Dict[str, torch.Tensor]]:
+    """:func:`adamw_update` on each rank's blocks, inside a manual region
+    over every mesh axis. ``params``/``grads``: this rank's blocks of each
+    leaf (the gradient already reduced over the data axes); ``schema``:
+    the parameters' PSpec tree (each leaf's layout, and with ``mesh_cfg``
+    the dim its moments are split along over the data axes,
+    :func:`zero_dims`); ``opt_state``: this rank's moment slices. The global
+    norm sums each leaf's squares over the ranks that hold its parts, leaf
+    by leaf in the reference's order; each rank updates its moment slices
+    and its slice of the parameter, and the slices are gathered back over
+    the data axes. On one rank the numbers are :func:`adamw_update`'s bit
+    for bit. ``donate``: the results are written into the given buffers,
+    which are returned."""
+    from repro_torch import shardmap as sm
+
+    g_l = tree_leaves(grads)
+    lay_l = [s.pspec for s in tree_leaves(schema, is_pspec)]
+    zdims = zero_dims(schema, mesh_cfg)
+    dp_axes = tuple(mesh_cfg.dp_axes)
+    sq = [torch.sum(torch.square(g.to(torch.float32))) for g in g_l]
+    by_axes: Dict[tuple, list] = {}
+    for i, lay in enumerate(lay_l):
+        axes = tuple(a for e in lay for a in axes_of(e))
+        if axes:
+            by_axes.setdefault(axes, []).append(i)
+    for axes, idx in by_axes.items():
+        summed = sm.psum(torch.stack([sq[i] for i in idx]), axes)
+        for j, i in enumerate(idx):
+            sq[i] = summed[j]
+    total = None
+    for v in sq:
+        total = v if total is None else total + v
+    step = opt_state["step"] + 1
+    lr, gnorm, scale, bc1, bc2 = _scalars(None, step, cfg,
+                                          gnorm=torch.sqrt(total))
+    dp_n = sm.axis_size(dp_axes) if dp_axes else 1
+    dp_i = sm.axis_index(dp_axes) if dp_axes else 0
+    new_p, new_mu, new_nu = [], [], []
+    for p, g, mu, nu, z in zip(
+            tree_leaves(params), g_l, tree_leaves(opt_state["mu"]),
+            tree_leaves(opt_state["nu"]), zdims):
+        if z is not None and dp_n > 1:
+            size = p.shape[z] // dp_n
+            ps, gs = (t.narrow(z, dp_i * size, size) for t in (p, g))
+            np_s, m2, n2 = _upd(ps, gs, mu, nu, lr, scale, bc1, bc2, cfg)
+            np_ = sm.all_gather(np_s, dp_axes, axis=z, tiled=True)
+        else:
+            np_, m2, n2 = _upd(p, g, mu, nu, lr, scale, bc1, bc2, cfg)
+        if donate:
+            p.copy_(np_)
+            mu.copy_(m2)
+            nu.copy_(n2)
+            np_, m2, n2 = p, mu, nu
+        new_p.append(np_)
+        new_mu.append(m2)
+        new_nu.append(n2)
+
+    def rebuild(vals, like):
+        it = iter(vals)
+        return tree_map(lambda _: next(it), like)
+
+    if donate:
+        opt_state["step"].copy_(step)
+        step = opt_state["step"]
+    return (rebuild(new_p, params),
+            {"mu": rebuild(new_mu, params), "nu": rebuild(new_nu, params),
+             "step": step}, {"gnorm": gnorm, "lr": lr})

@@ -95,20 +95,23 @@ class DrainResult(list):
 
 
 class Server:
-    """``params`` must live on ``device`` (None means CUDA, or raise)."""
+    """``params`` must live on ``device`` (None means CUDA, or raise).
+    ``mesh``: the device mesh of ``mesh_cfg`` the steps run on (every rank
+    of it serves the same requests; the MoE splits its experts over
+    ``"model"``), or None."""
 
     def __init__(self, cfg: ModelConfig, params, scfg: ServerConfig,
                  mesh_cfg: MeshConfig, par: Optional[ParallelismConfig] = None,
                  device: Optional[Union[str, torch.device]] = None,
                  metrics: Optional[MetricsRegistry] = None,
-                 clock=time.perf_counter):
+                 clock=time.perf_counter, mesh=None):
         self.cfg = cfg
         self.scfg = scfg
         self.params = params
         self.device = resolve_device(device)
         par = par or ParallelismConfig(compute_dtype="float32")
-        self._prefill = make_prefill_step(cfg, mesh_cfg, par)
-        self._decode = make_decode_step(cfg, mesh_cfg, par)
+        self._prefill = make_prefill_step(cfg, mesh_cfg, par, mesh)
+        self._decode = make_decode_step(cfg, mesh_cfg, par, mesh)
         self._rng = np.random.default_rng(scfg.seed)
         self._slots: List[Optional[Request]] = [None] * scfg.batch_slots
         self._cache = None            # batched cache across slots

@@ -2189,3 +2189,150 @@ def test_family_training_runs_the_chunked_forms_on_card(cuda):
         assert (ssd_ops.launches, wkv_ops.launches) == before
         assert torch.isfinite(loss)
         assert all(torch.isfinite(g).all() for g in tree_leaves(grads))
+
+
+# --------------------------------------------------------------------------- #
+# The collectives on a world of one (the card sees one rank)
+# --------------------------------------------------------------------------- #
+
+
+@pytest.fixture(scope="module")
+def world_of_one(tmp_path_factory):
+    """An NCCL process group of one rank and the (1, 1) mesh on it; the
+    group is destroyed after this module's card tests."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: NCCL runs on it")
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_smoke_mesh
+
+    torch.cuda.set_device(0)
+    store = tmp_path_factory.mktemp("pg") / "store"
+    dist.init_process_group("nccl", init_method=f"file://{store}", rank=0,
+                            world_size=1)
+    try:
+        yield make_smoke_mesh((1, 1))
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("impl", ["psum", "a2a"])
+def test_moe_ep_on_a_world_of_one_is_the_dense_oracle(cuda, world_of_one,
+                                                      impl):
+    """At a no-drop capacity (n_experts / top_k) ``moe_psum``/``moe_a2a``
+    on the (1, 1) mesh give ``moe_dense``'s output within 1e-5 in f32,
+    and the same gradients."""
+    import dataclasses
+
+    from repro_torch.core.types import MeshConfig
+    from repro_torch.model import moe
+    from repro_torch.model.layers import (Ctx, init_params, tree_leaves,
+                                          tree_map)
+    from repro_torch.verify.conformance import exact_f32_matmul
+
+    cfg = get_config("deepseek-moe-16b", smoke=True)
+    m = cfg.moe
+    cfg = cfg.with_(moe=dataclasses.replace(
+        m, capacity_factor=m.n_experts / m.top_k))
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    p = init_params(moe.moe_schema(cfg, tp=1), gen)
+    x = torch.randn(2, 64, cfg.d_model, generator=gen, device=cuda)
+    ctx = Ctx(cfg, MeshConfig((1, 1), ("data", "model")), "train",
+              mesh=world_of_one,
+              par=ParallelismConfig(compute_dtype="float32"))
+    out = {}
+    with exact_f32_matmul():
+        for fn in (moe.moe_dense, moe.IMPLS[impl]):
+            pp = tree_map(lambda t: t.detach().requires_grad_(True), p)
+            xx = x.detach().requires_grad_(True)
+            y, aux = fn(pp, xx, cfg, ctx)
+            y.square().sum().backward()
+            out[fn.__name__] = (y.detach(), aux.detach(), xx.grad,
+                                [t.grad for t in tree_leaves(pp)
+                                 if t.grad is not None])
+    (y_d, a_d, g_d, p_d), (y_e, a_e, g_e, p_e) = out.values()
+    assert (y_e - y_d).abs().max().item() <= 1e-5
+    assert abs(a_e.item() - a_d.item()) <= 1e-6 * abs(a_d.item())
+    assert (g_e - g_d).abs().max().item() <= 1e-5 * g_d.abs().max().item()
+    for a, b in zip(p_e, p_d):
+        assert (a - b).abs().max().item() <= 1e-5 * b.abs().max().item()
+
+
+def test_quant_codes_on_card_equal_the_cpus(cuda):
+    """``optim/compress.py::_quant``'s int8 codes and scale on the card
+    equal the CPU's for the same f32 input (every division by a tensor:
+    CUDA would turn a division by a Python float into a product)."""
+    from repro_torch.optim.compress import _dequant, _quant
+
+    rng = np.random.default_rng(3)
+    for scale in (1e-3, 1.0, 1e4):
+        x = (rng.standard_normal(1 << 16) * scale).astype(np.float32)
+        s = np.float32(np.max(np.abs(x)) / np.float32(127.0))
+        x[:64] = (np.arange(64, dtype=np.float32) - 31.5) * s
+        q_c, s_c = _quant(torch.from_numpy(x))
+        q_g, s_g = _quant(torch.from_numpy(x).to(cuda))
+        assert torch.equal(q_g.cpu(), q_c) and torch.equal(s_g.cpu(), s_c)
+        assert torch.equal(_dequant(q_g, s_g).cpu(), _dequant(q_c, s_c))
+
+
+def test_checkpoint_restores_onto_a_card_mesh_bit_for_bit(cuda, world_of_one,
+                                                          tmp_path):
+    """A state saved from the CPU restores through
+    ``load_checkpoint(shardings=)`` onto the (1, 1) card mesh bit for bit
+    (each leaf its rank's block: the whole leaf), bf16 leaves included."""
+    from repro_torch.checkpoint import load_checkpoint, save_checkpoint
+    from repro_torch.core.types import MeshConfig
+    from repro_torch.model.layers import tree_leaves, tree_map
+    from repro_torch.model.lm import Stepper
+    from repro_torch.optim.adamw import init_opt_state
+
+    cfg = get_config("deepseek-moe-16b", smoke=True)
+    st = Stepper(cfg, ShapeConfig("t", "train", 16, 2),
+                 MeshConfig((1, 1), ("data", "model")),
+                 ParallelismConfig(compute_dtype="float32"),
+                 mesh=world_of_one)
+    params = st.init(seed=3, device="cpu", dtype_override=torch.bfloat16)
+    state = {"params": params, "opt": init_opt_state(params)}
+    state["opt"]["mu"] = tree_map(lambda t: t + 0.5, state["opt"]["mu"])
+    save_checkpoint(str(tmp_path), 4, state)
+    like = tree_map(lambda t: torch.empty_like(t, device=cuda), state)
+    back = load_checkpoint(str(tmp_path), 4, like,
+                           shardings=st.state_shardings())
+    for a, b in zip(tree_leaves(back), tree_leaves(state)):
+        assert a.device.type == "cuda" and a.dtype == b.dtype
+        assert torch.equal(a.cpu(), b)
+
+
+def test_mesh_trainer_on_a_world_of_one_is_the_meshless_trainer(
+        cuda, world_of_one, tmp_path):
+    """The mesh train step on the (1, 1) card mesh, under
+    ``grad_compression`` (not read on one rank): 3 ``Trainer`` steps with
+    a checkpoint after each give the meshless trainer's losses bit for
+    bit; the checkpoint, gathered to the writer and restored with the
+    mesh's shardings, equals the trained state bit for bit."""
+    from repro_torch.data.pipeline import LMDataConfig
+    from repro_torch.model.layers import tree_leaves
+    from repro_torch.model.lm import Stepper
+    from repro_torch.runtime import Trainer, TrainerConfig
+
+    cfg = get_config("yi-9b", smoke=True)
+    shape = ShapeConfig("t", "train", 16, 4)
+    par = ParallelismConfig(compute_dtype="float32", grad_compression=True)
+    dcfg = LMDataConfig(vocab_size=cfg.vocab_size, seq_len=16,
+                        global_batch=4)
+    losses, trainers = [], []
+    for k, mesh in enumerate((None, world_of_one)):
+        st = Stepper(cfg, shape, SMOKE_MESH, par, mesh=mesh)
+        tr = Trainer(st, dcfg, TrainerConfig(
+            total_steps=3, ckpt_every=1, ckpt_dir=str(tmp_path / str(k)),
+            log_every=1), device="cuda")
+        out = tr.train()
+        losses.append([r["loss"] for r in out["metrics"]])
+        trainers.append((tr, st, out["state"]))
+    assert losses[1] == losses[0]
+    tr, st, trained = trainers[1]
+    assert tr.is_writer
+    step, back = tr.resume_elastic(st, shardings=st.state_shardings())
+    assert step == 3
+    for a, b in zip(tree_leaves(back), tree_leaves(trained)):
+        assert a.device.type == "cuda" and torch.equal(a, b)

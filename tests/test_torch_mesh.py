@@ -217,11 +217,21 @@ def test_mesh_and_parallelism_configs_are_the_references():
         ttypes.ParallelismConfig)}
     j = {f.name: f.default for f in dataclasses.fields(
         jtypes.ParallelismConfig)}
-    assert {k: j[k] for k in t} == t
-    assert set(j) - set(t) == {"param_dtype", "grad_compression",
-                               "pipeline_stages"}
-    # the port's fields keep the reference's order
-    assert [k for k in j if k in t] == list(t)
+    # every field of the reference's, with its default, in its order
+    assert j == t
+    assert list(j) == list(t)
+
+
+@pytest.mark.parametrize("field, value", [("pipeline_stages", 4),
+                                          ("param_dtype", "bfloat16")])
+def test_unread_parallelism_fields_take_only_their_default(field, value):
+    """The reference's ``pipeline_stages`` and ``param_dtype``, which
+    nothing reads, are carried for parity and cannot be set."""
+    with pytest.raises(NotImplementedError, match=field):
+        ttypes.ParallelismConfig(**{field: value})
+    jtypes.ParallelismConfig(**{field: value})       # the reference's takes it
+    assert getattr(ttypes.ParallelismConfig(), field) == getattr(
+        jtypes.ParallelismConfig(), field)
 
 
 @pytest.mark.parametrize("arch", ["elastic-lstm", "elastic-conv1d"])

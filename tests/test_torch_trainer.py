@@ -312,9 +312,14 @@ def test_launcher_on_the_cpu(tmp_path):
 
 
 def test_launcher_refuses_a_mesh():
-    for flag in ("--production", "--multi-pod"):
-        with pytest.raises(NotImplementedError, match="multi-GPU slice"):
-            tlaunch.main(["--arch", "yi-9b", flag, "--device", "cpu"])
+    """``--production`` (with ``--multi-pod``) builds the production mesh,
+    which needs a process group of 256 (512) ranks: without one it raises
+    ``make_production_mesh``'s RuntimeError, as the reference's launcher
+    raises without 256 (512) devices."""
+    for flags, n in ((["--production"], 256),
+                     (["--production", "--multi-pod"], 512)):
+        with pytest.raises(RuntimeError, match=f"needs {n} ranks"):
+            tlaunch.main(["--arch", "yi-9b", *flags, "--device", "cpu"])
 
 
 def test_no_device_means_cuda(tmp_path, monkeypatch):

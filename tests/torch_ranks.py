@@ -1,0 +1,813 @@
+"""The multi-rank jobs of the collectives' parity tests (not a test
+module): ``tests/test_torch_shardmap.py``, ``test_torch_compress.py``,
+``test_torch_moe_ep.py`` and ``test_torch_elastic.py``.
+
+The port runs as N ``gloo`` ranks under ``torch.multiprocessing`` (each
+with one thread, the process group initialised from a file in the job's
+directory); the reference runs in one process with 8 forced host devices
+(``--xla_force_host_platform_device_count=8``, ``JAX_PLATFORMS=cpu``), as
+``tests/test_multidevice.py`` runs it: the test process keeps seeing one
+device, and ``repro.shardmap`` imports outside pytest's warning filter.
+Each job writes a pickle of numpy arrays; the reference's runs first, and
+the port's reads its inputs (the reference's parameters among them).
+
+    python tests/torch_ranks.py ref JOB OUTDIR
+    python tests/torch_ranks.py port JOB WORLD OUTDIR
+"""
+from __future__ import annotations
+
+import dataclasses
+import os
+import pickle
+import signal
+import subprocess
+import sys
+import tempfile
+
+import numpy as np
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SRC = os.path.join(ROOT, "src")
+
+# ---------------------------------------------------------------------------
+# Launchers (called by the tests)
+# ---------------------------------------------------------------------------
+
+
+def _run(args, env, timeout: int) -> None:
+    p = subprocess.Popen([sys.executable, os.path.abspath(__file__), *args],
+                         stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                         text=True, env=env, start_new_session=True)
+    try:
+        out, err = p.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        os.killpg(p.pid, signal.SIGKILL)
+        out, err = p.communicate()
+        raise AssertionError(f"{args[:2]} timed out after {timeout} s\n"
+                             f"STDOUT:\n{out[-4000:]}\nSTDERR:\n"
+                             f"{err[-4000:]}")
+    assert p.returncode == 0, (f"{args[:2]} exited {p.returncode}\nSTDOUT:\n"
+                               f"{out[-4000:]}\nSTDERR:\n{err[-8000:]}")
+
+
+def _env(**extra) -> dict:
+    env = dict(os.environ)
+    env["PYTHONPATH"] = SRC + os.pathsep + env.get("PYTHONPATH", "")
+    env.update(extra)
+    return env
+
+
+def run_ref(job: str, outdir: str, timeout: int = 300) -> dict:
+    _run(["ref", job, outdir], _env(
+        XLA_FLAGS="--xla_force_host_platform_device_count=8",
+        JAX_PLATFORMS="cpu", OMP_NUM_THREADS="1"), timeout)
+    with open(os.path.join(outdir, f"ref_{job}.pkl"), "rb") as f:
+        return pickle.load(f)
+
+
+def run_port(job: str, world: int, outdir: str, timeout: int = 300) -> list:
+    """Every rank's result, by rank."""
+    _run(["port", job, str(world), outdir], _env(OMP_NUM_THREADS="1"),
+         timeout)
+    out = []
+    for r in range(world):
+        with open(os.path.join(outdir, f"port_{job}_{world}_{r}.pkl"),
+                  "rb") as f:
+            out.append(pickle.load(f))
+    return out
+
+
+def _dump(obj, path: str) -> None:
+    with open(path + ".tmp", "wb") as f:
+        pickle.dump(obj, f)
+    os.replace(path + ".tmp", path)
+
+
+def _load(path: str):
+    with open(path, "rb") as f:
+        return pickle.load(f)
+
+
+def _np(t) -> np.ndarray:
+    import torch
+
+    if torch.is_tensor(t):
+        return t.detach().cpu().numpy()
+    return np.asarray(t)
+
+
+def _rng(key: int):
+    return np.random.default_rng(key)
+
+
+# ---------------------------------------------------------------------------
+# shardmap: the helper's collectives and their gradients
+# ---------------------------------------------------------------------------
+
+MESHES = ((2, 2), (2, 4))
+
+
+class _JaxOps:
+    def __init__(self):
+        import jax
+        import jax.numpy as jnp
+
+        self.lax, self.np = jax.lax, jnp
+
+    def psum(self, x, a):
+        return self.lax.psum(x, a)
+
+    def pmean(self, x, a):
+        return self.lax.pmean(x, a)
+
+    def idx(self, a):
+        return self.lax.axis_index(a)
+
+    def gather(self, x, a, dim, tiled):
+        return self.lax.all_gather(x, a, axis=dim, tiled=tiled)
+
+    def a2a(self, x, a):
+        return self.lax.all_to_all(x, a, 0, 0, tiled=False)
+
+    def perm(self, x, a, p):
+        return self.lax.ppermute(x, a, p)
+
+    def sin(self, x):
+        return self.np.sin(x)
+
+    def rowsum(self, x):
+        return self.np.sum(x, axis=-1, keepdims=True)
+
+
+class _TorchOps:
+    def __init__(self):
+        import torch
+
+        from repro_torch import shardmap as sm
+
+        self.sm, self.torch = sm, torch
+
+    def psum(self, x, a):
+        return self.sm.psum(x, a)
+
+    def pmean(self, x, a):
+        return self.sm.pmean(x, a)
+
+    def idx(self, a):
+        return self.sm.axis_index(a)
+
+    def gather(self, x, a, dim, tiled):
+        return self.sm.all_gather(x, a, axis=dim, tiled=tiled)
+
+    def a2a(self, x, a):
+        return self.sm.all_to_all(x, a, 0, 0, tiled=False)
+
+    def perm(self, x, a, p):
+        return self.sm.ppermute(x, a, p)
+
+    def sin(self, x):
+        return self.torch.sin(x)
+
+    def rowsum(self, x):
+        return x.sum(-1, keepdim=True)
+
+
+def _cases(P, shape):
+    """name -> (in_specs, out_specs, body(ops, tp) -> fn, input shapes,
+    axis_names, check_vma). ``shape`` is the (data, model) mesh."""
+    dp, tp = shape
+    n = dp * tp
+    return {
+        # the [3, 3] case: a P() operand, its cotangent summed over model
+        "psum_index": ((P(),), P(),
+                       lambda o: lambda x: o.psum(x * (1 + o.idx("model")),
+                                                  "model"),
+                       [None], None, None),
+        "matmul": ((P("data", None), P(None, "model")),
+                   (P("data", "model"), P("data", None)),
+                   lambda o: lambda x, w: (
+                       x @ w, o.psum(o.rowsum(o.sin(x @ w)), "model")),
+                   [(4 * dp, 6), (6, 2 * tp)], None, None),
+        "gather_tiled": ((P("model", None),), P(),
+                         lambda o: lambda x: o.gather(
+                             x * (1 + o.idx("model")), "model", 0, True),
+                         [(2 * tp, 3)], None, False),
+        "gather_stacked": ((P(None, "model"),), P(),
+                           lambda o: lambda x: o.gather(
+                               o.sin(x), "model", 1, False),
+                           [(3, 2 * tp)], None, False),
+        "all_to_all": ((P("model", None, None),), P("model", None, None),
+                       lambda o: lambda x: o.a2a(
+                           x * (1 + o.idx("model")), "model"),
+                       [(tp * tp, 3, 2)], None, None),
+        "ppermute": ((P("model", None),), P("model", None),
+                     lambda o: lambda x: o.perm(
+                         x * x, "model", [(i, (i + 1) % tp)
+                                          for i in range(tp)]),
+                     [(2 * tp, 3)], None, None),
+        "pmean_pair": ((P(("data", "model"), None),),
+                       (P(), P(("data", "model"), None)),
+                       lambda o: lambda x: (
+                           o.pmean(o.sin(x), ("data", "model")),
+                           x * 0 + o.idx(("data", "model"))),
+                       [(2 * n, 3)], None, None),
+        # manual over "data" only: "model" stays as the caller holds it
+        "data_only": ((P("data", None), P()), P(),
+                      lambda o: lambda x, w: o.psum(x @ w, "data"),
+                      [(2 * dp, 3), (3, 4)], {"data"}, None),
+    }
+
+
+def _inputs(name, shapes, key):
+    if name == "psum_index":
+        return [np.array([1.0, 2.0], np.float32)]
+    rng = _rng(key)
+    return [rng.standard_normal(s).astype(np.float32) for s in shapes]
+
+
+def _cots(outs, key):
+    if key == 0:                       # psum_index: the plain sum
+        return [np.ones(np.shape(o), np.float32) for o in outs]
+    rng = _rng(1000 + key)
+    return [rng.standard_normal(np.shape(o)).astype(np.float32)
+            for o in outs]
+
+
+def ref_shardmap(outdir):
+    import jax
+    import jax.numpy as jnp
+    from jax.sharding import Mesh
+    from jax.sharding import PartitionSpec as P
+
+    from repro.shardmap import shard_map
+
+    ops, res = _JaxOps(), {}
+    for shape in MESHES:
+        mesh = Mesh(np.asarray(jax.devices()[:shape[0] * shape[1]]).reshape(
+            shape), ("data", "model"))
+        for k, (name, (ins, outs, body, shapes, axes, vma)) in enumerate(
+                _cases(P, shape).items()):
+            f = shard_map(body(ops), mesh=mesh, in_specs=ins, out_specs=outs,
+                          axis_names=axes, check_vma=vma)
+            xs = [jnp.asarray(a) for a in _inputs(name, shapes, k)]
+            with mesh:
+                y = jax.jit(f)(*xs)
+                ys = list(y) if isinstance(y, tuple) else [y]
+                cs = [jnp.asarray(c) for c in _cots(ys, k)]
+
+                def loss(*a):
+                    o = f(*a)
+                    o = list(o) if isinstance(o, tuple) else [o]
+                    return sum(jnp.sum(oi * ci) for oi, ci in zip(o, cs))
+
+                g = jax.jit(jax.grad(loss, argnums=tuple(range(len(xs)))))(
+                    *xs)
+            res[f"{shape}/{name}"] = {"inputs": [np.asarray(a) for a in xs],
+                                      "outs": [np.asarray(a) for a in ys],
+                                      "grads": [np.asarray(a) for a in g]}
+    _dump(res, os.path.join(outdir, "ref_shardmap.pkl"))
+
+
+def port_shardmap(rank, world, outdir):
+    import torch
+
+    from repro_torch import shardmap as sm
+    from repro_torch.launch.mesh import make_smoke_mesh
+    from repro_torch.shardmap import P
+
+    ref = _load(os.path.join(outdir, "ref_shardmap.pkl"))
+    ops, res = _TorchOps(), {}
+    for shape in MESHES:
+        if shape[0] * shape[1] != world:
+            continue
+        mesh = make_smoke_mesh(shape, device_type="cpu")
+        for k, (name, (ins, outs, body, shapes, axes, _)) in enumerate(
+                _cases(P, shape).items()):
+            f = sm.shard_map(body(ops), mesh=mesh, in_specs=ins,
+                             out_specs=outs, axis_names=axes)
+            xs = [torch.tensor(a, requires_grad=True)
+                  for a in ref[f"{shape}/{name}"]["inputs"]]
+            sm.reset_wire_bytes()
+            y = f(*xs)
+            ys = list(y) if isinstance(y, tuple) else [y]
+            cs = [torch.tensor(c) for c in _cots(
+                [o.detach().numpy() for o in ys], k)]
+            sum((o * c).sum() for o, c in zip(ys, cs)).backward()
+            res[f"{shape}/{name}"] = {
+                "outs": [_np(o) for o in ys], "grads": [_np(x.grad)
+                                                         for x in xs],
+                "wire": dict(sm.wire_bytes)}
+        if shape == (2, 2):
+            res["dtensor"] = _dtensor_case(mesh, ref)
+            res["dist_nn"] = _dist_nn_case(mesh)
+    _dump(res, os.path.join(outdir, f"port_shardmap_{world}_{rank}.pkl"))
+
+
+def _dtensor_case(mesh, ref):
+    """``matmul`` with ``w`` a DTensor (its model-split placement): the
+    plain tensors' outputs, and its gradient placed as ``w``'s."""
+    import torch
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+
+    from repro_torch import shardmap as sm
+    from repro_torch.shardmap import P
+
+    ins, outs, body, _, _, _ = _cases(P, (2, 2))["matmul"]
+    x, w = (torch.tensor(a) for a in ref["(2, 2)/matmul"]["inputs"])
+    wd = distribute_tensor(w, mesh, [Replicate(), Shard(1)])
+    wd.requires_grad_(True)
+    f = sm.shard_map(body(_TorchOps()), mesh=mesh, in_specs=ins,
+                     out_specs=outs)
+    y = f(x, wd)
+    cs = [torch.tensor(c) for c in _cots(
+        [o.detach().numpy() for o in y], 1)]
+    sum((o * c).sum() for o, c in zip(y, cs)).backward()
+    return {"outs": [_np(o) for o in y],
+            "w_grad": _np(wd.grad.full_tensor())}
+
+
+def _dist_nn_case(mesh):
+    """``torch.distributed.nn``'s all-reduce over ``"model"`` of 2: the
+    gradient of ``sum(all_reduce(y))`` it gives (2, where the region's
+    rules give 1)."""
+    import torch
+    from torch.distributed.nn.functional import all_reduce
+
+    y = torch.ones(2, requires_grad=True)
+    all_reduce(y * 1.0, group=mesh.get_group("model")).sum().backward()
+    return _np(y.grad)
+
+
+# ---------------------------------------------------------------------------
+# compress: the int8 all-reduces on 8 ranks, and the compressed trainer
+# ---------------------------------------------------------------------------
+
+VEC = 1000
+WIRE = 1 << 16
+TRAIN_STEPS = 15
+
+
+def _compress_inputs():
+    rng = _rng(7)
+    x = rng.standard_normal((8, VEC)).astype(np.float32)
+    tree = {"a": rng.standard_normal((8, 12, 5)).astype(np.float32),
+            "b": rng.standard_normal((8, 33)).astype(np.float32)}
+    ef = (0.01 * rng.standard_normal((8, 12 * 5 + 33))).astype(np.float32)
+    return x, tree, ef
+
+
+def ref_compress(outdir):
+    import jax
+    import jax.numpy as jnp
+    from jax.sharding import Mesh
+    from jax.sharding import PartitionSpec as P
+
+    from repro.energy.roofline import parse_collectives
+    from repro.optim import compress as C
+    from repro.shardmap import shard_map
+
+    mesh = Mesh(np.asarray(jax.devices()).reshape(8), ("data",))
+    x, tree, ef = _compress_inputs()
+
+    def body(x, a, b, e):
+        x, a, b, e = x[0], a[0], b[0], e[0]
+        q, sc = C._quant(x)
+        (ta, tb), new_ef = C.compressed_psum_tree((a, b), "data", e)
+        return tuple(v[None] for v in (
+            jax.lax.psum(x, "data"), C.compressed_psum_vec(x, "data"),
+            C.compressed_psum_butterfly(x, "data"),
+            C.compressed_psum_local_quant(x, "data"), q, sc, ta, tb,
+            new_ef))
+
+    f = shard_map(body, mesh=mesh, in_specs=P("data"), out_specs=P("data"),
+                  axis_names={"data"}, check_vma=False)
+    with mesh:
+        outs = jax.jit(f)(jnp.asarray(x), jnp.asarray(tree["a"]),
+                          jnp.asarray(tree["b"]), jnp.asarray(ef))
+    names = ("exact", "ring", "butterfly", "local_quant", "q", "scale",
+             "tree_a", "tree_b", "new_ef")
+    res = {k: np.asarray(v) for k, v in zip(names, outs)}
+
+    f32 = shard_map(lambda v: jax.lax.psum(v, "data"), mesh=mesh,
+                    in_specs=P("data"), out_specs=P(),
+                    axis_names={"data"}, check_vma=False)
+    cmp = shard_map(lambda v: C.compressed_psum_vec(v, "data"), mesh=mesh,
+                    in_specs=P("data"), out_specs=P(),
+                    axis_names={"data"}, check_vma=False)
+    sds = jax.ShapeDtypeStruct((8 * WIRE,), jnp.float32)
+    with mesh:
+        res["wire_f32"] = parse_collectives(
+            jax.jit(f32).lower(sds).compile().as_text(), 8).total_wire_bytes
+        res["wire_int8"] = parse_collectives(
+            jax.jit(cmp).lower(sds).compile().as_text(), 8).total_wire_bytes
+    res.update(_ref_compressed_trainer())
+    _dump(res, os.path.join(outdir, "ref_compress.pkl"))
+
+
+def _ref_compressed_trainer():
+    import jax
+    from jax.sharding import Mesh
+
+    from repro.configs import get_config
+    from repro.core.types import MeshConfig, ParallelismConfig, ShapeConfig
+    from repro.data.pipeline import LMDataConfig, lm_batch_for_step
+    from repro.model.lm import Stepper
+
+    cfg = get_config("yi-9b", smoke=True)
+    mcfg = MeshConfig((4, 2), ("data", "model"))
+    mesh = Mesh(np.asarray(jax.devices()).reshape(4, 2), ("data", "model"))
+    par = ParallelismConfig(compute_dtype="float32", grad_compression=True)
+    st = Stepper(cfg, ShapeConfig("t", "train", 32, 8), mcfg, par, mesh=mesh)
+    params, opt = st.init()
+    init = jax.tree.map(np.asarray, params)
+    dcfg = LMDataConfig(vocab_size=cfg.vocab_size, seq_len=32,
+                        global_batch=8)
+    losses = []
+    with mesh:
+        step = jax.jit(st.train_fn())
+        batch = lm_batch_for_step(dcfg, 0)
+        for _ in range(TRAIN_STEPS):
+            params, opt, m = step(params, opt, batch)
+            losses.append(float(m["loss"]))
+    return {"train_init": init, "train_losses": np.asarray(losses)}
+
+
+def port_compress(rank, world, outdir):
+    import torch
+
+    from repro_torch import shardmap as sm
+    from repro_torch.launch.mesh import make_smoke_mesh
+    from repro_torch.optim import compress as C
+    from repro_torch.shardmap import P
+
+    mesh = make_smoke_mesh((8,), ("data",), device_type="cpu")
+    x, tree, ef = (_compress_inputs())
+    res = {}
+
+    def body(x, a, b, e):
+        x, a, b, e = x[0], a[0], b[0], e[0]
+        q, sc = C._quant(x)
+        (ta, tb), new_ef = C.compressed_psum_tree((a, b), "data", e)
+        return tuple(v[None] for v in (
+            sm.psum(x, "data"), C.compressed_psum_vec(x, "data"),
+            C.compressed_psum_butterfly(x, "data"),
+            C.compressed_psum_local_quant(x, "data"), q, sc, ta, tb,
+            new_ef))
+
+    f = sm.shard_map(body, mesh=mesh, in_specs=P("data"),
+                     out_specs=P("data"), axis_names={"data"})
+    outs = f(*(torch.tensor(v) for v in (x, tree["a"], tree["b"], ef)))
+    names = ("exact", "ring", "butterfly", "local_quant", "q", "scale",
+             "tree_a", "tree_b", "new_ef")
+    res.update({k: _np(v) for k, v in zip(names, outs)})
+
+    v = torch.tensor(_rng(8).standard_normal(8 * WIRE).astype(np.float32))
+    for key, fn in (("wire_f32", lambda t: sm.psum(t, "data")),
+                    ("wire_int8", lambda t: C.compressed_psum_vec(t,
+                                                                  "data"))):
+        g = sm.shard_map(fn, mesh=mesh, in_specs=P("data"), out_specs=P(),
+                         axis_names={"data"})
+        sm.reset_wire_bytes()
+        g(v)
+        res[key] = sum(sm.wire_bytes.values())
+    res.update(_port_compressed_trainer(outdir))
+    res["production"] = _production_refuses()
+    _dump(res, os.path.join(outdir, f"port_compress_{world}_{rank}.pkl"))
+
+
+def _port_compressed_trainer(outdir):
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.convert import params_from_jax, to_torch
+    from repro_torch.core.types import (MeshConfig, ParallelismConfig,
+                                        ShapeConfig)
+    from repro_torch.data.pipeline import LMDataConfig, lm_batch_for_step
+    from repro_torch.launch.mesh import make_smoke_mesh
+    from repro_torch.model.layers import local_blocks
+    from repro_torch.model.lm import Stepper
+    from repro_torch.optim.adamw import init_opt_state
+
+    ref = _load(os.path.join(outdir, "ref_compress.pkl"))
+    cfg = get_config("yi-9b", smoke=True)
+    mcfg = MeshConfig((4, 2), ("data", "model"))
+    mesh = make_smoke_mesh((4, 2), device_type="cpu")
+    par = ParallelismConfig(compute_dtype="float32", grad_compression=True)
+    st = Stepper(cfg, ShapeConfig("t", "train", 32, 8), mcfg, par, mesh=mesh)
+    params = to_torch(params_from_jax(ref["train_init"], cfg), "cpu")
+    sh = st.state_shardings()
+    state = local_blocks({"params": params, "opt": init_opt_state(params)},
+                         sh)
+    params, opt = state["params"], state["opt"]
+    dcfg = LMDataConfig(vocab_size=cfg.vocab_size, seq_len=32,
+                        global_batch=8)
+    batch = {k: torch.as_tensor(v)
+             for k, v in lm_batch_for_step(dcfg, 0).items()}
+    step = st.train_fn()
+    losses = []
+    for _ in range(TRAIN_STEPS):
+        params, opt, m = step(params, opt, batch)
+        losses.append(float(m["loss"]))
+    return {"train_losses": np.asarray(losses)}
+
+
+def _production_refuses():
+    """``launch/train.py --production``'s error in this world of 8."""
+    from repro_torch.launch import train as tlaunch
+
+    for flags in (["--production"], ["--production", "--multi-pod"]):
+        try:
+            tlaunch.main(["--arch", "yi-9b", *flags, "--device", "cpu"])
+        except RuntimeError as e:
+            msg = str(e)
+        else:
+            return "did not raise"
+    return msg
+
+
+# ---------------------------------------------------------------------------
+# moe_ep: moe_psum / moe_a2a on a (2, 4) mesh
+# ---------------------------------------------------------------------------
+
+CAPS = (8.0, 1.25)
+MOE_IMPLS = ("dense", "psum", "a2a")
+
+
+def _moe_x(d):
+    return _rng(11).standard_normal((4, 8, d)).astype(np.float32)
+
+
+def _moe_cots(d):
+    rng = _rng(12)
+    return (rng.standard_normal((4, 8, d)).astype(np.float32),
+            np.float32(3.0))
+
+
+def ref_moe_ep(outdir):
+    import jax
+    import jax.numpy as jnp
+    from jax.sharding import Mesh
+
+    from repro.configs import get_config
+    from repro.core.types import MeshConfig, ParallelismConfig
+    from repro.model import moe
+    from repro.model.layers import Ctx, init_params
+
+    cfg0 = get_config("qwen3-moe-30b-a3b", smoke=True)
+    mcfg = MeshConfig((2, 4), ("data", "model"))
+    mesh = Mesh(np.asarray(jax.devices()).reshape(2, 4), ("data", "model"))
+    par = ParallelismConfig(compute_dtype="float32")
+    params = init_params(moe.moe_schema(cfg0, tp=4), jax.random.PRNGKey(0))
+    x = jnp.asarray(_moe_x(cfg0.d_model))
+    cy, ca = (jnp.asarray(c) for c in _moe_cots(cfg0.d_model))
+    res = {"params": jax.tree.map(np.asarray, params), "x": np.asarray(x)}
+    for cap in CAPS:
+        cfg = dataclasses.replace(cfg0, moe=dataclasses.replace(
+            cfg0.moe, capacity_factor=cap))
+        for impl in MOE_IMPLS:
+            fn = moe.IMPLS[impl]
+
+            def loss(p, xx):
+                ctx = Ctx(cfg=cfg, mesh_cfg=mcfg, mode="train", mesh=mesh,
+                          par=par)
+                y, aux = fn(p, xx, cfg, ctx)
+                return jnp.sum(y * cy) + aux * ca, (y, aux)
+
+            with mesh:
+                (_, (y, aux)), (gp, gx) = jax.jit(jax.value_and_grad(
+                    loss, argnums=(0, 1), has_aux=True))(params, x)
+            res[f"{cap}/{impl}"] = {
+                "y": np.asarray(y), "aux": float(aux), "gx": np.asarray(gx),
+                "gp": jax.tree.map(np.asarray, gp)}
+    _dump(res, os.path.join(outdir, "ref_moe_ep.pkl"))
+
+
+def port_moe_ep(rank, world, outdir):
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.types import MeshConfig, ParallelismConfig
+    from repro_torch.launch.mesh import make_smoke_mesh
+    from repro_torch.model import moe
+    from repro_torch.model.layers import Ctx, tree_map
+
+    ref = _load(os.path.join(outdir, "ref_moe_ep.pkl"))
+    cfg0 = get_config("qwen3-moe-30b-a3b", smoke=True)
+    mcfg = MeshConfig((2, 4), ("data", "model"))
+    mesh = make_smoke_mesh((2, 4), device_type="cpu")
+    par = ParallelismConfig(compute_dtype="float32")
+    cy, ca = (torch.tensor(c) for c in _moe_cots(cfg0.d_model))
+    res = {}
+    for cap in CAPS:
+        cfg = cfg0.with_(moe=dataclasses.replace(cfg0.moe,
+                                                 capacity_factor=cap))
+        for impl in MOE_IMPLS:
+            # with the aux loss, and (at the no-drop capacity) without it:
+            # the impls' aux losses are different estimators
+            for key, w_aux in ((f"{cap}/{impl}", ca),
+                               (f"{cap}/{impl}/y", 0.0)):
+                if key.endswith("/y") and cap != CAPS[0]:
+                    continue
+                p = tree_map(lambda a: torch.tensor(a, requires_grad=True),
+                             ref["params"])
+                x = torch.tensor(ref["x"], requires_grad=True)
+                ctx = Ctx(cfg=cfg, mesh_cfg=mcfg, mode="train", mesh=mesh,
+                          par=par)
+                y, aux = moe.IMPLS[impl](p, x, cfg, ctx)
+                (torch.sum(y * cy) + aux * w_aux).backward()
+                res[key] = {
+                    "y": _np(y), "aux": float(aux.detach()),
+                    "gx": _np(x.grad),
+                    "gp": tree_map(lambda t: _np(t.grad), p)}
+    res.update(_moe_train_steps(mesh, mcfg))
+    _dump(res, os.path.join(outdir, f"port_moe_ep_{world}_{rank}.pkl"))
+
+
+def _moe_train_steps(mesh, mcfg):
+    """One mesh train step (ZeRO-1, the experts local, the dense leaves
+    gathered) against the meshless step from the same parameters and
+    batch, for each EP impl at a no-drop capacity with no aux loss (the
+    two then compute one function): loss, global norm and the updated
+    parameters, gathered whole on rank 0."""
+    import torch
+
+    from repro_torch.checkpoint.ckpt import gather_tree
+    from repro_torch.configs import get_config
+    from repro_torch.core.types import (SMOKE_MESH, ParallelismConfig,
+                                        ShapeConfig)
+    from repro_torch.data.pipeline import LMDataConfig, lm_batch_for_step
+    from repro_torch.model.layers import local_blocks, tree_leaves
+    from repro_torch.model.lm import Stepper
+    from repro_torch.optim.adamw import init_opt_state
+
+    out = {}
+    cfg0 = get_config("qwen3-moe-30b-a3b", smoke=True)
+    shape = ShapeConfig("t", "train", 8, 4)
+    batch = {k: torch.as_tensor(v) for k, v in lm_batch_for_step(
+        LMDataConfig(vocab_size=cfg0.vocab_size, seq_len=8,
+                     global_batch=4), 0).items()}
+    for impl in ("psum", "a2a"):
+        cfg = cfg0.with_(moe=dataclasses.replace(
+            cfg0.moe, impl=impl, capacity_factor=8.0, aux_loss_coef=0.0))
+        par = ParallelismConfig(compute_dtype="float32")
+        st0 = Stepper(cfg, shape, SMOKE_MESH, par)
+        st1 = Stepper(cfg, shape, mcfg, par, mesh=mesh)
+        params = st0.init(seed=1, device="cpu")
+        p0, _, m0 = st0.train_fn()(params, init_opt_state(params), batch)
+        sh = st1.state_shardings()
+        state = local_blocks({"params": params,
+                              "opt": init_opt_state(params)}, sh)
+        p1, _, m1 = st1.train_fn()(state["params"], state["opt"], batch)
+        whole = gather_tree(p1, sh["params"], mesh)     # rank 0's alone
+        out[f"train/{impl}"] = {
+            "loss": (float(m0["loss"]), float(m1["loss"])),
+            "gnorm": (float(m0["gnorm"]), float(m1["gnorm"])),
+            "params": None if whole is None else [
+                (_np(a), _np(b)) for a, b in zip(tree_leaves(p0),
+                                                 tree_leaves(whole))]}
+    return out
+
+
+# ---------------------------------------------------------------------------
+# elastic: train on (4, 2), resume on (2, 4)
+# ---------------------------------------------------------------------------
+
+E_S, E_B, E_STEPS = 16, 8, 12
+
+
+def ref_elastic(outdir):
+    import jax
+    from jax.sharding import Mesh
+
+    from repro.configs import get_config
+    from repro.core.types import MeshConfig, ParallelismConfig, ShapeConfig
+    from repro.data.pipeline import LMDataConfig, lm_batch_for_step
+    from repro.model.lm import Stepper
+    from repro.runtime.trainer import Trainer, TrainerConfig
+
+    cfg = get_config("yi-9b", smoke=True)
+    par = ParallelismConfig(compute_dtype="float32")
+    dcfg = LMDataConfig(vocab_size=cfg.vocab_size, seq_len=E_S,
+                        global_batch=E_B)
+    td = os.path.join(outdir, "ref_ckpt")
+    mcfg1 = MeshConfig((4, 2), ("data", "model"))
+    mesh1 = Mesh(np.asarray(jax.devices()).reshape(4, 2), ("data", "model"))
+    st1 = Stepper(cfg, ShapeConfig("t", "train", E_S, E_B), mcfg1, par,
+                  mesh=mesh1)
+    init = jax.tree.map(np.asarray, st1.init()[0])
+    tr1 = Trainer(st1, dcfg, TrainerConfig(total_steps=E_STEPS,
+                                           ckpt_every=5, ckpt_dir=td,
+                                           log_every=1))
+    with mesh1:
+        out1 = tr1.train()
+    mcfg2 = MeshConfig((2, 4), ("data", "model"))
+    mesh2 = Mesh(np.asarray(jax.devices()).reshape(2, 4), ("data", "model"))
+    st2 = Stepper(cfg, ShapeConfig("t", "train", E_S, E_B), mcfg2, par,
+                  mesh=mesh2)
+    step, state = tr1.resume_elastic(st2)
+    with mesh2:
+        _, _, m = jax.jit(st2.train_fn())(state["params"], state["opt"],
+                                          lm_batch_for_step(dcfg, step))
+    _dump({"init": init,
+           "losses": np.asarray([r["loss"] for r in out1["metrics"]]),
+           "resume_step": step, "next_loss": float(m["loss"])},
+          os.path.join(outdir, "ref_elastic.pkl"))
+
+
+def port_elastic(rank, world, outdir):
+    import torch
+
+    from repro_torch.checkpoint.ckpt import _items
+    from repro_torch.configs import get_config
+    from repro_torch.convert import params_from_jax, to_torch
+    from repro_torch.core.types import (MeshConfig, ParallelismConfig,
+                                        ShapeConfig)
+    from repro_torch.data.pipeline import LMDataConfig, lm_batch_for_step
+    from repro_torch.launch.mesh import make_smoke_mesh
+    from repro_torch.model.lm import Stepper
+    from repro_torch.runtime.trainer import Trainer, TrainerConfig
+
+    ref = _load(os.path.join(outdir, "ref_elastic.pkl"))
+    cfg = get_config("yi-9b", smoke=True)
+    par = ParallelismConfig(compute_dtype="float32")
+    dcfg = LMDataConfig(vocab_size=cfg.vocab_size, seq_len=E_S,
+                        global_batch=E_B)
+    td = os.path.join(outdir, "port_ckpt")
+    init = params_from_jax(ref["init"], cfg)
+    shape = ShapeConfig("t", "train", E_S, E_B)
+    st1 = Stepper(cfg, shape, MeshConfig((4, 2), ("data", "model")), par,
+                  mesh=make_smoke_mesh((4, 2), device_type="cpu"))
+    st1.init = lambda *a, **k: to_torch(init, "cpu")
+    tr1 = Trainer(st1, dcfg, TrainerConfig(total_steps=E_STEPS, ckpt_every=5,
+                                           ckpt_dir=td, log_every=1),
+                  device="cpu")
+    out1 = tr1.train()
+    st2 = Stepper(cfg, shape, MeshConfig((2, 4), ("data", "model")), par,
+                  mesh=make_smoke_mesh((2, 4), device_type="cpu"))
+    st2.init = lambda *a, **k: to_torch(init, "cpu")
+    step, state = tr1.resume_elastic(st2)
+    # each rank's leaves against its slices of the saved arrays
+    sh = st2.state_shardings()
+    with np.load(os.path.join(td, f"step_{step - 1:08d}", "arrays.npz")) as z:
+        saved = {k: z[k] for k in z.files}
+    from repro_torch.checkpoint.ckpt import _sharding_items
+
+    shard_of = dict(_sharding_items(state, sh))
+    mismatched = []
+    for key, leaf in _items(state):
+        shp, off = shard_of[key].local_shape_and_offset(saved[key].shape)
+        want = saved[key][tuple(slice(o, o + n) for o, n in zip(off, shp))]
+        if not np.array_equal(_np(leaf), want):
+            mismatched.append(key)
+    batch = {k: torch.as_tensor(v)
+             for k, v in lm_batch_for_step(dcfg, step).items()}
+    _, _, m = st2.train_fn()(state["params"], state["opt"], batch)
+    _dump({"losses": np.asarray([r["loss"] for r in out1["metrics"]]),
+           "resume_step": step, "next_loss": float(m["loss"]),
+           "mismatched": mismatched, "n_leaves": len(shard_of),
+           "ckpt_dir": td, "writer": tr1.is_writer},
+          os.path.join(outdir, f"port_elastic_{world}_{rank}.pkl"))
+
+
+# ---------------------------------------------------------------------------
+# Entry
+# ---------------------------------------------------------------------------
+
+
+def _rank_main(rank, world, job, outdir, store):
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method="file://" + store,
+                            rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=120))
+    try:
+        globals()[f"port_{job}"](rank, world, outdir)
+    finally:
+        dist.destroy_process_group()
+
+
+def main(argv) -> int:
+    side, job = argv[0], argv[1]
+    if side == "ref":
+        sys.path.insert(0, SRC)
+        globals()[f"ref_{job}"](argv[2])
+        return 0
+    import torch.multiprocessing as mp
+
+    world, outdir = int(argv[2]), argv[3]
+    # a fresh store file each run: a stale one would join an old group
+    store = os.path.join(tempfile.mkdtemp(dir=outdir), "pg")
+    mp.spawn(_rank_main, args=(world, job, outdir, store), nprocs=world)
+    return 0
+
+
+def tempdir() -> str:
+    return tempfile.mkdtemp(prefix="torch_ranks_")
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))
