@@ -321,6 +321,23 @@ phase 20's DeepSeek-MoE-16B weights, before they are freed):
     every leaf bit for bit, and the next step's loss equals the meshless
     resume's;
 
+The ``"model"`` split at tp = 2 on the one card (two processes in a
+gloo group; NCCL puts no two ranks on one card):
+
+24. Yi-9B at full width and 4 of 48 layers in f32, random weights from
+    one seed drawn on the card: first with no mesh, ``Server``'s greedy
+    tokens for 2 prompts of 256 tokens and 8 new ones, one bf16 prefill,
+    and one train step (2 x 512 tokens); then the two processes pass
+    CUDA tensors to all-reduce, all-gather, reduce-scatter and the
+    functional all-reduce ``DTensor`` uses, printing each outcome, and if
+    the ones the split step calls run, each takes its 16 q heads, half of
+    ``d_ff`` and half of the vocabulary on the (1, 2) mesh:
+    ``Server(mesh=)``'s tokens identical, the loss within 1e-5
+    (relative), B5 on 16 q heads a launch (``simt`` in f32, ``sm90`` in
+    the bf16 prefill) as often as with no mesh; each rank's peak memory
+    beside the one process's. If one of them raises, the phase names it
+    and runs the split step on a world of one instead.
+
 Then print the kernels line (B1's and B2's rows also carry the loop's
     launches, ``workflow_launches``, the farm's, ``farm_launches``, one
     multi-design replay's of each design, ``multi_launches``, and phase
@@ -330,8 +347,9 @@ Then print the kernels line (B1's and B2's rows also carry the loop's
     arch, ``families_launches``, and phase 23's by impl,
     ``collectives_launches``; B6's and B7's phase 21's,
     ``families_launches``; B5's, B6's and B7's one scanned prefill's by
-    arch and B5's two scanned training steps', ``scan_launches``) and the
-    card's name and power limit.
+    arch and B5's two scanned training steps', ``scan_launches``; B5's
+    phase 24 runs' by variant, ``tp_launches``) and the card's name and
+    power limit.
 
 Usage, from the repository root: ``python3 chip_smoke.py``. Needs one CUDA
 card and ``nvcc``; exits non-zero, printing no result, without them. The
@@ -3361,8 +3379,8 @@ def routed(moe_mod, record: list):
     """Every router call's (tokens, expert ids), appended to ``record``."""
     real = moe_mod._router
 
-    def router(p, x, m, dtype=None):
-        out = real(p, x, m) if dtype is None else real(p, x, m, dtype)
+    def router(p, x, m, *args, **kw):
+        out = real(p, x, m, *args, **kw)
         record.append((x.shape[0], out[1].detach()))
         return out
 
@@ -4198,6 +4216,290 @@ def phase_scan_layers(ops_by_name: dict, card: str) -> dict:
     return launches
 
 
+# The "model" split at tp = 2 (phase 24): two processes on the one card in
+# a gloo process group (NCCL puts no two ranks on one card)
+TP_ARCH, TP_LAYERS = "yi-9b", 4          # full width, 4 of its 48 layers
+TP_SHAPE = ("tp_train", "train", 512, 2)
+TP_PROMPT, TP_REQUESTS, TP_NEW = 256, 2, 8
+TP_LOSS_TOL = 1e-5                       # relative, f32
+TP_WORLD = 2
+# what the split Yi-9B step calls (collectives, and their DTensor form)
+TP_NEEDED = ("all-reduce", "all-gather", "all-reduce (functional)")
+
+
+def tp_probe() -> dict:
+    """Each collective the split steps may call, on CUDA tensors in this
+    rank's gloo group: "ok", or the error it raised (the rank's index
+    plus one summed, so a wrong answer shows too)."""
+    import torch
+    import torch.distributed as dist
+    import torch.distributed._functional_collectives as funcol
+
+    r, n = dist.get_rank(), dist.get_world_size()
+    want = float(n * (n + 1) // 2)
+    x = torch.full((2 * n, 8), float(r + 1), device="cuda")
+
+    def all_reduce():
+        y = x.clone()
+        dist.all_reduce(y)
+        return y
+
+    def all_gather():
+        parts = [torch.empty_like(x) for _ in range(n)]
+        dist.all_gather(parts, x)
+        return torch.stack(parts).sum(0)
+
+    def reduce_scatter():
+        out = torch.empty((2, 8), device="cuda")
+        dist.reduce_scatter_tensor(out, x)
+        return out
+
+    def functional():
+        return funcol.all_reduce(x, "sum", dist.group.WORLD).wait()
+
+    out = {}
+    for name, fn in (("all-reduce", all_reduce), ("all-gather", all_gather),
+                     ("reduce-scatter", reduce_scatter),
+                     ("all-reduce (functional)", functional)):
+        try:
+            y = fn()
+            torch.cuda.synchronize()
+            ok = bool((y == want).all())
+            out[name] = "ok" if ok else f"wrong sum {y.flatten()[0].item()}"
+        except Exception as e:                      # noqa: BLE001
+            out[name] = f"{type(e).__name__}: {str(e).splitlines()[0][:200]}"
+    return out
+
+
+def tp_run(mesh, flash_ops) -> dict:
+    """One rank's (or, with no mesh, the one process's) phase 24 work on
+    Yi-9B at full width and ``TP_LAYERS`` layers in f32, from weights
+    drawn on the card from one seed: ``Server`` (with ``mesh``,
+    ``Server(mesh=)``) serving ``TP_REQUESTS`` prompts of ``TP_PROMPT``
+    tokens and ``TP_NEW`` new ones, then one train step; B5 by variant and
+    the q heads of each launch in each, peak device memory, host ms."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.types import (SMOKE_MESH, MeshConfig,
+                                        ParallelismConfig, ShapeConfig)
+    from repro_torch.data.pipeline import LMDataConfig, lm_batch_for_step
+    from repro_torch.model.layers import local_blocks
+    from repro_torch.model.lm import Stepper
+    from repro_torch.optim.adamw import init_opt_state
+    from repro_torch.runtime.server import Server, ServerConfig
+    from repro_torch.verify.conformance import exact_f32_matmul
+
+    cfg = get_config(TP_ARCH).with_(n_layers=TP_LAYERS)
+    par = ParallelismConfig(compute_dtype="float32", attn_impl="flash")
+    mcfg = (SMOKE_MESH if mesh is None
+            else MeshConfig(tuple(mesh.mesh.shape), ("data", "model")))
+    shape = ShapeConfig(*TP_SHAPE)
+    st = Stepper(cfg, shape, mcfg, par, mesh=mesh)
+    rng = np.random.default_rng(SEED + 24)
+    prompts = [rng.integers(2, cfg.vocab_size, TP_PROMPT).tolist()
+               for _ in range(TP_REQUESTS)]
+    heads, real = [], flash_ops.flash_attention_cuda
+
+    def counted(q, *a, **kw):
+        heads.append(q.shape[2])
+        return real(q, *a, **kw)
+
+    def counts():
+        flash_ops.launches_by_variant = dict.fromkeys(
+            flash_ops.launches_by_variant, 0)
+        heads.clear()
+
+    out = {}
+    flash_ops.flash_attention_cuda = counted
+    try:
+        with exact_f32_matmul():
+            params = st.init(seed=SEED + 24, device="cuda")
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            counts()
+            t0 = time.perf_counter()
+            srv = Server(cfg, params, ServerConfig(
+                batch_slots=TP_REQUESTS, max_len=TP_PROMPT + TP_NEW,
+                eos_token=-1), mcfg, par, device="cuda", mesh=mesh)
+            for p in prompts:
+                srv.submit(p, max_new_tokens=TP_NEW)
+            done = srv.run_until_drained()
+            torch.cuda.synchronize()
+            out["serve_s"] = time.perf_counter() - t0
+            out["tokens"] = [list(r.out_tokens) for r in done]
+            out["serve_b5"] = dict(flash_ops.launches_by_variant)
+            out["serve_heads"] = sorted(set(heads))
+            out["serve_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+            del srv, done
+            # one bf16 prefill: B5 sm90 (hd 128) on the same heads
+            counts()
+            srv = Server(cfg, params, ServerConfig(
+                batch_slots=1, max_len=TP_PROMPT + 1, eos_token=-1), mcfg,
+                dataclasses.replace(par, compute_dtype="bfloat16"),
+                device="cuda", mesh=mesh)
+            srv.submit(prompts[0], max_new_tokens=1)
+            srv.run_until_drained()
+            out["bf16_b5"] = dict(flash_ops.launches_by_variant)
+            out["bf16_heads"] = sorted(set(heads))
+            del srv
+            state = {"params": params, "opt": init_opt_state(params)}
+            if mesh is not None:
+                state = local_blocks(state, st.state_shardings())
+            del params
+            batch = {k: torch.as_tensor(v, device="cuda") for k, v in
+                     lm_batch_for_step(LMDataConfig(
+                         vocab_size=cfg.vocab_size, seq_len=shape.seq_len,
+                         global_batch=shape.global_batch, seed=SEED),
+                         0).items()}
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            counts()
+            t0 = time.perf_counter()
+            _, _, m = st.train_fn(donate=True)(state["params"],
+                                               state["opt"], batch)
+            out["loss"] = m["loss"].item()
+            out["train_s"] = time.perf_counter() - t0
+            out["train_b5"] = dict(flash_ops.launches_by_variant)
+            out["train_heads"] = sorted(set(heads))
+            out["train_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+            del state, m
+            torch.cuda.empty_cache()
+    finally:
+        flash_ops.flash_attention_cuda = real
+    return out
+
+
+def tp_rank(rank: int, world: int, store: str, out_dir: str) -> None:
+    """Phase 24's rank ``rank`` (a process ``torch.multiprocessing``
+    started): a gloo group of ``world`` processes on card 0, the probe of
+    the collectives, then :func:`tp_run` on the (1, ``world``) mesh if the
+    ones the split step calls ran; its results pickled to ``out_dir``."""
+    import datetime
+    import pickle
+    import traceback
+
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    res = {}
+    dist.init_process_group("gloo", init_method="file://" + store,
+                            rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=300))
+    try:
+        res["collectives"] = tp_probe()
+        if all(res["collectives"][c] == "ok" for c in TP_NEEDED):
+            from repro_torch.kernels.flash_attention import ops as flash_ops
+            from repro_torch.launch.mesh import make_smoke_mesh
+
+            res.update(tp_run(make_smoke_mesh((1, world)), flash_ops))
+    except Exception:                                  # noqa: BLE001
+        res["error"] = traceback.format_exc()
+    finally:
+        with open(os.path.join(out_dir, f"rank{rank}.pkl"), "wb") as f:
+            pickle.dump(res, f)
+        dist.destroy_process_group()
+
+
+def phase_tp(ops_by_name: dict, card: str) -> dict:
+    """Phase 24, the ``"model"`` split at tp = 2 on the one card. First
+    the one process computes Yi-9B at full width and ``TP_LAYERS`` layers
+    in f32 (random weights from one seed, drawn on the card) with no
+    mesh (:func:`tp_run`): ``Server``'s greedy tokens for ``TP_REQUESTS``
+    prompts, one train step's loss, B5 by variant. Then two processes on
+    the card in a gloo group pass CUDA tensors to each collective
+    (:func:`tp_probe`); if the ones the split step calls run, each takes
+    its half of the heads, ``d_ff`` columns and vocabulary on the (1, 2)
+    mesh: ``Server(mesh=)``'s greedy tokens identical, the loss within
+    ``TP_LOSS_TOL`` (relative), B5 on 16 q heads a launch as often as at
+    tp = 1; each rank's peak memory beside the tp = 1 run's. If one of
+    those collectives raises, the phase names it and runs the split step
+    on a world of one (NCCL, the (1, 1) mesh) instead. Returns B5's
+    launches by run."""
+    import pickle
+    import tempfile
+
+    import torch
+    import torch.multiprocessing as mp
+
+    from repro_torch.configs import get_config
+
+    flash_ops = ops_by_name["flash_attention"]
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    one = tp_run(None, flash_ops)
+    log(f"phase 24 tp = 1: {TP_ARCH} full width, {TP_LAYERS} layers, f32, "
+        f"no mesh: tokens {one['tokens']}; loss {one['loss']!r}; B5 serve "
+        f"{json.dumps(one['serve_b5'])} on {one['serve_heads']} q heads, "
+        f"train {json.dumps(one['train_b5'])} on {one['train_heads']}, bf16 "
+        f"prefill {json.dumps(one['bf16_b5'])} on {one['bf16_heads']}; "
+        f"peak GB serve {one['serve_peak_gb']:.2f}, train "
+        f"{one['train_peak_gb']:.2f}; host s serve {one['serve_s']:.2f}, "
+        f"train step {one['train_s']:.2f} ({card})")
+    with tempfile.TemporaryDirectory() as td:
+        t0 = time.perf_counter()
+        mp.spawn(tp_rank, args=(TP_WORLD, os.path.join(td, "store"), td),
+                 nprocs=TP_WORLD)
+        spawn_s = time.perf_counter() - t0
+        ranks = []
+        for r in range(TP_WORLD):
+            with open(os.path.join(td, f"rank{r}.pkl"), "rb") as f:
+                ranks.append(pickle.load(f))
+    for r, res in enumerate(ranks):
+        if "error" in res:
+            raise AssertionError(f"phase 24 rank {r}: {res['error']}")
+    probe = ranks[0]["collectives"]
+    log(f"phase 24 gloo group of {TP_WORLD} processes on card 0, CUDA "
+        f"tensors: {json.dumps(probe)}")
+    raised = [c for c in TP_NEEDED if probe[c] != "ok"]
+    if raised:
+        log(f"phase 24: {raised} raised on CUDA tensors in a gloo group; "
+            "the split step runs on a world of one instead")
+        with world_of_one() as mesh:
+            ranks = [tp_run(mesh, flash_ops)]
+    want_heads = [get_config(TP_ARCH).n_heads // len(ranks)]
+    for r, res in enumerate(ranks):
+        rel = abs(res["loss"] - one["loss"]) / abs(one["loss"])
+        if (res["tokens"] != one["tokens"] or rel > TP_LOSS_TOL
+                or res["serve_heads"] != want_heads
+                or res["train_heads"] != want_heads
+                or res["bf16_heads"] != want_heads
+                or res["serve_b5"] != one["serve_b5"]
+                or res["train_b5"] != one["train_b5"]
+                or res["bf16_b5"] != one["bf16_b5"]
+                or one["bf16_b5"] != {"sm90": TP_LAYERS, "simt": 0}):
+            raise AssertionError(
+                f"phase 24 rank {r} of {len(ranks)}: tokens {res['tokens']} "
+                f"(tp = 1: {one['tokens']}), loss {res['loss']!r} (tp = 1: "
+                f"{one['loss']!r}, rel {rel:.3g}), B5 serve "
+                f"{res['serve_b5']} on {res['serve_heads']}, train "
+                f"{res['train_b5']} on {res['train_heads']}, bf16 prefill "
+                f"{res['bf16_b5']} on {res['bf16_heads']} (tp = 1: "
+                f"{one['serve_b5']}, {one['train_b5']}, {one['bf16_b5']})")
+        log(f"phase 24 tp = {len(ranks)} rank {r}: tokens identical, loss "
+            f"{res['loss']!r} (rel {rel:.3g} <= {TP_LOSS_TOL}); B5 serve "
+            f"{json.dumps(res['serve_b5'])}, train "
+            f"{json.dumps(res['train_b5'])}, bf16 prefill "
+            f"{json.dumps(res['bf16_b5'])}, each on {want_heads[0]} q "
+            f"heads; peak GB serve {res['serve_peak_gb']:.2f} (tp = 1 "
+            f"{one['serve_peak_gb']:.2f}), train {res['train_peak_gb']:.2f} "
+            f"(tp = 1 {one['train_peak_gb']:.2f}); host s serve "
+            f"{res['serve_s']:.2f}, train step {res['train_s']:.2f} ({card})")
+    log(f"phase 24 took {time.perf_counter() - t_phase:.1f} s (the "
+        f"{TP_WORLD} processes {spawn_s:.1f} s) ({card})")
+    def total(res):
+        return {k: res["serve_b5"][k] + res["train_b5"][k] + res["bf16_b5"][k]
+                for k in res["serve_b5"]}
+
+    return {"tp1": total(one), f"tp{len(ranks)}_rank0": total(ranks[0])}
+
+
 def main() -> int:
     import torch
 
@@ -4976,6 +5278,12 @@ def main() -> int:
             row["scan_launches"] = {
                 arch: n[row["name"]] for arch, n in scan_layers.items()
                 if row["name"] in n}
+
+    # ---- 24. the "model" split at tp = 2 -----------------------------------
+    tp = phase_tp(ops_by_name, smi)
+    for row in kernel_rows:
+        if row["name"] == "flash_attention":
+            row["tp_launches"] = tp
 
     # ---- report -------------------------------------------------------------
     log(smi)                     # the card's name and power limit

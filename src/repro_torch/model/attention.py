@@ -5,6 +5,14 @@ The plain path is PyTorch einsum; ``ctx.attn_impl == "flash"`` sends every
 causal attention with Sq == Sk (each prefill and training layer) to B5
 (``kernels/flash_attention``). Decode writes the new K/V into the cache in
 place (``index_put_``) where the reference updates a donated buffer.
+
+Where the step computes split (``Ctx.split``) and the q heads divide the
+``"model"`` axis, each rank computes its ``n_heads / tp`` q heads, its
+``n_kv_heads / tp`` kv heads where those divide too (its cache holds
+them) and every kv head where they do not, and sums ``wo``'s partial
+products over the axis; a config whose q heads do not divide the axis
+computes the whole attention on every rank, as the reference's layout
+keeps it.
 """
 from __future__ import annotations
 
@@ -14,8 +22,8 @@ import torch
 
 from repro_torch.core.types import ModelConfig
 from repro_torch.model.layers import (Ctx, PSpec, apply_rope, checkpoint,
-                                      pspec, rms_head_norm, rope_angles,
-                                      shard_axis)
+                                      model_sum, pspec, rms_head_norm,
+                                      rope_angles, shard_axis)
 
 # Sequences longer than this use the q-chunked (flash-style, O(S) memory) path.
 FULL_ATTN_MAX_SEQ = 1024
@@ -57,6 +65,23 @@ def _repeat_kv(x: torch.Tensor, groups: int) -> torch.Tensor:
     if groups == 1:
         return x
     return torch.repeat_interleave(x, groups, dim=2)
+
+
+def _rank_kv(k: torch.Tensor, v: torch.Tensor, cfg: ModelConfig, H: int):
+    """The kv heads (of all ``n_kv_heads``) this rank's ``H`` q heads read
+    where the q heads are split over ``"model"`` and the kv heads are not:
+    whole q head ``h`` reads kv head ``h // (n_heads // n_kv_heads)``. A
+    run of whole groups is sliced (the caller repeats it as usual); a
+    share that cuts a group gets one kv head a q head."""
+    from repro_torch import shardmap
+
+    g = cfg.n_heads // cfg.n_kv_heads
+    lo = shardmap.axis_index("model") * H
+    idx = [(lo + i) // g for i in range(H)]
+    n = idx[-1] - idx[0] + 1
+    if H % n == 0 and idx == [idx[0] + i // (H // n) for i in range(H)]:
+        return k[:, :, idx[0]:idx[0] + n], v[:, :, idx[0]:idx[0] + n]
+    return k[:, :, idx], v[:, :, idx]
 
 
 def attention_core(
@@ -146,13 +171,18 @@ def attn_apply(
     K/V at ``pos`` into the given cache's buffers in place and returns them
     with ``pos + 1``. With ``cross_kv`` (the encoder's (B, S_enc, KV, hd)
     K/V) there is no RoPE, no K norm, no cache and no causal mask. Head
-    counts come from the param shapes.
+    counts come from the param shapes: the rank's where the heads are
+    split (module doc), and KV the cache's.
     """
     cfg = ctx.cfg
     dt = ctx.compute_dtype
     hd = cfg.hd
     H = p["wq"].shape[1] // hd
     KV = p["wk"].shape[1] // hd
+    split = ctx.splits(cfg.n_heads)
+    if split and H * ctx.tp_size != cfg.n_heads:
+        raise ValueError(f"wq holds {H} heads, not {cfg.n_heads} // "
+                         f"{ctx.tp_size}: not this rank's block")
     hx = h.to(dt)
 
     q = _split_heads(hx @ p["wq"].to(dt), H, hd)
@@ -199,13 +229,17 @@ def attn_apply(
                               device=h.device),
         }
 
+    if split and not ctx.splits(cfg.n_kv_heads):
+        k, v = _rank_kv(k, v, cfg, H)
     if not ctx.par.gqa_grouped:        # baseline: materialized repeat
-        k = _repeat_kv(k, H // KV)
-        v = _repeat_kv(v, H // KV)
+        k = _repeat_kv(k, H // k.shape[2])
+        v = _repeat_kv(v, H // v.shape[2])
     o = attention_core(q, k, v, ctx, causal=causal, kv_len=kv_len)
     o = o.reshape(h.shape[0], h.shape[1], H * hd)
-    out = (o @ p["wo"].to(dt)).to(h.dtype)
-    return out, new_cache
+    out = o @ p["wo"].to(dt)
+    if split:
+        out = model_sum(out)
+    return out.to(h.dtype), new_cache
 
 
 def cache_schema(cfg: ModelConfig, batch: int, seq: int, tp: int = 16,

@@ -348,6 +348,10 @@ class Ctx:
     par: ParallelismConfig = ParallelismConfig()
     positions: Optional[torch.Tensor] = None   # (B, S) absolute positions
     attn_impl: str = "ref"                     # "ref" | "flash" (kernel B5)
+    # the parameters are this rank's blocks over "model" of every leaf the
+    # step computes split (``lm._model_specs``), in a region manual over
+    # "model": each layer computes its share and sums it with ``psum``
+    split: bool = False
 
     @property
     def dp(self) -> Tuple[str, ...]:
@@ -363,20 +367,31 @@ class Ctx:
     def compute_dtype(self) -> torch.dtype:
         return torch_dtype(self.par.compute_dtype)
 
+    def splits(self, n: int) -> bool:
+        """Whether a dim of whole size ``n`` (heads, ``d_ff``, vocabulary)
+        is this rank's block over ``"model"`` here: the step computes
+        split (:attr:`split`) and the dim's layout names ``"model"``
+        (:func:`shard_axis`, as the schemas lay it)."""
+        return self.split and shard_axis(n, self.tp_size) == "model"
+
     def constrain(self, x: torch.Tensor, spec=None) -> torch.Tensor:
         """The reference pins an activation's layout here (batch over the
-        data axes, the rest replicated by default). Every rank holds its
-        activations whole over the axes it computes replicated, so this
-        moves no data: it returns ``x`` after checking that its batch dim
-        is what the layout says: the local batch of the operands a manual
-        region cut over those axes, or a global batch they divide."""
+        data axes, the rest replicated by default). Nothing moves here:
+        each rank holds an activation whole over the axes it computes
+        replicated, and its block over ``"model"`` where the step computes
+        split (``head_logits``' vocabulary, whose size it checks). This
+        returns ``x`` after checking that in a region manual over the
+        layout's batch axes the batch dim is the local batch of the
+        operands the region cut. Outside one a batch need not divide the
+        axes: the reference's XLA pads such a layout (a server on a mesh
+        prefills one request at a time)."""
         if self.mesh is None or self.mesh.size() == 1:
             return x
         from repro_torch import shardmap
 
+        r = shardmap.current_region()
         axes = axes_of(pspec(self.dp if spec is None else (
             spec[0] if spec else None))[0])
-        r = shardmap.current_region()
         manual = tuple(a for a in axes if r is not None and a in r.manual)
         if manual:
             local = dict(r.batch).get(manual)
@@ -384,11 +399,6 @@ class Ctx:
                 raise ValueError(
                     f"activation batch {x.shape[0]} is not the local batch "
                     f"{local} of the layout over {manual}")
-        elif axes:
-            n = math.prod(self.mesh_cfg.axis_size(a) for a in axes)
-            if x.shape[0] % n:
-                raise ValueError(f"activation batch {x.shape[0]} does not "
-                                 f"split over {axes} ({n} ranks)")
         return x
 
 
@@ -469,7 +479,20 @@ def mlp_schema(cfg: ModelConfig, d_ff: Optional[int] = None, tp: int = 16):
             "wo": PSpec((f, d), (fa, None))}
 
 
-def apply_mlp(p, x: torch.Tensor, cfg: ModelConfig, ctx: Ctx) -> torch.Tensor:
+def model_sum(x: torch.Tensor) -> torch.Tensor:
+    """``x`` summed over ``"model"`` (``shardmap.psum``): the partial
+    products of a matmul whose contracted dim is split over it."""
+    from repro_torch import shardmap
+
+    return shardmap.psum(x, "model")
+
+
+def apply_mlp(p, x: torch.Tensor, cfg: ModelConfig, ctx: Ctx,
+              d_ff: Optional[int] = None) -> torch.Tensor:
+    """The MLP on a replicated ``x``. ``d_ff``: its whole hidden width
+    (default ``cfg.d_ff``); where it splits over ``"model"``
+    (:meth:`Ctx.splits`), ``wi``/``w_gate``/``w_up`` are the rank's
+    columns and ``wo`` its rows, and the output is summed over the axis."""
     dt = ctx.compute_dtype
     xd = x.to(dt)
     if "w_gate" in p:
@@ -482,7 +505,10 @@ def apply_mlp(p, x: torch.Tensor, cfg: ModelConfig, ctx: Ctx) -> torch.Tensor:
             h = F.gelu(h, approximate="tanh")     # jax.nn.gelu's default
         else:  # relu^2 (RWKV channel-mix nonlinearity)
             h = F.relu(h).square()
-    return (h @ p["wo"].to(dt)).to(x.dtype)
+    y = h @ p["wo"].to(dt)
+    if ctx.splits(d_ff or cfg.d_ff):
+        y = model_sum(y)
+    return y.to(x.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -500,12 +526,40 @@ def embed_schema(cfg: ModelConfig, tp: int = 16):
     return sch
 
 
+def _vocab_rows_split(cfg: ModelConfig, ctx: Ctx) -> bool:
+    return ctx.splits(cfg.padded_vocab) and not cfg.embed_replicated
+
+
 def embed_tokens(p, tokens: torch.Tensor, cfg: ModelConfig,
                  ctx: Ctx) -> torch.Tensor:
-    return p["embedding"][tokens].to(ctx.compute_dtype)
+    """The tokens' rows of the embedding. Where its vocabulary is split
+    over ``"model"``, each rank looks up the rows it holds, zeros the
+    others and the ranks' rows are summed (the gradient scatter-adds into
+    the rank's block)."""
+    e = p["embedding"]
+    if not _vocab_rows_split(cfg, ctx):
+        return e[tokens].to(ctx.compute_dtype)
+    from repro_torch import shardmap
+
+    n = e.shape[0]
+    local = tokens - shardmap.axis_index("model") * n
+    held = (local >= 0) & (local < n)
+    rows = e[local.clamp(0, n - 1)].to(ctx.compute_dtype)
+    return model_sum(torch.where(held[..., None], rows, 0.0))
+
+
+def head_split(cfg: ModelConfig, ctx: Ctx) -> bool:
+    """Whether :func:`lm_logits` gives the rank's block of the vocabulary
+    (the head's columns, or a tied embedding's rows, split over
+    ``"model"``) rather than all of it."""
+    if cfg.tie_embeddings:
+        return _vocab_rows_split(cfg, ctx)
+    return ctx.splits(cfg.padded_vocab)
 
 
 def lm_logits(p, h: torch.Tensor, cfg: ModelConfig, ctx: Ctx) -> torch.Tensor:
+    """(B, S, D) -> (B, S, V) f32: the vocabulary columns the head holds
+    (this rank's where :func:`head_split`)."""
     dt = ctx.compute_dtype
     if cfg.tie_embeddings:
         w = p["embedding"].to(dt).T

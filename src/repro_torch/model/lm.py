@@ -11,24 +11,33 @@ moment buffers it is given, as the reference's trainer donates them to
 ``jax.jit``.
 
 Given a ``torch.distributed`` device mesh (``launch/mesh.py``), the steps
-run on every rank of it. The serving steps see the whole batch on every
-rank; the MoE's ``psum``/``a2a`` dispatches split their experts over
-``"model"`` (``model/moe.py``). The train step takes and returns each
-rank's blocks of the parameters (their layouts, ``Stepper.shardings``)
-and its slices of the moments (ZeRO-1, ``optim/adamw.py``): the batch is
-split over the data axes (a ``shard_map`` region over them), the loss
-runs in a nested region over ``"model"`` whose operands are the blocks
-as ``DTensor``s (each ``"model"``-sharded dense leaf gathered over
-``"model"``, the expert stacks left split, since the MoE consumes them
-so), the gradients are reduced over the data axes (an f32 all-reduce, or
+run on every rank of it and split the transformer families' compute over
+``"model"`` as the reference's layouts place it: each rank computes its
+q heads (and its kv heads where they divide the axis), its columns of
+every MLP's and the shared experts' hidden width and its rows of the
+vocabulary, and the partial sums go through ``shardmap.psum``
+(``layers.Ctx.split``); the routed experts go to their ranks through the
+MoE's ``psum``/``a2a`` dispatches. The leaves computed split are
+:func:`_model_specs`'; every other leaf (the norms, the router, the
+Mamba-2 and RWKV-6 mixers, zamba2's shared block, the frontends) is
+computed whole on every rank. The serving steps take the rank's blocks
+(:func:`model_blocks`), keep the rank's kv heads in the cache and give
+every rank the whole last-position logits. The train step takes and
+returns each rank's blocks of the parameters (their layouts,
+``Stepper.shardings``) and its slices of the moments (ZeRO-1,
+``optim/adamw.py``): the batch is split over the data axes (a
+``shard_map`` region over them), the loss runs in a nested region over
+``"model"`` whose operands are the blocks as ``DTensor``s (a leaf
+computed whole gathered over ``"model"``, the rest as they lie), the
+cross-entropy takes the logits as each rank's vocabulary columns
+(:func:`_ce_sum`: the ``(B, S, V)`` logits are never gathered), the
+gradients are reduced over the data axes (an f32 all-reduce, or
 ``optim/compress.py``'s int8 butterfly under ``grad_compression``), and
-the update keeps each rank's slices. The
-numbers are the reference's; what differs is how a step's compute is
-split over ``"model"``: each rank of the axis computes the whole of it
-here, where the reference's XLA partitions the matmuls over it.
+the update keeps each rank's slices.
 """
 from __future__ import annotations
 
+import contextlib
 from dataclasses import dataclass
 from typing import Any, Dict, Optional, Tuple, Union
 
@@ -37,18 +46,22 @@ import torch
 from repro_torch.core.types import (MeshConfig, ModelConfig,
                                     ParallelismConfig, ShapeConfig)
 from repro_torch.device import resolve_device
-from repro_torch.model.layers import (Axis, Ctx, abstract_params, checkpoint,
-                                      init_params, pspec, pspecs, shardings,
-                                      tree_map, value_and_grad)
-from repro_torch.model.transformer import (apply_model, head_logits,
-                                           model_cache_schema, param_schema)
+from repro_torch.model.layers import (Axis, Ctx, Sharding, abstract_params,
+                                      checkpoint, head_split, init_params,
+                                      is_pspec, local_blocks, placements,
+                                      pspec, pspecs, shardings, tree_map,
+                                      value_and_grad)
+from repro_torch.model.transformer import (apply_model, group_structure,
+                                           head_logits, model_cache_schema,
+                                           param_schema)
 from repro_torch.optim.adamw import (AdamWConfig, adamw_update,
                                      adamw_update_, adamw_update_sharded,
                                      opt_state_schema)
 
 __all__ = ["param_schema", "cross_entropy", "chunked_ce_loss",
            "make_loss_fn", "make_train_step", "make_prefill_step",
-           "make_decode_step", "input_specs", "batch_pspecs", "Stepper"]
+           "make_decode_step", "model_blocks", "input_specs",
+           "batch_pspecs", "Stepper"]
 
 WINDOW_FAMILIES = ("lstm", "conv1d")
 
@@ -58,21 +71,37 @@ WINDOW_FAMILIES = ("lstm", "conv1d")
 # ---------------------------------------------------------------------------
 
 
-def _ce_sum(logits: torch.Tensor, targets: torch.Tensor
-            ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(sum of the unmasked positions' CE, their count as int32)."""
+def _ce_sum(logits: torch.Tensor, targets: torch.Tensor,
+            vocab_split: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(sum of the unmasked positions' CE, their count as int32).
+    ``vocab_split``: ``logits`` are this rank's block of the vocabulary
+    over ``"model"``; the log-sum-exp is taken over the ranks
+    (``shardmap.logsumexp``) and the gold logit comes from the rank that
+    holds it (zero elsewhere, then summed). Padded vocabulary columns
+    count as in the whole form."""
     mask = targets >= 0
     t = torch.clamp(targets, min=0).long()
-    lse = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, t[..., None])[..., 0]
+    if not vocab_split:
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, t[..., None])[..., 0]
+    else:
+        from repro_torch import shardmap as sm
+
+        n = logits.shape[-1]
+        lse = sm.logsumexp(logits, "model")
+        local = t - sm.axis_index("model") * n
+        held = (local >= 0) & (local < n)
+        gold = torch.gather(logits, -1, local.clamp(0, n - 1)[..., None])
+        gold = sm.psum(torch.where(held, gold[..., 0], 0.0), "model")
     return ((lse - gold) * mask).sum(), mask.sum(dtype=torch.int32)
 
 
-def cross_entropy(logits: torch.Tensor, targets: torch.Tensor
+def cross_entropy(logits: torch.Tensor, targets: torch.Tensor,
+                  vocab_split: bool = False
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """logits (B, S, V) f32, targets (B, S) int (-1 = masked) ->
-    (loss, n_tok)."""
-    tot, n = _ce_sum(logits, targets)
+    (loss, n_tok); ``vocab_split`` as :func:`_ce_sum`'s."""
+    tot, n = _ce_sum(logits, targets, vocab_split)
     n = torch.clamp(n, min=1)
     return tot / n, n
 
@@ -82,14 +111,16 @@ CE_CHUNK = 512
 
 
 def chunked_ce_loss(hidden: torch.Tensor, targets: torch.Tensor,
-                    head_fn) -> Tuple[torch.Tensor, torch.Tensor]:
+                    head_fn, vocab_split: bool = False
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Memory-bounded LM loss: the (B, S, V) logits tensor is never alive
     at once — each chunk's logits and CE under :func:`checkpoint` (the
     backward recomputes the chunk's logits instead of keeping them); the
-    last chunk is ragged."""
+    last chunk is ragged. ``vocab_split`` as :func:`_ce_sum`'s."""
     S = hidden.shape[1]
     ck = min(CE_CHUNK, S)
-    chunk_loss = checkpoint(lambda h_c, t_c: _ce_sum(head_fn(h_c), t_c))
+    chunk_loss = checkpoint(
+        lambda h_c, t_c: _ce_sum(head_fn(h_c), t_c, vocab_split))
     tot = n = None
     for i in range(0, S, ck):
         li, ni = chunk_loss(hidden[:, i:i + ck], targets[:, i:i + ck])
@@ -103,9 +134,9 @@ def chunked_ce_loss(hidden: torch.Tensor, targets: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 
-def _mk_ctx(cfg, mesh_cfg, mode, mesh, par, attn_impl=None):
+def _mk_ctx(cfg, mesh_cfg, mode, mesh, par, split=False):
     return Ctx(cfg=cfg, mesh_cfg=mesh_cfg, mode=mode, mesh=mesh, par=par,
-               attn_impl=attn_impl or par.attn_impl)
+               attn_impl=par.attn_impl, split=split)
 
 
 def _window_apply(cfg: ModelConfig):
@@ -117,10 +148,13 @@ def _window_apply(cfg: ModelConfig):
 
 
 def make_loss_fn(cfg: ModelConfig, mesh_cfg: MeshConfig,
-                 par: ParallelismConfig, mesh: Optional[Any] = None):
+                 par: ParallelismConfig, mesh: Optional[Any] = None,
+                 split: bool = False):
     """(params, batch) -> (loss, metrics): the window MSE, or the LM's
     cross-entropy (chunked over positions where ``cfg.ce_chunked``) plus
-    the auxiliary loss, with ``{"loss", "aux", "n_tok"}``."""
+    the auxiliary loss, with ``{"loss", "aux", "n_tok"}``. ``split``: run
+    in a region manual over ``"model"`` on the blocks of
+    :func:`_model_specs` (``Ctx.split``)."""
     if cfg.family in WINDOW_FAMILIES:
         apply_fn = _window_apply(cfg)
 
@@ -132,14 +166,16 @@ def make_loss_fn(cfg: ModelConfig, mesh_cfg: MeshConfig,
         return window_loss
 
     def loss_fn(params, batch):
-        ctx = _mk_ctx(cfg, mesh_cfg, "train", mesh, par)
+        ctx = _mk_ctx(cfg, mesh_cfg, "train", mesh, par, split)
         hidden, _, aux = apply_model(params, batch, ctx, return_hidden=True)
+        vs = head_split(cfg, ctx)
         if cfg.ce_chunked:
             ce, n_tok = chunked_ce_loss(hidden, batch["targets"],
-                                        lambda h: head_logits(params, h, ctx))
+                                        lambda h: head_logits(params, h, ctx),
+                                        vs)
         else:
             ce, n_tok = cross_entropy(head_logits(params, hidden, ctx),
-                                      batch["targets"])
+                                      batch["targets"], vs)
         return ce + aux, {"loss": ce, "aux": aux, "n_tok": n_tok}
 
     return loss_fn
@@ -157,11 +193,9 @@ def make_train_step(cfg: ModelConfig, mesh_cfg: MeshConfig,
     its blocks (see the module doc); the int8 gradient reduction runs only
     on a mesh of more than one rank, as the reference's.
     """
-    loss_fn = make_loss_fn(cfg, mesh_cfg, par, mesh)
     if mesh is not None:
-        return _mesh_train_step(cfg, mesh_cfg, par, opt_cfg, mesh, loss_fn,
-                                donate)
-    grad_fn = value_and_grad(loss_fn, has_aux=True)
+        return _mesh_train_step(cfg, mesh_cfg, par, opt_cfg, mesh, donate)
+    grad_fn = value_and_grad(make_loss_fn(cfg, mesh_cfg, par), has_aux=True)
     update = adamw_update_ if donate else adamw_update
 
     def step(params, opt_state, batch):
@@ -173,24 +207,65 @@ def make_train_step(cfg: ModelConfig, mesh_cfg: MeshConfig,
     return step
 
 
-def _model_specs(cfg: ModelConfig, schema):
-    """The block of each parameter leaf the loss computes with, inside
-    the step's region over ``"model"``: a routed expert stack that the
-    MoE's ``psum``/``a2a`` consume split (``PSpec.experts``) keeps its
-    layout; every other leaf is whole."""
-    from repro_torch.model.layers import is_pspec
+#: a transformer block's subtrees computed split over "model"
+_SPLIT_BLOCKS = ("attn", "self_attn", "cross_attn", "mlp")
+
+
+def _model_specs(cfg: ModelConfig, schema, split: bool = True):
+    """The block of each parameter leaf the mesh steps compute with, in
+    their region over ``"model"``: its layout (``P(*s.pspec)``) for the
+    embedding and head, every attention and MLP of a transformer block,
+    the MoE's shared experts, and a routed expert stack that the MoE's
+    ``psum``/``a2a`` consume split (``PSpec.experts``); ``P()`` (whole)
+    for every other leaf: the norms, the router, the Mamba-2 and RWKV-6
+    mixers, zamba2's shared block, the frontends. ``split=False``: the
+    expert stacks alone keep their layout (every rank computing the rest
+    whole)."""
     from repro_torch.shardmap import P
 
     ep = cfg.moe is not None and cfg.moe.impl != "dense"
-    return tree_map(lambda s: P(*s.pspec) if ep and s.experts else P(),
-                    schema, is_leaf=is_pspec)
+
+    def specs(tree, laid=False):
+        return tree_map(lambda s: P(*s.pspec) if laid or (ep and s.experts)
+                        else P(), tree, is_leaf=is_pspec)
+
+    if not split or cfg.family in WINDOW_FAMILIES:
+        return specs(schema)
+    groups = {f"g{gi}" for gi in range(len(group_structure(cfg)))}
+    out = {}
+    for key, sub in schema.items():
+        if key == "embed":
+            out[key] = specs(sub, laid=True)
+        elif key in groups:
+            out[key] = {k: specs(v, laid=k in _SPLIT_BLOCKS)
+                        for k, v in sub.items()}
+            if "moe" in sub and "shared" in sub["moe"]:
+                out[key]["moe"]["shared"] = specs(sub["moe"]["shared"],
+                                                  laid=True)
+        else:
+            out[key] = specs(sub)
+    return out
 
 
-def _mesh_train_step(cfg, mesh_cfg, par, opt_cfg, mesh, loss_fn, donate):
+def model_blocks(params, cfg: ModelConfig, mesh_cfg: MeshConfig, mesh):
+    """This rank's blocks of the whole ``params`` as the mesh steps
+    compute with them (:func:`_model_specs`; ``layers.local_blocks``): a
+    copy of each leaf split over ``"model"``, every other leaf itself."""
+    schema = param_schema(cfg, tp=mesh_cfg.axis_size("model"))
+    blocks = tree_map(lambda s, sp: Sharding(mesh, placements(mesh, sp)),
+                      schema, _model_specs(cfg, schema), is_leaf=is_pspec)
+    return local_blocks(params, blocks)
+
+
+def _mesh_grad_fn(cfg, mesh_cfg, par, mesh, split: bool = True):
+    """``(blocks, batch) -> (loss, metrics, grads)`` of the mesh train
+    step (see the module doc), the gradients as the parameters' blocks,
+    reduced over the data axes. ``split=False``: every rank computes the
+    step whole (:func:`_model_specs`), the form the split one is held
+    to."""
     from torch.distributed.tensor import DTensor
 
     from repro_torch import shardmap as sm
-    from repro_torch.model.layers import is_pspec, placements
     from repro_torch.optim.compress import (data_parallel_grad_fn,
                                             f32_mean_tree, int8_mean_tree)
     from repro_torch.shardmap import P
@@ -203,12 +278,13 @@ def _mesh_train_step(cfg, mesh_cfg, par, opt_cfg, mesh, loss_fn, donate):
     # a parameter layout names "model" alone (placements raises otherwise)
     stored = tree_map(lambda s: placements(tp_mesh, s.pspec), schema,
                       is_leaf=is_pspec)
-    # every rank of "model" computes the loss whole; each leaf enters as a
-    # DTensor of its blocks, redistributed to its spec (a gather over
-    # "model", its backward a reduce-scatter; the experts as they lie)
-    model_loss = sm.shard_map(loss_fn, mesh=mesh,
-                              in_specs=(_model_specs(cfg, schema), P()),
-                              out_specs=P(), axis_names={"model"})
+    # each leaf enters as a DTensor of its blocks, redistributed to the
+    # spec the loss computes with (a leaf computed whole is gathered over
+    # "model", its backward a reduce-scatter; the rest enter as they lie)
+    model_loss = sm.shard_map(
+        make_loss_fn(cfg, mesh_cfg, par, mesh, split), mesh=mesh,
+        in_specs=(_model_specs(cfg, schema, split), P()), out_specs=P(),
+        axis_names={"model"})
 
     def local_loss(params, batch):
         leaves = tree_map(
@@ -222,13 +298,24 @@ def _mesh_train_step(cfg, mesh_cfg, par, opt_cfg, mesh, loss_fn, donate):
                     if par.grad_compression and mesh.size() > 1
                     else f32_mean_tree)
 
-    def step(params, opt_state, batch):
+    def grad_fn(params, batch):
         gb = next(iter(batch.values())).shape[0]
         ba = _batch_axis(mesh_cfg, gb)
         bspec = {k: P(ba, *([None] * (v.ndim - 1)))
                  for k, v in batch.items()}
-        grad_fn = data_parallel_grad_fn(local_loss, mesh, mesh_cfg, bspec,
-                                        reduce_grads)
+        return data_parallel_grad_fn(local_loss, mesh, mesh_cfg, bspec,
+                                     reduce_grads)(params, batch)
+
+    return grad_fn
+
+
+def _mesh_train_step(cfg, mesh_cfg, par, opt_cfg, mesh, donate):
+    from repro_torch import shardmap as sm
+
+    schema = param_schema(cfg, tp=mesh_cfg.axis_size("model"))
+    grad_fn = _mesh_grad_fn(cfg, mesh_cfg, par, mesh)
+
+    def step(params, opt_state, batch):
         _, metrics, grads = grad_fn(params, batch)
         with sm.region(mesh):
             new_params, new_opt, info = adamw_update_sharded(
@@ -239,9 +326,33 @@ def _mesh_train_step(cfg, mesh_cfg, par, opt_cfg, mesh, loss_fn, donate):
     return step
 
 
+def _serving_region(mesh):
+    """The serving steps' region manual over ``"model"`` (their blocks are
+    the rank's already: ``shardmap.region``; nothing is differentiated)."""
+    if mesh is None:
+        return contextlib.nullcontext()
+    from repro_torch import shardmap as sm
+
+    return sm.region(mesh, ("model",))
+
+
+def _last_logits(logits: torch.Tensor, ctx: Ctx) -> torch.Tensor:
+    """The last position's logits, whole on every rank: gathered over
+    ``"model"`` where the rank holds its vocabulary columns, so every
+    rank samples the same token from the same numbers."""
+    last = logits[:, -1]
+    if head_split(ctx.cfg, ctx):
+        from repro_torch import shardmap as sm
+
+        last = sm.all_gather(last, "model", axis=-1, tiled=True)
+    return last
+
+
 def make_prefill_step(cfg: ModelConfig, mesh_cfg: MeshConfig,
                       par: ParallelismConfig, mesh: Optional[Any] = None):
-    """(params, batch) -> (last_logits (B, V) f32, cache).
+    """(params, batch) -> (last_logits (B, V) f32, cache). With ``mesh``,
+    ``params`` are this rank's blocks (:func:`model_blocks`) and the cache
+    holds its kv heads (module doc).
 
     For the window families "prefill" is one window inference: (params,
     batch) -> (pred (B, out_features), state), what the RTL target lowers.
@@ -255,9 +366,10 @@ def make_prefill_step(cfg: ModelConfig, mesh_cfg: MeshConfig,
         return window_step
 
     def step(params, batch):
-        ctx = _mk_ctx(cfg, mesh_cfg, "prefill", mesh, par)
-        logits, cache, _ = apply_model(params, batch, ctx)
-        return logits[:, -1], cache
+        ctx = _mk_ctx(cfg, mesh_cfg, "prefill", mesh, par, mesh is not None)
+        with _serving_region(mesh):
+            logits, cache, _ = apply_model(params, batch, ctx)
+            return _last_logits(logits, ctx), cache
 
     return step
 
@@ -265,13 +377,15 @@ def make_prefill_step(cfg: ModelConfig, mesh_cfg: MeshConfig,
 def make_decode_step(cfg: ModelConfig, mesh_cfg: MeshConfig,
                      par: ParallelismConfig, mesh: Optional[Any] = None):
     """(params, tokens (B, 1), cache) -> (logits (B, V) f32, cache'); the
-    K/V buffers of ``cache`` are updated in place and returned in cache'."""
+    K/V buffers of ``cache`` are updated in place and returned in cache'.
+    With ``mesh`` as :func:`make_prefill_step`'s."""
 
     def step(params, tokens, cache):
-        ctx = _mk_ctx(cfg, mesh_cfg, "decode", mesh, par)
-        logits, new_cache, _ = apply_model(params, {"tokens": tokens}, ctx,
-                                           cache=cache)
-        return logits[:, -1], new_cache
+        ctx = _mk_ctx(cfg, mesh_cfg, "decode", mesh, par, mesh is not None)
+        with _serving_region(mesh):
+            logits, new_cache, _ = apply_model(params, {"tokens": tokens},
+                                               ctx, cache=cache)
+            return _last_logits(logits, ctx), new_cache
 
     return step
 

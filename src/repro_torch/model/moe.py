@@ -20,7 +20,10 @@ reference's specs: the expert leaves enter as ``("model", None, None)``,
 so a rank computes only its own experts. Without a mesh, or where the
 experts do not divide the model axis, they fall back as the reference's
 do (``moe_psum`` to :func:`moe_dense`, ``moe_a2a`` to :func:`moe_psum`).
-Both drop the assignments over capacity, as the reference's do.
+Both drop the assignments over capacity, as the reference's do. The
+shared experts run beside every impl as the MLP does: where the step
+computes split (``Ctx.split``), each rank its columns of their width and
+a ``psum`` over ``"model"``.
 
 The router's top-k (and the capacity selections) take one documented
 rule on every device: a stable descending sort, the lowest index first
@@ -36,7 +39,7 @@ import torch.nn.functional as F
 
 from repro_torch import shardmap as sm
 from repro_torch.core.types import ModelConfig
-from repro_torch.model.layers import Ctx, PSpec, shard_axis
+from repro_torch.model.layers import Ctx, PSpec, model_sum, shard_axis
 from repro_torch.shardmap import P
 
 
@@ -73,9 +76,12 @@ def top_k(probs: torch.Tensor, k: int):
     return vals[..., :k], idx[..., :k]
 
 
-def _router(p, x: torch.Tensor, m, dtype=torch.float32):
+def _router(p, x: torch.Tensor, m, dtype=torch.float32, dp=()):
     """x: (T, D) -> (weights (T, k), ids (T, k), aux_loss). Router math in
-    f32."""
+    f32. ``dp``: data axes manual in the current region over which ``x``
+    is cut: the load-balance statistics are the whole batch's, averaged
+    over them (equal shards), as the reference's XLA computes them on its
+    global batch."""
     logits = x.to(dtype) @ p["router"].to(dtype)          # (T, E)
     probs = torch.softmax(logits, dim=-1)
     top_w, top_i = top_k(probs, m.top_k)
@@ -87,8 +93,20 @@ def _router(p, x: torch.Tensor, m, dtype=torch.float32):
     frac = torch.zeros(m.n_experts, dtype=dtype, device=x.device).index_add_(
         0, ids, torch.ones(ids.shape, dtype=dtype, device=x.device)
     ) / ids.numel()
-    aux = m.n_experts * torch.sum(probs.mean(0) * frac) * m.aux_loss_coef
+    mean_p = probs.mean(0)
+    if dp:
+        mean_p, frac = sm.pmean(mean_p, dp), sm.pmean(frac, dp)
+    aux = m.n_experts * torch.sum(mean_p * frac) * m.aux_loss_coef
     return top_w, top_i, aux
+
+
+def _cut_over(ctx: Ctx) -> tuple:
+    """The data axes the current region cuts the batch over (none under
+    ``grad_compression``, whose reference is manual over them too)."""
+    r = sm.current_region()
+    if ctx.mesh is None or r is None:
+        return ()
+    return tuple(a for a in ctx.dp if a in r.manual)
 
 
 def _expert_ffn(xg, wg, wu, wd, dt):
@@ -99,19 +117,27 @@ def _expert_ffn(xg, wg, wu, wd, dt):
     return h @ wd.to(dt)
 
 
-def _shared_ffn(p, x, dt):
+def _shared_ffn(p, x, ctx: Ctx):
+    """The shared experts' SwiGLU on a replicated ``x``: each rank's
+    columns of their width and a sum over ``"model"`` where that width
+    splits over it (``Ctx.splits``), as the MLP's."""
+    dt = ctx.compute_dtype
     h = F.silu(x @ p["w_gate"].to(dt)) * (x @ p["w_up"].to(dt))
-    return h @ p["wo"].to(dt)
+    y = h @ p["wo"].to(dt)
+    m = ctx.cfg.moe
+    return model_sum(y) if ctx.splits(m.n_shared * m.d_shared) else y
 
 
 def moe_dense(p, x: torch.Tensor, cfg: ModelConfig, ctx: Ctx):
     """(B, S, D) -> ((B, S, D), aux); every expert on every token, the
-    oracle. Costs E / top_k times the routed FFN's FLOPs."""
+    oracle. Costs E / top_k times the routed FFN's FLOPs. In the mesh
+    train step's region over the data axes its aux loss is the whole
+    batch's (``_router``'s ``dp``)."""
     m = cfg.moe
     dt = ctx.compute_dtype
     b, s, d = x.shape
     xt = x.reshape(-1, d).to(dt)
-    top_w, top_i, aux = _router(p, xt, m)
+    top_w, top_i, aux = _router(p, xt, m, dp=_cut_over(ctx))
     # full (T, E) combine weights
     w_full = torch.zeros((xt.shape[0], m.n_experts), dtype=torch.float32,
                          device=x.device).scatter(1, top_i, top_w)
@@ -120,7 +146,7 @@ def moe_dense(p, x: torch.Tensor, cfg: ModelConfig, ctx: Ctx):
         _expert_ffn(xt, p["w_gate"], p["w_up"], p["w_down"], dt),
         w_full.to(dt))
     if m.n_shared > 0:
-        ys = ys + _shared_ffn(p["shared"], xt, dt)
+        ys = ys + _shared_ffn(p["shared"], xt, ctx)
     return ys.reshape(b, s, d).to(x.dtype), aux
 
 
@@ -182,7 +208,7 @@ def moe_psum(p, x: torch.Tensor, cfg: ModelConfig, ctx: Ctx):
     )
     y, aux = fn(x, p["router"], p["w_gate"], p["w_up"], p["w_down"])
     if m.n_shared > 0:
-        y = y + _shared_ffn(p["shared"], x.to(dt), dt).to(x.dtype)
+        y = y + _shared_ffn(p["shared"], x.to(dt), ctx).to(x.dtype)
     return y, aux
 
 
@@ -262,7 +288,7 @@ def moe_a2a(p, x: torch.Tensor, cfg: ModelConfig, ctx: Ctx):
     )
     y, aux = fn(x, p["router"], p["w_gate"], p["w_up"], p["w_down"])
     if m.n_shared > 0:
-        y = y + _shared_ffn(p["shared"], x.to(dt), dt).to(x.dtype)
+        y = y + _shared_ffn(p["shared"], x.to(dt), ctx).to(x.dtype)
     return y, aux
 
 

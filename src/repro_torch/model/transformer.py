@@ -52,7 +52,8 @@ from repro_torch.model import ssm as ssm_mod
 from repro_torch.model.attention import attn_apply, attn_schema, cache_schema
 from repro_torch.model.layers import (Ctx, PSpec, apply_mlp, apply_norm,
                                       checkpoint, embed_schema, embed_tokens,
-                                      lm_logits, mlp_schema, norm_schema,
+                                      head_split, lm_logits, mlp_schema,
+                                      norm_schema,
                                       pspec, tree_leaves, tree_map,
                                       tree_map_pspec)
 
@@ -250,10 +251,13 @@ def _stacked_cache_schema(cfg: ModelConfig, batch: int, seq: int,
 
 
 def _apply_attn_block(p, x, ctx: Ctx, cache):
-    a, new_cache = attn_apply(p["attn"], apply_norm(p["norm1"], x, ctx.cfg),
+    cfg = ctx.cfg
+    a, new_cache = attn_apply(p["attn"], apply_norm(p["norm1"], x, cfg),
                               ctx, cache=cache)
     x = ctx.constrain(x + a)
-    m = apply_mlp(p["mlp"], apply_norm(p["norm2"], x, ctx.cfg), ctx.cfg, ctx)
+    # an MoE model's dense blocks are its leading ``attn_dense`` layers
+    d_ff = cfg.moe.d_ff_dense if cfg.moe else cfg.d_ff
+    m = apply_mlp(p["mlp"], apply_norm(p["norm2"], x, cfg), cfg, ctx, d_ff)
     return ctx.constrain(x + m), new_cache, None
 
 
@@ -289,7 +293,9 @@ def _apply_rwkv_block(p, x, ctx: Ctx, cache):
 
 def _apply_shared_block(p, x, emb0, ctx: Ctx, cache):
     """zamba2 shared attention block; input concat(h, emb0), width 2d.
-    Returns (x + out_proj(block), its attention cache)."""
+    Returns (x + out_proj(block), its attention cache). Its leaves are
+    whole on every rank (``lm._model_specs``), so it computes whole."""
+    ctx = dataclasses.replace(ctx, split=False)
     u = torch.cat([x, emb0], dim=-1)
     a, new_cache = attn_apply(p["attn"], apply_norm(p["norm1"], u, ctx.cfg),
                               ctx, cache=cache)
@@ -612,12 +618,19 @@ def _stack_groups(cfg: ModelConfig, layers: List[Any], shared: List[Any]):
 
 
 def head_logits(params, x: torch.Tensor, ctx: Ctx) -> torch.Tensor:
-    """LM head: (B, S, D) -> (B, S, padded_vocab) f32. On a mesh the
-    reference pins the logits' layout (batch over the data axes, vocab
-    over ``"model"`` where it divides): :meth:`Ctx.constrain`."""
-    logits = lm_logits(params["embed"], x, ctx.cfg, ctx)
+    """LM head: (B, S, D) -> (B, S, padded_vocab) f32, or the rank's
+    vocabulary columns where the step computes them split
+    (``layers.head_split``). On a mesh the reference pins the logits'
+    layout (batch over the data axes, vocab over ``"model"`` where it
+    divides): :meth:`Ctx.constrain`."""
+    cfg = ctx.cfg
+    logits = lm_logits(params["embed"], x, cfg, ctx)
+    if head_split(cfg, ctx) and (logits.shape[-1] * ctx.tp_size
+                                 != cfg.padded_vocab):
+        raise ValueError(f"{logits.shape[-1]} vocabulary columns are not "
+                         f"this rank's block of {cfg.padded_vocab}")
     if ctx.mesh is not None and ctx.mesh.size() > 1:
-        va = "model" if ctx.cfg.padded_vocab % ctx.tp_size == 0 else None
+        va = "model" if cfg.padded_vocab % ctx.tp_size == 0 else None
         logits = ctx.constrain(logits, pspec(ctx.dp, None, va))
     return logits
 

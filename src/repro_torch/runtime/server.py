@@ -28,7 +28,8 @@ import torch
 from repro_torch.core.types import MeshConfig, ModelConfig, ParallelismConfig
 from repro_torch.device import resolve_device
 from repro_torch.model.layers import tree_map
-from repro_torch.model.lm import make_decode_step, make_prefill_step
+from repro_torch.model.lm import (make_decode_step, make_prefill_step,
+                                  model_blocks)
 from repro_torch.model.transformer import pad_cache
 from repro_torch.obs import MetricsRegistry, get_tracer
 # PoolStats is re-exported from its new home so old imports keep working
@@ -95,10 +96,14 @@ class DrainResult(list):
 
 
 class Server:
-    """``params`` must live on ``device`` (None means CUDA, or raise).
-    ``mesh``: the device mesh of ``mesh_cfg`` the steps run on (every rank
-    of it serves the same requests; the MoE splits its experts over
-    ``"model"``), or None."""
+    """``params`` (whole) must live on ``device`` (None means CUDA, or
+    raise). ``mesh``: the device mesh of ``mesh_cfg`` the steps run on, or
+    None. On a mesh every rank serves the same requests, one prefill at a
+    time: the server keeps only the rank's blocks of ``params``
+    (``lm.model_blocks``, cut once here), each step computes its share of
+    the heads, hidden widths, vocabulary and experts over ``"model"``, the
+    caches hold its kv heads, and every rank samples from the whole
+    last-position logits."""
 
     def __init__(self, cfg: ModelConfig, params, scfg: ServerConfig,
                  mesh_cfg: MeshConfig, par: Optional[ParallelismConfig] = None,
@@ -107,7 +112,8 @@ class Server:
                  clock=time.perf_counter, mesh=None):
         self.cfg = cfg
         self.scfg = scfg
-        self.params = params
+        self.params = (params if mesh is None
+                       else model_blocks(params, cfg, mesh_cfg, mesh))
         self.device = resolve_device(device)
         par = par or ParallelismConfig(compute_dtype="float32")
         self._prefill = make_prefill_step(cfg, mesh_cfg, par, mesh)

@@ -358,6 +358,40 @@ def pmean(x, axis):
     return s / torch.full_like(s, float(n))
 
 
+class _LogSumExp(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, ax):
+        # torch.logsumexp's steps, with the max and the sum over the ranks
+        m = torch.amax(x, -1, keepdim=True)
+        m = _gather(m, ax, -1, tiled=True).amax(-1, keepdim=True)
+        m.masked_fill_(m.abs() == math.inf, 0)
+        s = _all_reduce(torch.sum(torch.exp(x - m), -1), (ax,))
+        lse = torch.log(s) + m[..., 0]
+        ctx.save_for_backward(x, lse)
+        ctx.ax = ax
+        return lse
+
+    @staticmethod
+    def backward(ctx, g):
+        x, lse = ctx.saved_tensors
+        g = _all_reduce(g, (ctx.ax,))
+        return g[..., None] * torch.exp(x - lse[..., None]), None
+
+
+def logsumexp(x, axis: str):
+    """``logsumexp`` over the last dim of ``x``, split over ``axis`` (one
+    name): the ranks' row maxima gathered (no ``pmax``, and no gradient
+    through the max), their sums of exponentials summed. Its backward
+    sums the cotangent over ``axis`` first, JAX's transposition of the
+    ``psum`` inside. On an axis of one rank it is ``torch.logsumexp``.
+    """
+    r = _region_for((axis,))
+    ax = _axis(r.mesh, axis)
+    if ax.size == 1:
+        return torch.logsumexp(x, dim=-1)
+    return _LogSumExp.apply(x, ax)
+
+
 class _AllGather(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, ax, dim):

@@ -2336,3 +2336,58 @@ def test_mesh_trainer_on_a_world_of_one_is_the_meshless_trainer(
     assert step == 3
     for a, b in zip(tree_leaves(back), tree_leaves(trained)):
         assert a.device.type == "cuda" and torch.equal(a, b)
+
+
+def test_card_tp_split_step_on_a_world_of_one_is_the_meshless_step(
+        cuda, world_of_one, monkeypatch):
+    """The ``"model"``-split train step's gradient (``lm._mesh_grad_fn``,
+    every attention, MLP, embedding and head computed as the rank's share,
+    here the whole on a model axis of 1) on the (1, 1) card mesh in bf16
+    with B5: the loss and every gradient leaf equal the meshless step's
+    bit for bit, and B5 ``sm90`` runs on the rank's heads (all of them),
+    twice a layer (the forward and its recompute), as in the meshless
+    step."""
+    from repro_torch.core.types import MeshConfig
+    from repro_torch.data.pipeline import LMDataConfig, lm_batch_for_step
+    from repro_torch.model import lm
+    from repro_torch.model.layers import (local_blocks, tree_leaves,
+                                          value_and_grad)
+
+    cfg = get_config("yi-9b", smoke=True)
+    mcfg = MeshConfig((1, 1), ("data", "model"))
+    par = ParallelismConfig(compute_dtype="bfloat16", attn_impl="flash")
+    st = Stepper(cfg, ShapeConfig("t", "train", 64, 2), mcfg, par,
+                 mesh=world_of_one)
+    params = st.init(seed=4, device=cuda)
+    batch = {k: torch.as_tensor(v, device=cuda) for k, v in
+             lm_batch_for_step(LMDataConfig(vocab_size=cfg.vocab_size,
+                                            seq_len=64, global_batch=2),
+                               0).items()}
+    heads = []
+    real = flash_ops.flash_attention_cuda
+
+    def counted(q, *a, **kw):
+        heads.append(q.shape[2])
+        return real(q, *a, **kw)
+
+    monkeypatch.setattr(flash_ops, "flash_attention_cuda", counted)
+    runs = []
+    for split in (None, True):
+        flash_ops.launches_by_variant = dict.fromkeys(
+            flash_ops.launches_by_variant, 0)
+        heads.clear()
+        if split is None:
+            (loss, _), grads = value_and_grad(lm.make_loss_fn(
+                cfg, SMOKE_MESH, par), has_aux=True)(params, batch)
+        else:
+            blocks = local_blocks(params, st.state_shardings()["params"])
+            loss, _, grads = lm._mesh_grad_fn(cfg, mcfg, par, world_of_one)(
+                blocks, batch)
+        torch.cuda.synchronize()
+        runs.append((loss, tree_leaves(grads),
+                     dict(flash_ops.launches_by_variant), list(heads)))
+    (l0, g0, v0, h0), (l1, g1, v1, h1) = runs
+    assert torch.equal(l1, l0)
+    assert all(torch.equal(a, b) for a, b in zip(g1, g0))
+    assert v1 == v0 == {"sm90": 2 * cfg.n_layers, "simt": 0}
+    assert h1 == h0 == [cfg.n_heads] * (2 * cfg.n_layers)

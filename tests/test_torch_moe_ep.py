@@ -99,8 +99,9 @@ def test_no_drop_matches_dense_oracle(runs, impl):
 @pytest.mark.parametrize("impl", ("psum", "a2a"))
 def test_mesh_train_step_is_the_meshless_step(runs, impl):
     """One train step on the (2, 4) mesh (the batch over "data", ZeRO-1
-    moments, each rank's experts local, the dense leaves gathered over
-    "model") against the meshless step from the same parameters, with no
+    moments, each rank's experts local, the attention, embedding and head
+    computed split over "model") against the meshless step from the same
+    parameters, with no
     aux loss and nothing dropped: the loss, the global norm (no rank's
     gradient ``tp``-fold) on every rank, and the updated parameters,
     gathered whole to rank 0 alone, within 1e-5 relative."""

@@ -1,6 +1,7 @@
 """The multi-rank jobs of the collectives' parity tests (not a test
 module): ``tests/test_torch_shardmap.py``, ``test_torch_compress.py``,
-``test_torch_moe_ep.py`` and ``test_torch_elastic.py``.
+``test_torch_moe_ep.py``, ``test_torch_elastic.py`` and
+``test_torch_tp.py``.
 
 The port runs as N ``gloo`` ranks under ``torch.multiprocessing`` (each
 with one thread, the process group initialised from a file in the job's
@@ -11,7 +12,7 @@ device, and ``repro.shardmap`` imports outside pytest's warning filter.
 Each job writes a pickle of numpy arrays; the reference's runs first, and
 the port's reads its inputs (the reference's parameters among them).
 
-    python tests/torch_ranks.py ref JOB OUTDIR
+    python tests/torch_ranks.py ref JOB OUTDIR [ARGS]
     python tests/torch_ranks.py port JOB WORLD OUTDIR
 """
 from __future__ import annotations
@@ -57,11 +58,15 @@ def _env(**extra) -> dict:
     return env
 
 
-def run_ref(job: str, outdir: str, timeout: int = 300) -> dict:
-    _run(["ref", job, outdir], _env(
+def run_ref(job: str, outdir: str, timeout: int = 300,
+            args: tuple = ()) -> dict:
+    """The reference's ``job`` (its function's further string ``args``
+    also name its pickle)."""
+    _run(["ref", job, outdir, *args], _env(
         XLA_FLAGS="--xla_force_host_platform_device_count=8",
         JAX_PLATFORMS="cpu", OMP_NUM_THREADS="1"), timeout)
-    with open(os.path.join(outdir, f"ref_{job}.pkl"), "rb") as f:
+    name = "_".join(("ref", job) + tuple(args))
+    with open(os.path.join(outdir, f"{name}.pkl"), "rb") as f:
         return pickle.load(f)
 
 
@@ -624,8 +629,8 @@ def port_moe_ep(rank, world, outdir):
 
 
 def _moe_train_steps(mesh, mcfg):
-    """One mesh train step (ZeRO-1, the experts local, the dense leaves
-    gathered) against the meshless step from the same parameters and
+    """One mesh train step (ZeRO-1, the experts local, the attention,
+    embedding and head computed split) against the meshless step from the same parameters and
     batch, for each EP impl at a no-drop capacity with no aux loss (the
     two then compute one function): loss, global norm and the updated
     parameters, gathered whole on rank 0."""
@@ -770,6 +775,261 @@ def port_elastic(rank, world, outdir):
 
 
 # ---------------------------------------------------------------------------
+# tp: the "model" split of the transformer families' steps
+# ---------------------------------------------------------------------------
+
+TP_VARIANTS = ("yi", "yi/scan", "internvl6", "deepseek/dense",
+               "deepseek/psum", "deepseek/a2a")
+#: the reference's jobs of one mesh, run side by side
+TP_GROUPS = {"dense": TP_VARIANTS[:3], "moe": TP_VARIANTS[3:]}
+TP_SERVED = ("yi", "internvl6", "deepseek/dense")
+TP_S, TP_B, TP_STEPS, TP_NEW = 8, 4, 3, 4
+TP_PROMPTS = ([5, 9, 13, 17, 21, 25], [7, 11, 3, 19, 23, 29])
+
+
+def _tp_cfg(get_config, name):
+    """The yi-9b smoke (GQA: 4 q heads, 2 kv heads; also scanned over its
+    layers, ``_tp_par``), the internvl2-1b smoke with 6 q heads (whole at
+    a model axis of 4), the deepseek-moe-16b smoke (shared experts, a
+    dense first layer) with each MoE impl."""
+    arch, _, impl = name.partition("/")
+    if arch == "yi":
+        return get_config("yi-9b", smoke=True)
+    if arch == "internvl6":
+        return dataclasses.replace(get_config("internvl2-1b", smoke=True),
+                                   n_heads=6)
+    cfg = get_config("deepseek-moe-16b", smoke=True)
+    return dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe,
+                                                            impl=impl))
+
+
+def _tp_par(ParallelismConfig, name):
+    return ParallelismConfig(compute_dtype="float32",
+                             scan_layers=name.endswith("/scan"))
+
+
+def _tp_batch_fn(cfg, lm_batch_for_step):
+    """Either package's trainer ``batch_fn``: the LM batch of a step and,
+    for the vision config, the same patches at every step."""
+    def batch_fn(data_cfg, step):
+        b = lm_batch_for_step(data_cfg, step)
+        if cfg.frontend == "vision":
+            b["patches"] = _rng(21).standard_normal(
+                (TP_B, cfg.n_frontend_tokens, cfg.frontend_dim)).astype(
+                    np.float32)
+        return b
+
+    return batch_fn
+
+
+def _serve(Server, ServerConfig, cfg, params, mesh_cfg, par, **kw):
+    """Either package's ``Server``: the greedy tokens of ``TP_PROMPTS``,
+    and the server."""
+    srv = Server(cfg, params, ServerConfig(
+        batch_slots=2, max_len=len(TP_PROMPTS[0]) + TP_NEW, eos_token=-1),
+        mesh_cfg, par, **kw)
+    for prompt in TP_PROMPTS:
+        srv.submit(prompt, max_new_tokens=TP_NEW)
+    done = srv.run_until_drained()
+    return [list(r.out_tokens) for r in done], srv
+
+
+def _tp_mesh(name: str):
+    return tuple(int(n) for n in name.split("x"))
+
+
+def ref_tp(outdir, mesh_name, group):
+    """On the ``mesh_name`` ("2x2", "2x4") mesh, for each variant of
+    ``TP_GROUPS[group]``: the losses of ``TP_STEPS`` steps of the
+    reference's train step (its XLA-partitioned loss gradient, the
+    parameters laid out by their layouts and the batch over "data", then
+    ``adamw_update``, as its ``make_train_step`` composes them), the first
+    step's gradients, and its ``Server(mesh=)``'s greedy tokens."""
+    import jax
+    from jax.sharding import Mesh, NamedSharding
+    from jax.sharding import PartitionSpec as P
+
+    from repro.configs import get_config
+    from repro.core.types import MeshConfig, ParallelismConfig, ShapeConfig
+    from repro.data.pipeline import LMDataConfig, lm_batch_for_step
+    from repro.model.lm import Stepper, make_loss_fn
+    from repro.optim.adamw import adamw_update, init_opt_state
+    from repro.runtime.server import Server, ServerConfig
+
+    shape = ShapeConfig("t", "train", TP_S, TP_B)
+    shp = _tp_mesh(mesh_name)
+    mcfg = MeshConfig(shp, ("data", "model"))
+    mesh = Mesh(np.asarray(jax.devices()[:shp[0] * shp[1]]).reshape(shp),
+                ("data", "model"))
+    whole = NamedSharding(mesh, P())
+    res, inits = {}, {}
+    for name in TP_GROUPS[group]:
+        cfg = _tp_cfg(get_config, name)
+        par = _tp_par(ParallelismConfig, name)
+        batch_fn = _tp_batch_fn(cfg, lm_batch_for_step)
+        dcfg = LMDataConfig(vocab_size=cfg.vocab_size, seq_len=TP_S,
+                            global_batch=TP_B)
+        st = Stepper(cfg, shape, mcfg, par, mesh=mesh)
+        arch = name.partition("/")[0]    # one init for the arch's variants
+        if arch not in inits:
+            inits[arch] = jax.jit(lambda: st.init()[0])()
+        params = inits[arch]
+        psh = st.shardings(st.schema)
+        bsh = {k: NamedSharding(mesh, P("data", *[None] * (v.ndim - 1)))
+               for k, v in batch_fn(dcfg, 0).items()}
+        grad = jax.jit(jax.value_and_grad(
+            make_loss_fn(cfg, mcfg, par, mesh), has_aux=True),
+            in_shardings=(psh, bsh))
+        update = jax.jit(lambda g, o, p: adamw_update(g, o, p, st.opt_cfg))
+        out = {"init": jax.tree.map(np.asarray, params),
+               "batch": batch_fn(dcfg, 0)}
+        with mesh:
+            p = jax.device_put(params, psh)
+            opt, losses = init_opt_state(params), []
+            for step in range(TP_STEPS):
+                (loss, m), g = grad(p, batch_fn(dcfg, step))
+                if step == 0:
+                    out.update(loss=float(loss),
+                               grads=jax.tree.map(np.asarray, g))
+                p, opt, _ = update(g, jax.device_put(opt, whole), p)
+                p = jax.device_put(p, psh)
+                losses.append(float(m["loss"]))
+            out["tokens"] = (_serve(Server, ServerConfig, cfg, params, mcfg,
+                                    par, mesh=mesh)[0]
+                             if name in TP_SERVED else None)
+        res[name] = dict(out, train_losses=np.asarray(losses))
+    _dump(res, os.path.join(outdir, f"ref_tp_{mesh_name}_{group}.pkl"))
+
+
+def _tp_full(tree, shardings):
+    """Every leaf whole on every rank, from the rank's blocks."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.model.layers import tree_map
+
+    return tree_map(lambda t, s: DTensor.from_local(
+        t, s.mesh, s.placements, run_check=False).full_tensor(),
+        tree, shardings)
+
+
+def _digest(tree) -> str:
+    import hashlib
+
+    from repro_torch.model.layers import tree_leaves
+
+    h = hashlib.sha256()
+    for t in tree_leaves(tree):
+        h.update(_np(t).tobytes())
+    return h.hexdigest()
+
+
+def port_tp(rank, world, outdir):
+    """The port on the (2, 2) (world 4) or (2, 4) (world 8) mesh, from the
+    reference's parameters and batches: each variant's loss and
+    gradients (gathered whole on every rank) from the split step and the
+    whole-step form, the mesh ``Trainer``'s losses, and for the served
+    variants ``Server(mesh=)``'s greedy tokens, its cache's kv heads and
+    the meshless ``Server``'s tokens; then the counters."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.convert import params_from_jax, to_torch
+    from repro_torch.core.types import (SMOKE_MESH, MeshConfig,
+                                        ParallelismConfig, ShapeConfig)
+    from repro_torch.data.pipeline import LMDataConfig, lm_batch_for_step
+    from repro_torch.launch.mesh import make_smoke_mesh
+    from repro_torch.model import lm
+    from repro_torch.model.layers import local_blocks, tree_map
+    from repro_torch.runtime.server import Server, ServerConfig
+    from repro_torch.runtime.trainer import Trainer, TrainerConfig
+
+    mesh_name = {4: "2x2", 8: "2x4"}[world]
+    ref = {}
+    for group in TP_GROUPS:
+        ref.update(_load(os.path.join(outdir,
+                                      f"ref_tp_{mesh_name}_{group}.pkl")))
+    shp = _tp_mesh(mesh_name)
+    mcfg = MeshConfig(shp, ("data", "model"))
+    mesh = make_smoke_mesh(shp, device_type="cpu")
+    shape = ShapeConfig("t", "train", TP_S, TP_B)
+    res = {}
+    for name in TP_VARIANTS:
+        cfg = _tp_cfg(get_config, name)
+        par = _tp_par(ParallelismConfig, name)
+        params = to_torch(params_from_jax(ref[name]["init"], cfg), "cpu")
+        batch = {k: torch.as_tensor(v)
+                 for k, v in ref[name]["batch"].items()}
+        st = lm.Stepper(cfg, shape, mcfg, par, mesh=mesh)
+        sh = st.state_shardings()["params"]
+        blocks = local_blocks(params, sh)
+        out = {}
+        for form, split in (("split", True), ("whole", False)):
+            loss, _, g = lm._mesh_grad_fn(cfg, mcfg, par, mesh, split)(
+                blocks, batch)
+            full = _tp_full(g, sh)
+            out[form] = {"loss": float(loss), "digest": _digest(full),
+                         "grads": (tree_map(_np, full) if rank == 0
+                                   else None)}
+        st.init = lambda *a, **k: params
+        tr = Trainer(st, LMDataConfig(vocab_size=cfg.vocab_size,
+                                      seq_len=TP_S, global_batch=TP_B),
+                     TrainerConfig(total_steps=TP_STEPS, ckpt_every=100,
+                                   log_every=1,
+                                   ckpt_dir=tempfile.mkdtemp(dir=outdir)),
+                     batch_fn=_tp_batch_fn(cfg, lm_batch_for_step),
+                     device="cpu")
+        out["train_losses"] = [m["loss"] for m in tr.train()["metrics"]]
+        if name in TP_SERVED:
+            out["tokens"], srv = _serve(Server, ServerConfig, cfg, params,
+                                        mcfg, par, device="cpu", mesh=mesh)
+            out["cache_kv_heads"] = int(srv._cache["layers"][0]["k"].shape[2])
+            out["meshless_tokens"] = _serve(Server, ServerConfig, cfg,
+                                            params, SMOKE_MESH, par,
+                                            device="cpu")[0]
+        res[name] = out
+    res["counter"] = _tp_counter(mcfg, mesh, ref["yi"]["init"],
+                                 ref["yi"]["batch"])
+    _dump(res, os.path.join(outdir, f"port_tp_{world}_{rank}.pkl"))
+
+
+def _tp_counter(mcfg, mesh, init, batch_np):
+    """The yi-9b smoke (no recompute: ``remat="none"``, one CE pass:
+    ``ce_chunked=False``) through the split and the whole step's gradient:
+    the helper's wire bytes by kind, the ``DTensor`` collectives by op
+    (``CommDebugMode``: the leaves the region gathers), and every
+    gradient block's size."""
+    import torch
+    from torch.distributed.tensor.debug import CommDebugMode
+
+    from repro_torch import shardmap as sm
+    from repro_torch.configs import get_config
+    from repro_torch.convert import params_from_jax, to_torch
+    from repro_torch.core.types import ParallelismConfig, ShapeConfig
+    from repro_torch.model import lm
+    from repro_torch.model.layers import local_blocks, tree_leaves
+
+    cfg = get_config("yi-9b", smoke=True).with_(remat="none",
+                                                ce_chunked=False)
+    par = ParallelismConfig(compute_dtype="float32")
+    st = lm.Stepper(cfg, ShapeConfig("t", "train", TP_S, TP_B), mcfg, par,
+                    mesh=mesh)
+    sh = st.state_shardings()["params"]
+    blocks = local_blocks(to_torch(params_from_jax(init, cfg), "cpu"), sh)
+    batch = {k: torch.as_tensor(v) for k, v in batch_np.items()}
+    out = {}
+    for form, split in (("split", True), ("whole", False)):
+        fn = lm._mesh_grad_fn(cfg, mcfg, par, mesh, split)
+        sm.reset_wire_bytes()
+        with CommDebugMode() as comm:
+            _, _, g = fn(blocks, batch)
+        out[form] = {"wire": dict(sm.wire_bytes),
+                     "comm": {str(k): v for k, v in
+                              comm.get_comm_counts().items()},
+                     "grad_numel": sum(t.numel() for t in tree_leaves(g))}
+    return out
+
+
+# ---------------------------------------------------------------------------
 # Entry
 # ---------------------------------------------------------------------------
 
@@ -794,7 +1054,7 @@ def main(argv) -> int:
     side, job = argv[0], argv[1]
     if side == "ref":
         sys.path.insert(0, SRC)
-        globals()[f"ref_{job}"](argv[2])
+        globals()[f"ref_{job}"](argv[2], *argv[3:])
         return 0
     import torch.multiprocessing as mp
 
