@@ -324,19 +324,23 @@ phase 20's DeepSeek-MoE-16B weights, before they are freed):
 The ``"model"`` split at tp = 2 on the one card (two processes in a
 gloo group; NCCL puts no two ranks on one card):
 
-24. Yi-9B at full width and 4 of 48 layers in f32, random weights from
-    one seed drawn on the card: first with no mesh, ``Server``'s greedy
-    tokens for 2 prompts of 256 tokens and 8 new ones, one bf16 prefill,
-    and one train step (2 x 512 tokens); then the two processes pass
-    CUDA tensors to all-reduce, all-gather, reduce-scatter and the
-    functional all-reduce ``DTensor`` uses, printing each outcome, and if
-    the ones the split step calls run, each takes its 16 q heads, half of
-    ``d_ff`` and half of the vocabulary on the (1, 2) mesh:
-    ``Server(mesh=)``'s tokens identical, the loss within 1e-5
-    (relative), B5 on 16 q heads a launch (``simt`` in f32, ``sm90`` in
-    the bf16 prefill) as often as with no mesh; each rank's peak memory
-    beside the one process's. If one of them raises, the phase names it
-    and runs the split step on a world of one instead.
+24. Yi-9B at full width and 4 of 48 layers, and Zamba2-7B at full width
+    and 6 of 81 layers (six Mamba-2 layers and one shared-block
+    invocation), in f32, random weights from one seed drawn on the card:
+    first with no mesh, ``Server``'s greedy tokens for 2 prompts of 256
+    tokens and 8 new ones, one bf16 prefill, and one train step (2 x 512
+    tokens); then the two processes pass CUDA tensors to all-reduce,
+    all-gather, reduce-scatter and the functional all-reduce ``DTensor``
+    uses, printing each outcome, and if the ones the split steps call
+    run, each takes its 16 q heads, half of ``d_ff``, half of each
+    Mamba-2 mixer's ``d_inner`` and 56 of its 112 heads, and half of the
+    vocabulary on the (1, 2) mesh: ``Server(mesh=)``'s tokens identical,
+    the loss within 1e-5 (relative), B5 on 16 q heads a launch
+    (``simt`` in f32, ``sm90`` in the bf16 prefill) and B6 on 56 heads
+    a launch (once a Mamba-2 layer of each prefill), each as often as
+    with no mesh; each rank's peak memory beside the one process's. If
+    one of them raises, the phase names it and runs the split steps on
+    a world of one instead.
 
 Then print the kernels line (B1's and B2's rows also carry the loop's
     launches, ``workflow_launches``, the farm's, ``farm_launches``, one
@@ -348,8 +352,8 @@ Then print the kernels line (B1's and B2's rows also carry the loop's
     ``collectives_launches``; B6's and B7's phase 21's,
     ``families_launches``; B5's, B6's and B7's one scanned prefill's by
     arch and B5's two scanned training steps', ``scan_launches``; B5's
-    phase 24 runs' by variant, ``tp_launches``) and the card's name and
-    power limit.
+    phase 24 runs' by arch and variant and B6's by arch,
+    ``tp_launches``) and the card's name and power limit.
 
 Usage, from the repository root: ``python3 chip_smoke.py``. Needs one CUDA
 card and ``nvcc``; exits non-zero, printing no result, without them. The
@@ -4217,13 +4221,15 @@ def phase_scan_layers(ops_by_name: dict, card: str) -> dict:
 
 
 # The "model" split at tp = 2 (phase 24): two processes on the one card in
-# a gloo process group (NCCL puts no two ranks on one card)
-TP_ARCH, TP_LAYERS = "yi-9b", 4          # full width, 4 of its 48 layers
+# a gloo process group (NCCL puts no two ranks on one card). Each arch at
+# full width and a few of its layers: Yi-9B's 4 of 48, Zamba2-7B's 6 of 81
+# (six Mamba-2 layers and one shared-block invocation, one unit)
+TP_ARCHS = (("yi-9b", 4), ("zamba2-7b", 6))
 TP_SHAPE = ("tp_train", "train", 512, 2)
 TP_PROMPT, TP_REQUESTS, TP_NEW = 256, 2, 8
 TP_LOSS_TOL = 1e-5                       # relative, f32
 TP_WORLD = 2
-# what the split Yi-9B step calls (collectives, and their DTensor form)
+# what the split steps call (collectives, and their DTensor form)
 TP_NEEDED = ("all-reduce", "all-gather", "all-reduce (functional)")
 
 
@@ -4271,13 +4277,14 @@ def tp_probe() -> dict:
     return out
 
 
-def tp_run(mesh, flash_ops) -> dict:
+def tp_run(mesh, flash_ops, ssd_ops, arch: str, layers: int) -> dict:
     """One rank's (or, with no mesh, the one process's) phase 24 work on
-    Yi-9B at full width and ``TP_LAYERS`` layers in f32, from weights
+    ``arch`` at full width and ``layers`` layers in f32, from weights
     drawn on the card from one seed: ``Server`` (with ``mesh``,
     ``Server(mesh=)``) serving ``TP_REQUESTS`` prompts of ``TP_PROMPT``
-    tokens and ``TP_NEW`` new ones, then one train step; B5 by variant and
-    the q heads of each launch in each, peak device memory, host ms."""
+    tokens and ``TP_NEW`` new ones, one bf16 prefill, then one train
+    step; in each, B5 by variant and the q heads of each launch, B6's
+    launches and the heads of each, peak device memory, host seconds."""
     import dataclasses
 
     import numpy as np
@@ -4293,7 +4300,7 @@ def tp_run(mesh, flash_ops) -> dict:
     from repro_torch.runtime.server import Server, ServerConfig
     from repro_torch.verify.conformance import exact_f32_matmul
 
-    cfg = get_config(TP_ARCH).with_(n_layers=TP_LAYERS)
+    cfg = get_config(arch).with_(n_layers=layers)
     par = ParallelismConfig(compute_dtype="float32", attn_impl="flash")
     mcfg = (SMOKE_MESH if mesh is None
             else MeshConfig(tuple(mesh.mesh.shape), ("data", "model")))
@@ -4302,19 +4309,33 @@ def tp_run(mesh, flash_ops) -> dict:
     rng = np.random.default_rng(SEED + 24)
     prompts = [rng.integers(2, cfg.vocab_size, TP_PROMPT).tolist()
                for _ in range(TP_REQUESTS)]
-    heads, real = [], flash_ops.flash_attention_cuda
+    heads = {"b5": [], "b6": []}
+    real_b5, real_b6 = flash_ops.flash_attention_cuda, ssd_ops.ssd_cuda
 
-    def counted(q, *a, **kw):
-        heads.append(q.shape[2])
-        return real(q, *a, **kw)
+    def counted_b5(q, *a, **kw):
+        heads["b5"].append(q.shape[2])
+        return real_b5(q, *a, **kw)
+
+    def counted_b6(x, *a, **kw):
+        heads["b6"].append(x.shape[2])
+        return real_b6(x, *a, **kw)
 
     def counts():
         flash_ops.launches_by_variant = dict.fromkeys(
             flash_ops.launches_by_variant, 0)
-        heads.clear()
+        ssd_ops.launches = 0
+        for v in heads.values():
+            v.clear()
+
+    def read(run: str) -> None:
+        out[f"{run}_b5"] = dict(flash_ops.launches_by_variant)
+        out[f"{run}_heads"] = sorted(set(heads["b5"]))
+        out[f"{run}_b6"] = ssd_ops.launches
+        out[f"{run}_b6_heads"] = sorted(set(heads["b6"]))
 
     out = {}
-    flash_ops.flash_attention_cuda = counted
+    flash_ops.flash_attention_cuda = counted_b5
+    ssd_ops.ssd_cuda = counted_b6
     try:
         with exact_f32_matmul():
             params = st.init(seed=SEED + 24, device="cuda")
@@ -4331,11 +4352,10 @@ def tp_run(mesh, flash_ops) -> dict:
             torch.cuda.synchronize()
             out["serve_s"] = time.perf_counter() - t0
             out["tokens"] = [list(r.out_tokens) for r in done]
-            out["serve_b5"] = dict(flash_ops.launches_by_variant)
-            out["serve_heads"] = sorted(set(heads))
+            read("serve")
             out["serve_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
             del srv, done
-            # one bf16 prefill: B5 sm90 (hd 128) on the same heads
+            # one bf16 prefill: B5 sm90 on the same heads
             counts()
             srv = Server(cfg, params, ServerConfig(
                 batch_slots=1, max_len=TP_PROMPT + 1, eos_token=-1), mcfg,
@@ -4343,8 +4363,7 @@ def tp_run(mesh, flash_ops) -> dict:
                 device="cuda", mesh=mesh)
             srv.submit(prompts[0], max_new_tokens=1)
             srv.run_until_drained()
-            out["bf16_b5"] = dict(flash_ops.launches_by_variant)
-            out["bf16_heads"] = sorted(set(heads))
+            read("bf16")
             del srv
             state = {"params": params, "opt": init_opt_state(params)}
             if mesh is not None:
@@ -4363,21 +4382,22 @@ def tp_run(mesh, flash_ops) -> dict:
                                                state["opt"], batch)
             out["loss"] = m["loss"].item()
             out["train_s"] = time.perf_counter() - t0
-            out["train_b5"] = dict(flash_ops.launches_by_variant)
-            out["train_heads"] = sorted(set(heads))
+            read("train")
             out["train_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
             del state, m
             torch.cuda.empty_cache()
     finally:
-        flash_ops.flash_attention_cuda = real
+        flash_ops.flash_attention_cuda = real_b5
+        ssd_ops.ssd_cuda = real_b6
     return out
 
 
 def tp_rank(rank: int, world: int, store: str, out_dir: str) -> None:
     """Phase 24's rank ``rank`` (a process ``torch.multiprocessing``
     started): a gloo group of ``world`` processes on card 0, the probe of
-    the collectives, then :func:`tp_run` on the (1, ``world``) mesh if the
-    ones the split step calls ran; its results pickled to ``out_dir``."""
+    the collectives, then :func:`tp_run` of each of ``TP_ARCHS`` on the
+    (1, ``world``) mesh if the ones the split steps call ran; its results
+    pickled to ``out_dir``."""
     import datetime
     import pickle
     import traceback
@@ -4396,9 +4416,12 @@ def tp_rank(rank: int, world: int, store: str, out_dir: str) -> None:
         res["collectives"] = tp_probe()
         if all(res["collectives"][c] == "ok" for c in TP_NEEDED):
             from repro_torch.kernels.flash_attention import ops as flash_ops
+            from repro_torch.kernels.mamba2 import ops as ssd_ops
             from repro_torch.launch.mesh import make_smoke_mesh
 
-            res.update(tp_run(make_smoke_mesh((1, world)), flash_ops))
+            mesh = make_smoke_mesh((1, world))
+            for arch, layers in TP_ARCHS:
+                res[arch] = tp_run(mesh, flash_ops, ssd_ops, arch, layers)
     except Exception:                                  # noqa: BLE001
         res["error"] = traceback.format_exc()
     finally:
@@ -4407,21 +4430,32 @@ def tp_rank(rank: int, world: int, store: str, out_dir: str) -> None:
         dist.destroy_process_group()
 
 
+def tp_summary(res: dict) -> str:
+    """B5 by variant on its q heads, B6's launches on their heads, in
+    each of a :func:`tp_run`'s three runs."""
+    return "; ".join(
+        f"{run} B5 {json.dumps(res[f'{run}_b5'])} on {res[f'{run}_heads']}"
+        f" q heads, B6 {res[f'{run}_b6']} on {res[f'{run}_b6_heads']} heads"
+        for run in ("serve", "bf16", "train"))
+
+
 def phase_tp(ops_by_name: dict, card: str) -> dict:
-    """Phase 24, the ``"model"`` split at tp = 2 on the one card. First
-    the one process computes Yi-9B at full width and ``TP_LAYERS`` layers
-    in f32 (random weights from one seed, drawn on the card) with no
-    mesh (:func:`tp_run`): ``Server``'s greedy tokens for ``TP_REQUESTS``
-    prompts, one train step's loss, B5 by variant. Then two processes on
-    the card in a gloo group pass CUDA tensors to each collective
-    (:func:`tp_probe`); if the ones the split step calls run, each takes
-    its half of the heads, ``d_ff`` columns and vocabulary on the (1, 2)
-    mesh: ``Server(mesh=)``'s greedy tokens identical, the loss within
-    ``TP_LOSS_TOL`` (relative), B5 on 16 q heads a launch as often as at
-    tp = 1; each rank's peak memory beside the tp = 1 run's. If one of
-    those collectives raises, the phase names it and runs the split step
-    on a world of one (NCCL, the (1, 1) mesh) instead. Returns B5's
-    launches by run."""
+    """Phase 24, the ``"model"`` split at tp = 2 on the one card, for each
+    of ``TP_ARCHS`` at full width and a few layers in f32 (random weights
+    from one seed, drawn on the card). First the one process computes
+    each with no mesh (:func:`tp_run`): ``Server``'s greedy tokens for
+    ``TP_REQUESTS`` prompts, one bf16 prefill, one train step's loss, B5
+    by variant and B6's launches. Then two processes on the card in a
+    gloo group pass CUDA tensors to each collective (:func:`tp_probe`);
+    if the ones the split steps call run, each takes its half of the
+    heads, ``d_ff`` columns, Mamba-2 ``d_inner`` and heads and vocabulary
+    on the (1, 2) mesh: ``Server(mesh=)``'s greedy tokens identical, the
+    loss within ``TP_LOSS_TOL`` (relative), B5 on 16 q heads a launch and
+    B6 on half the Mamba-2 heads, each as often as with no mesh; each
+    rank's peak memory beside the one process's. If one of those
+    collectives raises, the phase names it and runs the split steps on a
+    world of one (NCCL, the (1, 1) mesh) instead. Returns B5's and B6's
+    launches by arch and run."""
     import pickle
     import tempfile
 
@@ -4429,19 +4463,20 @@ def phase_tp(ops_by_name: dict, card: str) -> dict:
     import torch.multiprocessing as mp
 
     from repro_torch.configs import get_config
+    from repro_torch.model.ssm import mamba_dims
 
-    flash_ops = ops_by_name["flash_attention"]
+    flash_ops, ssd_ops = ops_by_name["flash_attention"], ops_by_name["ssd"]
     t_phase = time.perf_counter()
+    one = {}
+    for arch, layers in TP_ARCHS:
+        torch.cuda.empty_cache()
+        one[arch] = r1 = tp_run(None, flash_ops, ssd_ops, arch, layers)
+        log(f"phase 24 tp = 1: {arch} full width, {layers} layers, f32, no "
+            f"mesh: tokens {r1['tokens']}; loss {r1['loss']!r}; "
+            f"{tp_summary(r1)}; peak GB serve {r1['serve_peak_gb']:.2f}, "
+            f"train {r1['train_peak_gb']:.2f}; host s serve "
+            f"{r1['serve_s']:.2f}, train step {r1['train_s']:.2f} ({card})")
     torch.cuda.empty_cache()
-    one = tp_run(None, flash_ops)
-    log(f"phase 24 tp = 1: {TP_ARCH} full width, {TP_LAYERS} layers, f32, "
-        f"no mesh: tokens {one['tokens']}; loss {one['loss']!r}; B5 serve "
-        f"{json.dumps(one['serve_b5'])} on {one['serve_heads']} q heads, "
-        f"train {json.dumps(one['train_b5'])} on {one['train_heads']}, bf16 "
-        f"prefill {json.dumps(one['bf16_b5'])} on {one['bf16_heads']}; "
-        f"peak GB serve {one['serve_peak_gb']:.2f}, train "
-        f"{one['train_peak_gb']:.2f}; host s serve {one['serve_s']:.2f}, "
-        f"train step {one['train_s']:.2f} ({card})")
     with tempfile.TemporaryDirectory() as td:
         t0 = time.perf_counter()
         mp.spawn(tp_rank, args=(TP_WORLD, os.path.join(td, "store"), td),
@@ -4460,44 +4495,65 @@ def phase_tp(ops_by_name: dict, card: str) -> dict:
     raised = [c for c in TP_NEEDED if probe[c] != "ok"]
     if raised:
         log(f"phase 24: {raised} raised on CUDA tensors in a gloo group; "
-            "the split step runs on a world of one instead")
+            "the split steps run on a world of one instead")
         with world_of_one() as mesh:
-            ranks = [tp_run(mesh, flash_ops)]
-    want_heads = [get_config(TP_ARCH).n_heads // len(ranks)]
-    for r, res in enumerate(ranks):
-        rel = abs(res["loss"] - one["loss"]) / abs(one["loss"])
-        if (res["tokens"] != one["tokens"] or rel > TP_LOSS_TOL
-                or res["serve_heads"] != want_heads
-                or res["train_heads"] != want_heads
-                or res["bf16_heads"] != want_heads
-                or res["serve_b5"] != one["serve_b5"]
-                or res["train_b5"] != one["train_b5"]
-                or res["bf16_b5"] != one["bf16_b5"]
-                or one["bf16_b5"] != {"sm90": TP_LAYERS, "simt": 0}):
-            raise AssertionError(
-                f"phase 24 rank {r} of {len(ranks)}: tokens {res['tokens']} "
-                f"(tp = 1: {one['tokens']}), loss {res['loss']!r} (tp = 1: "
-                f"{one['loss']!r}, rel {rel:.3g}), B5 serve "
-                f"{res['serve_b5']} on {res['serve_heads']}, train "
-                f"{res['train_b5']} on {res['train_heads']}, bf16 prefill "
-                f"{res['bf16_b5']} on {res['bf16_heads']} (tp = 1: "
-                f"{one['serve_b5']}, {one['train_b5']}, {one['bf16_b5']})")
-        log(f"phase 24 tp = {len(ranks)} rank {r}: tokens identical, loss "
-            f"{res['loss']!r} (rel {rel:.3g} <= {TP_LOSS_TOL}); B5 serve "
-            f"{json.dumps(res['serve_b5'])}, train "
-            f"{json.dumps(res['train_b5'])}, bf16 prefill "
-            f"{json.dumps(res['bf16_b5'])}, each on {want_heads[0]} q "
-            f"heads; peak GB serve {res['serve_peak_gb']:.2f} (tp = 1 "
-            f"{one['serve_peak_gb']:.2f}), train {res['train_peak_gb']:.2f} "
-            f"(tp = 1 {one['train_peak_gb']:.2f}); host s serve "
-            f"{res['serve_s']:.2f}, train step {res['train_s']:.2f} ({card})")
+            ranks = [{arch: tp_run(mesh, flash_ops, ssd_ops, arch, layers)
+                      for arch, layers in TP_ARCHS}]
+    tp = len(ranks)
+    for arch, layers in TP_ARCHS:
+        cfg = get_config(arch)
+        r1 = one[arch]
+        b5_heads = [cfg.n_heads // tp]
+        b6_heads = [mamba_dims(cfg)[1] // tp] if cfg.ssm else []
+        # B5 sm90 in the bf16 prefill: once a layer, or once a shared
+        # block's invocation
+        bf16_sm90 = (len(cfg.with_(n_layers=layers).shared_attn_points())
+                     if cfg.ssm else layers)
+        for r, rr in enumerate(ranks):
+            res = rr[arch]
+            rel = abs(res["loss"] - r1["loss"]) / abs(r1["loss"])
+            runs = ("serve", "bf16", "train")
+            if (res["tokens"] != r1["tokens"] or rel > TP_LOSS_TOL
+                    or any(res[f"{k}_heads"] != b5_heads for k in runs)
+                    or any(res[f"{k}_b5"] != r1[f"{k}_b5"] for k in runs)
+                    or any(res[f"{k}_b6"] != r1[f"{k}_b6"] for k in runs)
+                    or any(res[f"{k}_b6_heads"] != (b6_heads
+                                                    if res[f"{k}_b6"] else [])
+                           for k in runs)
+                    or (cfg.ssm and res["serve_b6"]
+                        != TP_REQUESTS * layers)
+                    or r1["bf16_b5"] != {"sm90": bf16_sm90, "simt": 0}):
+                raise AssertionError(
+                    f"phase 24 {arch} rank {r} of {tp}: tokens "
+                    f"{res['tokens']} (tp = 1: {r1['tokens']}), loss "
+                    f"{res['loss']!r} (tp = 1: {r1['loss']!r}, rel "
+                    f"{rel:.3g}); {tp_summary(res)} (tp = 1: "
+                    f"{tp_summary(r1)})")
+            log(f"phase 24 {arch} tp = {tp} rank {r}: tokens identical, "
+                f"loss {res['loss']!r} (rel {rel:.3g} <= {TP_LOSS_TOL}); "
+                f"{tp_summary(res)}; peak GB serve {res['serve_peak_gb']:.2f}"
+                f" (tp = 1 {r1['serve_peak_gb']:.2f}), train "
+                f"{res['train_peak_gb']:.2f} (tp = 1 "
+                f"{r1['train_peak_gb']:.2f}); host s serve "
+                f"{res['serve_s']:.2f}, train step {res['train_s']:.2f} "
+                f"({card})")
     log(f"phase 24 took {time.perf_counter() - t_phase:.1f} s (the "
         f"{TP_WORLD} processes {spawn_s:.1f} s) ({card})")
-    def total(res):
-        return {k: res["serve_b5"][k] + res["train_b5"][k] + res["bf16_b5"][k]
-                for k in res["serve_b5"]}
 
-    return {"tp1": total(one), f"tp{len(ranks)}_rank0": total(ranks[0])}
+    def total(res, kernel):
+        if kernel == "ssd":
+            return sum(res[f"{k}_b6"] for k in ("serve", "bf16", "train"))
+        return {v: sum(res[f"{k}_b5"][v] for k in ("serve", "bf16", "train"))
+                for v in res["serve_b5"]}
+
+    out = {"flash_attention": {}, "ssd": {}}
+    for arch, _ in TP_ARCHS:
+        for kernel in out:
+            if kernel == "flash_attention" or get_config(arch).ssm:
+                out[kernel][arch] = {
+                    "tp1": total(one[arch], kernel),
+                    f"tp{tp}_rank0": total(ranks[0][arch], kernel)}
+    return out
 
 
 def main() -> int:
@@ -5282,8 +5338,8 @@ def main() -> int:
     # ---- 24. the "model" split at tp = 2 -----------------------------------
     tp = phase_tp(ops_by_name, smi)
     for row in kernel_rows:
-        if row["name"] == "flash_attention":
-            row["tp_launches"] = tp
+        if row["name"] in tp:
+            row["tp_launches"] = tp[row["name"]]
 
     # ---- report -------------------------------------------------------------
     log(smi)                     # the card's name and power limit

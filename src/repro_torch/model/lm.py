@@ -11,18 +11,19 @@ moment buffers it is given, as the reference's trainer donates them to
 ``jax.jit``.
 
 Given a ``torch.distributed`` device mesh (``launch/mesh.py``), the steps
-run on every rank of it and split the transformer families' compute over
-``"model"`` as the reference's layouts place it: each rank computes its
-q heads (and its kv heads where they divide the axis), its columns of
-every MLP's and the shared experts' hidden width and its rows of the
-vocabulary, and the partial sums go through ``shardmap.psum``
-(``layers.Ctx.split``); the routed experts go to their ranks through the
-MoE's ``psum``/``a2a`` dispatches. The leaves computed split are
-:func:`_model_specs`'; every other leaf (the norms, the router, the
-Mamba-2 and RWKV-6 mixers, zamba2's shared block, the frontends) is
-computed whole on every rank. The serving steps take the rank's blocks
-(:func:`model_blocks`), keep the rank's kv heads in the cache and give
-every rank the whole last-position logits. The train step takes and
+run on every rank of it and split the transformer and hybrid families'
+compute over ``"model"`` as the reference's layouts place it: each rank
+computes its q heads (and its kv heads where they divide the axis), its
+columns of every MLP's and the shared experts' hidden width, its block
+of a Mamba-2 mixer's ``d_inner`` and heads (``ssm.mixer_splits``), and
+its rows of the vocabulary, and the partial sums go through
+``shardmap.psum`` (``layers.Ctx.split``); the routed experts go to their
+ranks through the MoE's ``psum``/``a2a`` dispatches. The leaves computed
+split are :func:`_model_specs`'; every other leaf (the norms, the router,
+the RWKV-6 mixers, the frontends) is computed whole on every rank. The
+serving steps take the rank's blocks (:func:`model_blocks`), keep the
+rank's kv heads and Mamba-2 heads in the cache and give every rank the
+whole last-position logits. The train step takes and
 returns each rank's blocks of the parameters (their layouts,
 ``Stepper.shardings``) and its slices of the moments (ZeRO-1,
 ``optim/adamw.py``): the batch is split over the data axes (a
@@ -30,7 +31,9 @@ returns each rank's blocks of the parameters (their layouts,
 ``"model"`` whose operands are the blocks as ``DTensor``s (a leaf
 computed whole gathered over ``"model"``, the rest as they lie), the
 cross-entropy takes the logits as each rank's vocabulary columns
-(:func:`_ce_sum`: the ``(B, S, V)`` logits are never gathered), the
+(:func:`_ce_sum`: the ``(B, S, V)`` logits are never gathered) and is
+the whole batch's (its count of unmasked targets summed over the data
+axes; under ``grad_compression`` each data rank's, averaged), the
 gradients are reduced over the data axes (an f32 all-reduce, or
 ``optim/compress.py``'s int8 butterfly under ``grad_compression``), and
 the update keeps each rank's slices.
@@ -110,13 +113,11 @@ def cross_entropy(logits: torch.Tensor, targets: torch.Tensor,
 CE_CHUNK = 512
 
 
-def chunked_ce_loss(hidden: torch.Tensor, targets: torch.Tensor,
+def _chunked_ce_sum(hidden: torch.Tensor, targets: torch.Tensor,
                     head_fn, vocab_split: bool = False
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Memory-bounded LM loss: the (B, S, V) logits tensor is never alive
-    at once — each chunk's logits and CE under :func:`checkpoint` (the
-    backward recomputes the chunk's logits instead of keeping them); the
-    last chunk is ragged. ``vocab_split`` as :func:`_ce_sum`'s."""
+    """:func:`_ce_sum` over the logits of ``head_fn(hidden)``, a chunk of
+    positions at a time (:func:`chunked_ce_loss`)."""
     S = hidden.shape[1]
     ck = min(CE_CHUNK, S)
     chunk_loss = checkpoint(
@@ -125,6 +126,17 @@ def chunked_ce_loss(hidden: torch.Tensor, targets: torch.Tensor,
     for i in range(0, S, ck):
         li, ni = chunk_loss(hidden[:, i:i + ck], targets[:, i:i + ck])
         tot, n = (li, ni) if tot is None else (tot + li, n + ni)
+    return tot, n
+
+
+def chunked_ce_loss(hidden: torch.Tensor, targets: torch.Tensor,
+                    head_fn, vocab_split: bool = False
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Memory-bounded LM loss: the (B, S, V) logits tensor is never alive
+    at once — each chunk's logits and CE under :func:`checkpoint` (the
+    backward recomputes the chunk's logits instead of keeping them); the
+    last chunk is ragged. ``vocab_split`` as :func:`_ce_sum`'s."""
+    tot, n = _chunked_ce_sum(hidden, targets, head_fn, vocab_split)
     n = torch.clamp(n, min=1)
     return tot / n, n
 
@@ -149,12 +161,17 @@ def _window_apply(cfg: ModelConfig):
 
 def make_loss_fn(cfg: ModelConfig, mesh_cfg: MeshConfig,
                  par: ParallelismConfig, mesh: Optional[Any] = None,
-                 split: bool = False):
+                 split: bool = False, batch_axes: Tuple[str, ...] = ()):
     """(params, batch) -> (loss, metrics): the window MSE, or the LM's
     cross-entropy (chunked over positions where ``cfg.ce_chunked``) plus
     the auxiliary loss, with ``{"loss", "aux", "n_tok"}``. ``split``: run
     in a region manual over ``"model"`` on the blocks of
-    :func:`_model_specs` (``Ctx.split``)."""
+    :func:`_model_specs` (``Ctx.split``). ``batch_axes``: the manual axes
+    that cut the batch; the CE is then this rank's part of the whole
+    batch's, its sum over the count of every rank's unmasked targets
+    (``n_tok``), times the axes' size, so that the mean over them
+    (``optim/compress.py::data_parallel_grad_fn``) of the loss and of its
+    gradient is the whole batch's."""
     if cfg.family in WINDOW_FAMILIES:
         apply_fn = _window_apply(cfg)
 
@@ -170,12 +187,19 @@ def make_loss_fn(cfg: ModelConfig, mesh_cfg: MeshConfig,
         hidden, _, aux = apply_model(params, batch, ctx, return_hidden=True)
         vs = head_split(cfg, ctx)
         if cfg.ce_chunked:
-            ce, n_tok = chunked_ce_loss(hidden, batch["targets"],
-                                        lambda h: head_logits(params, h, ctx),
-                                        vs)
+            tot, n_tok = _chunked_ce_sum(
+                hidden, batch["targets"],
+                lambda h: head_logits(params, h, ctx), vs)
         else:
-            ce, n_tok = cross_entropy(head_logits(params, hidden, ctx),
-                                      batch["targets"], vs)
+            tot, n_tok = _ce_sum(head_logits(params, hidden, ctx),
+                                 batch["targets"], vs)
+        if batch_axes:
+            from repro_torch import shardmap as sm
+
+            n_tok = sm.psum(n_tok, batch_axes)
+            tot = tot * sm.axis_size(batch_axes)
+        n_tok = torch.clamp(n_tok, min=1)
+        ce = tot / n_tok
         return ce + aux, {"loss": ce, "aux": aux, "n_tok": n_tok}
 
     return loss_fn
@@ -207,20 +231,24 @@ def make_train_step(cfg: ModelConfig, mesh_cfg: MeshConfig,
     return step
 
 
-#: a transformer block's subtrees computed split over "model"
+#: a block's subtrees computed split over "model": a transformer block's
+#: attentions and MLP, zamba2's shared block's
 _SPLIT_BLOCKS = ("attn", "self_attn", "cross_attn", "mlp")
 
 
-def _model_specs(cfg: ModelConfig, schema, split: bool = True):
+def _model_specs(cfg: ModelConfig, schema, tp: int, split: bool = True):
     """The block of each parameter leaf the mesh steps compute with, in
-    their region over ``"model"``: its layout (``P(*s.pspec)``) for the
-    embedding and head, every attention and MLP of a transformer block,
-    the MoE's shared experts, and a routed expert stack that the MoE's
+    their region over a ``"model"`` axis of ``tp`` ranks (``schema``'s
+    tp): its layout (``P(*s.pspec)``) for the embedding and head, every
+    attention and MLP of a transformer block and of zamba2's shared
+    block, the MoE's shared experts, a Mamba-2 mixer where it splits
+    (``ssm.mixer_splits``), and a routed expert stack that the MoE's
     ``psum``/``a2a`` consume split (``PSpec.experts``); ``P()`` (whole)
-    for every other leaf: the norms, the router, the Mamba-2 and RWKV-6
-    mixers, zamba2's shared block, the frontends. ``split=False``: the
-    expert stacks alone keep their layout (every rank computing the rest
-    whole)."""
+    for every other leaf: the norms, the router, the shared block's
+    ``out_proj``, a Mamba-2 mixer that does not split, the RWKV-6
+    mixers, the frontends. ``split=False``: the expert stacks alone keep
+    their layout (every rank computing the rest whole)."""
+    from repro_torch.model.ssm import mixer_splits
     from repro_torch.shardmap import P
 
     ep = cfg.moe is not None and cfg.moe.impl != "dense"
@@ -232,12 +260,14 @@ def _model_specs(cfg: ModelConfig, schema, split: bool = True):
     if not split or cfg.family in WINDOW_FAMILIES:
         return specs(schema)
     groups = {f"g{gi}" for gi in range(len(group_structure(cfg)))}
+    mamba = cfg.ssm is not None and mixer_splits(cfg, tp)
     out = {}
     for key, sub in schema.items():
         if key == "embed":
             out[key] = specs(sub, laid=True)
-        elif key in groups:
-            out[key] = {k: specs(v, laid=k in _SPLIT_BLOCKS)
+        elif key in groups or key == "shared":
+            out[key] = {k: specs(v, laid=k in _SPLIT_BLOCKS
+                                 or (k == "mamba" and mamba))
                         for k, v in sub.items()}
             if "moe" in sub and "shared" in sub["moe"]:
                 out[key]["moe"]["shared"] = specs(sub["moe"]["shared"],
@@ -251,9 +281,10 @@ def model_blocks(params, cfg: ModelConfig, mesh_cfg: MeshConfig, mesh):
     """This rank's blocks of the whole ``params`` as the mesh steps
     compute with them (:func:`_model_specs`; ``layers.local_blocks``): a
     copy of each leaf split over ``"model"``, every other leaf itself."""
-    schema = param_schema(cfg, tp=mesh_cfg.axis_size("model"))
+    tp = mesh_cfg.axis_size("model")
+    schema = param_schema(cfg, tp=tp)
     blocks = tree_map(lambda s, sp: Sharding(mesh, placements(mesh, sp)),
-                      schema, _model_specs(cfg, schema), is_leaf=is_pspec)
+                      schema, _model_specs(cfg, schema, tp), is_leaf=is_pspec)
     return local_blocks(params, blocks)
 
 
@@ -273,38 +304,49 @@ def _mesh_grad_fn(cfg, mesh_cfg, par, mesh, split: bool = True):
     if tuple(mesh.mesh_dim_names) != tuple(mesh_cfg.axes):
         raise ValueError(f"mesh axes {mesh.mesh_dim_names} are not "
                          f"{mesh_cfg.axes}")
-    schema = param_schema(cfg, tp=mesh_cfg.axis_size("model"))
+    tp = mesh_cfg.axis_size("model")
+    schema = param_schema(cfg, tp=tp)
     tp_mesh = mesh["model"]
     # a parameter layout names "model" alone (placements raises otherwise)
     stored = tree_map(lambda s: placements(tp_mesh, s.pspec), schema,
                       is_leaf=is_pspec)
-    # each leaf enters as a DTensor of its blocks, redistributed to the
-    # spec the loss computes with (a leaf computed whole is gathered over
-    # "model", its backward a reduce-scatter; the rest enter as they lie)
-    model_loss = sm.shard_map(
-        make_loss_fn(cfg, mesh_cfg, par, mesh, split), mesh=mesh,
-        in_specs=(_model_specs(cfg, schema, split), P()), out_specs=P(),
-        axis_names={"model"})
-
-    def local_loss(params, batch):
-        leaves = tree_map(
-            lambda t, pl: DTensor.from_local(t, tp_mesh, pl,
-                                             run_check=False),
-            params, stored)
-        return model_loss(leaves, batch)
-
+    specs = _model_specs(cfg, schema, tp, split)
     # the int8 reduction needs more than one rank, as the reference's
-    reduce_grads = (int8_mean_tree
-                    if par.grad_compression and mesh.size() > 1
-                    else f32_mean_tree)
+    compressed = par.grad_compression and mesh.size() > 1
+    reduce_grads = int8_mean_tree if compressed else f32_mean_tree
+
+    def local_loss_fn(ba):
+        """The loss of a data rank's part of the batch, cut over the axes
+        ``ba``: the whole batch's CE where the gradients are reduced in
+        f32, as the reference's step takes it; under the int8 reduction
+        the part's own, whose mean over the data ranks the reference's
+        compressed step takes."""
+        # each leaf enters as a DTensor of its blocks, redistributed to
+        # the spec the loss computes with (a leaf computed whole is
+        # gathered over "model", its backward a reduce-scatter; the rest
+        # enter as they lie)
+        model_loss = sm.shard_map(
+            make_loss_fn(cfg, mesh_cfg, par, mesh, split,
+                         () if compressed or ba is None else ba),
+            mesh=mesh, in_specs=(specs, P()), out_specs=P(),
+            axis_names={"model"})
+
+        def local_loss(params, batch):
+            leaves = tree_map(
+                lambda t, pl: DTensor.from_local(t, tp_mesh, pl,
+                                                 run_check=False),
+                params, stored)
+            return model_loss(leaves, batch)
+
+        return local_loss
 
     def grad_fn(params, batch):
         gb = next(iter(batch.values())).shape[0]
         ba = _batch_axis(mesh_cfg, gb)
         bspec = {k: P(ba, *([None] * (v.ndim - 1)))
                  for k, v in batch.items()}
-        return data_parallel_grad_fn(local_loss, mesh, mesh_cfg, bspec,
-                                     reduce_grads)(params, batch)
+        return data_parallel_grad_fn(local_loss_fn(ba), mesh, mesh_cfg,
+                                     bspec, reduce_grads)(params, batch)
 
     return grad_fn
 

@@ -29,7 +29,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.types import ModelConfig
-from repro_torch.model.layers import Ctx, PSpec, pspec, shard_axis
+from repro_torch.model.layers import (Ctx, PSpec, model_sum, pspec,
+                                      shard_axis)
 
 # ---------------------------------------------------------------------------
 # Schema
@@ -41,6 +42,16 @@ def mamba_dims(cfg: ModelConfig) -> Tuple[int, int, int, int]:
     d_inner = s.expand * cfg.d_model
     n_heads = d_inner // s.headdim
     return d_inner, n_heads, s.headdim, s.d_state
+
+
+def mixer_splits(cfg: ModelConfig, tp: int) -> bool:
+    """Whether a split step computes the mixer as this rank's block over
+    a ``"model"`` axis of ``tp``: ``d_inner`` and the heads both split
+    over it (:func:`mamba_schema`'s layouts) and B and C are one group,
+    whole on every rank. Otherwise every rank computes it whole."""
+    d_inner, H, _, _ = mamba_dims(cfg)
+    return (cfg.ssm.n_groups == 1 and shard_axis(d_inner, tp) == "model"
+            and shard_axis(H, tp) == "model")
 
 
 def mamba_schema(cfg: ModelConfig, tp: int = 16):
@@ -291,9 +302,16 @@ def _ssd_kernel(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
 
 
 def _gated_rmsnorm(y: torch.Tensor, z: torch.Tensor, scale: torch.Tensor,
-                   eps: float = 1e-5) -> torch.Tensor:
+                   eps: float = 1e-5, width: int = 0) -> torch.Tensor:
+    """RMS norm of ``y * silu(z)`` over its last dim. ``width``: that
+    dim's whole size where ``y`` holds this rank's block of it over
+    ``"model"``; the mean of squares is then the ranks' sums summed over
+    the axis, over ``width``."""
     yf = (y * F.silu(z)).float()
-    ms = yf.square().mean(-1, keepdim=True)
+    if not width or width == yf.shape[-1]:
+        ms = yf.square().mean(-1, keepdim=True)
+    else:
+        ms = model_sum(yf.square().sum(-1, keepdim=True)) / width
     return (yf * torch.rsqrt(ms + eps) * scale.float()).to(y.dtype)
 
 
@@ -306,11 +324,24 @@ def mamba_apply(
     """One Mamba-2 mixer: (out (B, S, D) in hx's dtype, the new decode
     state in prefill and decode, else None). Decode takes one position and
     ``state``; prefill and training run the scan (:func:`_ssd_scan`) over
-    the sequence from ``state["ssm"]`` where given."""
+    the sequence from ``state["ssm"]`` where given.
+
+    Where the step computes split and the mixer splits
+    (:func:`mixer_splits`), ``p`` and ``state`` hold this rank's block of
+    ``d_inner`` and its heads over ``"model"``: the scan runs on its
+    heads, the gated norm sums its squares over the axis and ``w_out``'s
+    partial products are summed over it. The widths come from the
+    blocks' shapes."""
     cfg = ctx.cfg
     s = cfg.ssm
     dt_ = ctx.compute_dtype
-    d_inner, H, Pd, N = mamba_dims(cfg)
+    d_whole, _, Pd, N = mamba_dims(cfg)
+    d_inner, H = p["w_x"].shape[-1], p["w_dt"].shape[-1]
+    split = ctx.split and mixer_splits(cfg, ctx.tp_size)
+    want = d_whole // ctx.tp_size if split else d_whole
+    if d_inner != want:
+        raise ValueError(f"w_x holds {d_inner} of d_inner {d_whole}, not "
+                         f"the {want} this step computes with")
     G = s.n_groups
     B, S, _ = hx.shape
     hc = hx.to(dt_)
@@ -355,6 +386,8 @@ def mamba_apply(
                          "conv_B": _conv_tail(Bm, W).to(x.dtype),
                          "conv_C": _conv_tail(Cm, W).to(x.dtype)}
 
-    yn = _gated_rmsnorm(y, z, p["norm_scale"])
-    out = (yn @ p["w_out"].to(dt_)).to(hx.dtype)
-    return out, new_state
+    yn = _gated_rmsnorm(y, z, p["norm_scale"], width=d_whole)
+    out = yn @ p["w_out"].to(dt_)
+    if split:
+        out = model_sum(out)
+    return out.to(hx.dtype), new_state

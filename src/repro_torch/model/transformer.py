@@ -53,7 +53,7 @@ from repro_torch.model.attention import attn_apply, attn_schema, cache_schema
 from repro_torch.model.layers import (Ctx, PSpec, apply_mlp, apply_norm,
                                       checkpoint, embed_schema, embed_tokens,
                                       head_split, lm_logits, mlp_schema,
-                                      norm_schema,
+                                      model_sum, norm_schema,
                                       pspec, tree_leaves, tree_map,
                                       tree_map_pspec)
 
@@ -293,9 +293,11 @@ def _apply_rwkv_block(p, x, ctx: Ctx, cache):
 
 def _apply_shared_block(p, x, emb0, ctx: Ctx, cache):
     """zamba2 shared attention block; input concat(h, emb0), width 2d.
-    Returns (x + out_proj(block), its attention cache). Its leaves are
-    whole on every rank (``lm._model_specs``), so it computes whole."""
-    ctx = dataclasses.replace(ctx, split=False)
+    Returns (x + out_proj(block), its attention cache). Where the step
+    computes split, its attention runs on the rank's heads (``attn_apply``)
+    and its MLP on the rank's ``d_ff`` columns where they split, each
+    summed over ``"model"`` (``shared_block_schema``'s layouts);
+    ``out_proj`` runs whole on the summed ``u``."""
     u = torch.cat([x, emb0], dim=-1)
     a, new_cache = attn_apply(p["attn"], apply_norm(p["norm1"], u, ctx.cfg),
                               ctx, cache=cache)
@@ -305,7 +307,10 @@ def _apply_shared_block(p, x, emb0, ctx: Ctx, cache):
     mp = p["mlp"]
     h = torch.nn.functional.silu(un @ mp["w_gate"].to(dt)) * (
         un @ mp["w_up"].to(dt))
-    u = u + (h @ mp["wo"].to(dt)).to(u.dtype)
+    m = h @ mp["wo"].to(dt)
+    if ctx.splits(ctx.cfg.d_ff):
+        m = model_sum(m)
+    u = u + m.to(u.dtype)
     out = (u.to(dt) @ p["out_proj"].to(dt)).to(x.dtype)
     return ctx.constrain(x + out), new_cache
 

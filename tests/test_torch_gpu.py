@@ -2391,3 +2391,69 @@ def test_card_tp_split_step_on_a_world_of_one_is_the_meshless_step(
     assert all(torch.equal(a, b) for a, b in zip(g1, g0))
     assert v1 == v0 == {"sm90": 2 * cfg.n_layers, "simt": 0}
     assert h1 == h0 == [cfg.n_heads] * (2 * cfg.n_layers)
+
+
+def test_card_tp_zamba2_on_a_world_of_one_is_the_meshless_model(
+        cuda, world_of_one, monkeypatch):
+    """The zamba2 smoke in f32 on the (1, 1) card mesh, its Mamba-2 mixers
+    and shared block computed as the rank's share (here the whole on a
+    model axis of 1): ``Server(mesh=)``'s greedy tokens equal the meshless
+    ``Server``'s, B6 runs on the rank's heads once a layer of each
+    prefill and B5 on the shared block's q heads, and the split train
+    step's loss and every gradient leaf equal the meshless step's bit for
+    bit."""
+    from repro_torch.core.types import MeshConfig
+    from repro_torch.data.pipeline import LMDataConfig, lm_batch_for_step
+    from repro_torch.model import lm
+    from repro_torch.model.layers import (local_blocks, tree_leaves,
+                                          value_and_grad)
+    from repro_torch.model.ssm import mamba_dims
+    from repro_torch.runtime.server import Server, ServerConfig
+
+    cfg = get_config("zamba2-7b", smoke=True)
+    mcfg = MeshConfig((1, 1), ("data", "model"))
+    par = ParallelismConfig(compute_dtype="float32", attn_impl="flash")
+    st = Stepper(cfg, ShapeConfig("t", "train", 32, 2), mcfg, par,
+                 mesh=world_of_one)
+    params = st.init(seed=5, device=cuda)
+    heads = []
+    real = ssd_ops.ssd_cuda
+
+    def counted(x, *a, **kw):
+        heads.append(x.shape[2])
+        return real(x, *a, **kw)
+
+    monkeypatch.setattr(ssd_ops, "ssd_cuda", counted)
+    prompts = ([5, 9, 13, 17, 21, 25, 27], [7, 11, 3, 19, 23, 29, 31])
+    served = []
+    for mesh_cfg, mesh in ((SMOKE_MESH, None), (mcfg, world_of_one)):
+        ssd_ops.launches = 0
+        flash_ops.launches_by_variant = dict.fromkeys(
+            flash_ops.launches_by_variant, 0)
+        heads.clear()
+        srv = Server(cfg, params, ServerConfig(batch_slots=2, max_len=12,
+                                               eos_token=-1),
+                     mesh_cfg, par, device=cuda, mesh=mesh)
+        for p in prompts:
+            srv.submit(p, max_new_tokens=4)
+        served.append(([list(r.out_tokens) for r in srv.run_until_drained()],
+                       ssd_ops.launches, list(heads),
+                       sum(flash_ops.launches_by_variant.values())))
+    (t0, n0, h0, f0), (t1, n1, h1, f1) = served
+    _, n_heads, _, _ = mamba_dims(cfg)
+    assert t1 == t0
+    assert n1 == n0 == len(prompts) * cfg.n_layers
+    assert h1 == h0 == [n_heads] * n0
+    assert f1 == f0 == len(prompts) * len(cfg.shared_attn_points())
+    batch = {k: torch.as_tensor(v, device=cuda) for k, v in
+             lm_batch_for_step(LMDataConfig(vocab_size=cfg.vocab_size,
+                                            seq_len=32, global_batch=2),
+                               0).items()}
+    (l0, _), g0 = value_and_grad(lm.make_loss_fn(cfg, SMOKE_MESH, par),
+                                 has_aux=True)(params, batch)
+    blocks = local_blocks(params, st.state_shardings()["params"])
+    l1, _, g1 = lm._mesh_grad_fn(cfg, mcfg, par, world_of_one)(blocks, batch)
+    torch.cuda.synchronize()
+    assert torch.equal(l1, l0)
+    assert all(torch.equal(a, b) for a, b in zip(tree_leaves(g1),
+                                                 tree_leaves(g0)))

@@ -1,26 +1,29 @@
-"""PyTorch port, the ``"model"`` split of the transformer families' steps
-(``model/lm.py``: ``_model_specs``, the split train step and
-``Server(mesh=)``; ``layers.py``'s MLP, embedding and head,
-``attention.py``'s heads, ``moe.py``'s shared experts, the
-vocabulary-parallel cross-entropy and ``shardmap.logsumexp``) against the
-reference's XLA-partitioned steps on (2, 2) and (2, 4) meshes (the port
-as 4 and 8 ``gloo`` ranks, the reference with 8 forced host devices:
+"""PyTorch port, the ``"model"`` split of the transformer and hybrid
+families' steps (``model/lm.py``: ``_model_specs``, the split train step
+and ``Server(mesh=)``; ``layers.py``'s MLP, embedding and head,
+``attention.py``'s heads, ``moe.py``'s shared experts, ``ssm.py``'s
+Mamba-2 mixer, zamba2's shared block, the vocabulary-parallel
+cross-entropy and ``shardmap.logsumexp``) against the reference's
+XLA-partitioned steps on (2, 2) and (2, 4) meshes (the port as 4 and 8
+``gloo`` ranks, the reference with 8 forced host devices:
 ``tests/torch_ranks.py``), from the reference's parameters, in f32:
 
 * the yi-9b smoke (4 q heads, 2 kv heads: the kv heads split at a model
   axis of 2, replicated at 4, where each rank's q head reads the kv head
   of its group), also under ``scan_layers`` (the stacked leaves split one
-  dim later), the internvl2-1b smoke with 6 q heads (its attention
-  split at 2, whole at 4, its MLP and tied vocabulary split at both) and
-  the deepseek-moe-16b smoke (shared experts, a dense first layer) with
-  each MoE impl;
-* the loss within 1e-5 (relative) and each gradient leaf within 1e-5
-  (relative rms) of the reference's and of the port's whole-step form,
-  every rank gathering the same gradients; 3 steps of the mesh
-  ``Trainer`` within 1e-4 of the reference's losses;
+  dim later) and on a batch masked unevenly over ``"data"`` (ROADMAP
+  §C14), the internvl2-1b smoke with 6 q heads (its attention split at
+  2, whole at 4, its MLP and tied vocabulary split at both), the
+  zamba2-7b smoke (8 Mamba-2 heads, ``d_inner`` 128, a shared block of 4
+  heads: all split at both) and the deepseek-moe-16b smoke (shared experts, a dense first layer) with each MoE impl;
+* the loss and ``n_tok`` within 1e-5 (relative) and each gradient leaf
+  within 1e-5 (relative rms) of the reference's and of the port's
+  whole-step form, every rank gathering the same gradients; 3 steps of
+  the mesh ``Trainer`` within 1e-4 of the reference's losses;
 * ``Server(mesh=)``'s greedy tokens (prefill, then decode) equal to the
   reference's ``Server(mesh=)`` and to the port's meshless ``Server``,
-  the rank's cache holding its kv heads where they split;
+  the rank's cache holding its kv heads where they split and its
+  Mamba-2 heads;
 * the split step gathers no leaf over ``"model"`` (``CommDebugMode``
   sees no ``DTensor`` all-gather), and the helper's wire bytes are the
   sums the shapes call for: the activations' partial sums, the
@@ -30,6 +33,7 @@ as 4 and 8 ``gloo`` ranks, the reference with 8 forced host devices:
 The reference's jobs run side by side, then the port's two.
 """
 import concurrent.futures
+import dataclasses
 import warnings
 
 import numpy as np
@@ -42,6 +46,7 @@ from repro_torch.convert import params_from_jax
 from repro_torch.core.types import MeshConfig
 from repro_torch.model import attention as tattn
 from repro_torch.model import lm as tlm
+from repro_torch.model import ssm as tssm
 from repro_torch.model.layers import Ctx, is_pspec, shard_axis, tree_leaves
 from repro_torch.shardmap import P
 
@@ -94,6 +99,8 @@ def test_split_step_against_reference_and_whole_form(runs, name, mesh):
     want = ref[mesh][name]
     for loss in (want["loss"], got["whole"]["loss"]):
         assert abs(got["split"]["loss"] - loss) <= 1e-5 * abs(loss)
+    for form in ("split", "whole"):
+        assert abs(got[form]["n_tok"] - want["n_tok"]) <= 1e-5 * want["n_tok"]
     ref_g = tree_leaves(params_from_jax(want["grads"], _cfg(name)))
     split_g = tree_leaves(got["split"]["grads"])
     whole_g = tree_leaves(got["whole"]["grads"])
@@ -129,18 +136,83 @@ def test_server_greedy_tokens(runs, name, mesh):
     """Prefill then ``TP_NEW - 1`` decode ticks of two requests: the
     reference's ``Server(mesh=)``'s tokens and the meshless ``Server``'s,
     on every rank; the rank's cache holds ``n_kv_heads / tp`` heads where
-    they split over ``"model"``, all of them where they do not."""
+    they split over ``"model"``, all of them where they do not (zamba2's
+    in its shared block's cache), and a Mamba-2 layer's state the rank's
+    ``H / tp`` heads and ``d_inner / tp`` conv channels."""
     ref, ports = runs
     cfg = _cfg(name)
     tp = _tp(mesh)
     kv = cfg.n_kv_heads
-    want_kv = kv // tp if shard_axis(kv, tp) else kv
+    want = {"kv": kv // tp if shard_axis(kv, tp) else kv}
+    if cfg.ssm is not None:
+        d_inner, heads, _, _ = tssm.mamba_dims(cfg)
+        want.update(ssm=heads // tp, conv_x=d_inner // tp)
     for r in ports[mesh]:
         got = r[name]
         assert got["tokens"] == ref[mesh][name]["tokens"]
         assert got["meshless_tokens"] == got["tokens"]
-        assert got["cache_kv_heads"] == want_kv
+        assert got["cache_heads"] == want
         assert all(len(t) == tr.TP_NEW for t in got["tokens"])
+
+
+@pytest.mark.parametrize("mesh", MESHES)
+def test_unevenly_masked_batch_takes_the_whole_batch_ce(runs, mesh):
+    """ROADMAP §C14: ``TP_MASKED`` targets of the first data shard masked,
+    none of the other's. The split and the whole-step form count every
+    unmasked target of the batch and take one CE sum over that count, as
+    the reference's step; the mean of the two shards' means would be off
+    by about 1e-2 of the loss here."""
+    ref, ports = runs
+    want = ref[mesh]["yi/uneven"]
+    assert want["n_tok"] == tr.TP_B * tr.TP_S - tr.TP_MASKED
+    shard = tr.TP_B // 2
+    b = np.asarray(want["batch"]["targets"])
+    assert [int((b[i * shard:(i + 1) * shard] < 0).sum()) for i in (0, 1)] \
+        == [tr.TP_MASKED, 0]
+    for r in ports[mesh]:
+        for form in ("split", "whole"):
+            got = r["yi/uneven"][form]
+            assert got["n_tok"] == want["n_tok"]
+            assert abs(got["loss"] - want["loss"]) <= 1e-5 * want["loss"]
+
+
+@pytest.mark.parametrize("mesh", MESHES)
+def test_zamba2_split_holds_and_computes_its_blocks(runs, mesh):
+    """The zamba2 smoke's split step: each rank holds its block of the
+    Mamba-2 mixer's ``d_inner`` and heads and of the shared block's
+    attention heads and MLP columns (``lm.model_blocks``), and no leaf is
+    gathered over ``"model"`` (``CommDebugMode`` sees no ``DTensor``
+    all-gather); the whole-step form gathers them."""
+    _, ports = runs
+    cfg = _cfg("zamba2")
+    tp = _tp(mesh)
+    d_inner, heads, _, _ = tssm.mamba_dims(cfg)
+    d, L, hd = cfg.d_model, cfg.n_layers, cfg.hd
+    want_mamba = {
+        "w_z": (L, d, d_inner // tp), "w_x": (L, d, d_inner // tp),
+        "conv_x": (L, 4, d_inner // tp), "norm_scale": (L, d_inner // tp),
+        "w_dt": (L, d, heads // tp), "A_log": (L, heads // tp),
+        "dt_bias": (L, heads // tp), "D": (L, heads // tp),
+        "w_out": (L, d_inner // tp, d)}
+    h = cfg.n_heads * hd // tp
+    want_shared = {
+        "attn": {"wq": (2 * d, h), "wk": (2 * d, h), "wv": (2 * d, h),
+                 "wo": (h, 2 * d)},
+        "mlp": {"w_gate": (2 * d, cfg.d_ff // tp),
+                "w_up": (2 * d, cfg.d_ff // tp),
+                "wo": (cfg.d_ff // tp, 2 * d)},
+        "out_proj": (2 * d, d)}
+    for r in ports[mesh]:
+        got = r["zamba2"]
+        mamba = got["blocks"]["g0"]["mamba"]
+        for k, shape in want_mamba.items():
+            assert mamba[k] == shape, k
+        for k in ("w_B", "w_C"):
+            assert mamba[k] == (L, d, cfg.ssm.d_state)
+        shared = got["blocks"]["shared"]
+        assert {k: shared[k] for k in want_shared} == want_shared
+        assert got["split"]["gathers"] == 0
+        assert got["whole"]["gathers"] > 0
 
 
 @pytest.mark.parametrize("mesh", MESHES)
@@ -156,8 +228,8 @@ def test_split_step_gathers_no_leaf_and_sums_what_the_shapes_say(runs,
     f32 each, 4 L + 2 of them), the CE's sum of exponentials and gold
     logit, forward and backward ((B/dp, S) f32, 4 of them), its row maxima
     gathered ((B/dp, S) f32 from each other rank) and nothing else; over
-    ``"data"`` every gradient block and the 4 scalars of loss and
-    metrics. The whole-step form gathers each leaf split over
+    ``"data"`` every gradient block, the 4 scalars of loss and metrics
+    and the CE's count of unmasked targets (an int32, ROADMAP §C14). The whole-step form gathers each leaf split over
     ``"model"``."""
     _, ports = runs
     cfg = get_config("yi-9b", smoke=True)
@@ -167,7 +239,8 @@ def test_split_step_gathers_no_leaf_and_sums_what_the_shapes_say(runs,
     ring_d = 2 * (dp - 1) / dp
     for r in ports[mesh]:
         split, whole = r["counter"]["split"], r["counter"]["whole"]
-        data = ring_d * (4 * split["grad_numel"] + 4 * 4)
+        # the gradients, the loss and metrics, the CE's count of targets
+        data = ring_d * (4 * split["grad_numel"] + 4 * 4 + 4)
         model = ring_m * 4 * (bl * s * d * (4 * layers + 2) + 4 * bl * s)
         assert split["wire"] == {"all-reduce": data + model,
                                  "all-gather": 4 * bl * s * (tp - 1)}
@@ -175,7 +248,7 @@ def test_split_step_gathers_no_leaf_and_sums_what_the_shapes_say(runs,
         leaves = tree_leaves(tlm.param_schema(cfg, tp=tp), is_pspec)
         n_split = sum(1 for s_ in leaves if "model" in s_.pspec)
         assert split["comm"] == {
-            "c10d.allreduce_": len(leaves) + 4 + 4 * layers + 2 + 4,
+            "c10d.allreduce_": len(leaves) + 4 + 1 + 4 * layers + 2 + 4,
             "c10d.allgather_": 1,
             "c10d_functional.all_reduce": len(leaves) - n_split}
         assert whole["comm"][
@@ -191,22 +264,28 @@ def test_split_step_gathers_no_leaf_and_sums_what_the_shapes_say(runs,
 @pytest.mark.parametrize("arch", ARCH_IDS)
 def test_model_specs_split_the_transformer_leaves_alone(arch):
     """Each leaf of the embedding and head, of every attention and MLP of
-    a transformer block and of the shared experts keeps its layout; a
-    routed expert stack keeps its layout under ``psum``/``a2a``; every
-    other leaf (norms, router, Mamba-2, RWKV-6, zamba2's shared block,
+    a transformer block and of zamba2's shared block, of the shared
+    experts and of a Mamba-2 mixer that splits (``ssm.mixer_splits``:
+    the zamba2 smoke's at a model axis of 4) keeps its layout; a routed
+    expert stack keeps its layout under ``psum``/``a2a``; every other
+    leaf (norms, router, the shared block's ``out_proj``, RWKV-6,
     frontends) is whole."""
     cfg = get_config(arch, smoke=True)
     schema = tlm.param_schema(cfg, tp=4)
-    specs = tlm._model_specs(cfg, schema)
+    specs = tlm._model_specs(cfg, schema, 4)
     ep = cfg.moe is not None and cfg.moe.impl != "dense"
     split_keys = {"attn", "self_attn", "cross_attn", "mlp"}
+    mamba = cfg.ssm is not None and tssm.mixer_splits(cfg, 4)
+    assert mamba == (arch == "zamba2-7b")
 
     def walk(sch, sp, path):
         if is_pspec(sch):
             laid = (path[0] == "embed"
                     or (path[0].startswith("g") and (
                         path[1] in split_keys
-                        or path[1:3] == ("moe", "shared")))
+                        or path[1:3] == ("moe", "shared")
+                        or (path[1] == "mamba" and mamba)))
+                    or (path[0] == "shared" and path[1] in split_keys)
                     or (ep and sch.experts))
             assert sp == (P(*sch.pspec) if laid else P()), path
             return
@@ -214,10 +293,30 @@ def test_model_specs_split_the_transformer_leaves_alone(arch):
             walk(sch[k], sp[k], path + (k,))
 
     walk(schema, specs, ())
-    whole = tlm._model_specs(cfg, schema, split=False)
+    whole = tlm._model_specs(cfg, schema, 4, split=False)
     assert all(s == P() or (ep and s_.experts) for s, s_ in zip(
         tree_leaves(whole, lambda x: isinstance(x, P)),
         tree_leaves(schema, is_pspec)))
+
+
+@pytest.mark.parametrize("tp,groups", [(16, 1), (32, 1), (2, 2)])
+def test_mamba_mixer_is_whole_where_it_does_not_split(tp, groups):
+    """The zamba2 smoke's mixer (8 heads, ``d_inner`` 128) at a model axis
+    its heads do not divide (16: ``d_inner`` does, so ``w_z`` is laid
+    over it; 32), or with B and C in two groups: every leaf of the mixer
+    is whole in the split step, which then computes it whole on every
+    rank; the shared block keeps its layout."""
+    cfg = get_config("zamba2-7b", smoke=True)
+    cfg = cfg.with_(ssm=dataclasses.replace(cfg.ssm, n_groups=groups))
+    assert not tssm.mixer_splits(cfg, tp)
+    schema = tlm.param_schema(cfg, tp=tp)
+    specs = tlm._model_specs(cfg, schema, tp)
+    assert all(s == P() for s in tree_leaves(
+        specs["g0"]["mamba"], lambda x: isinstance(x, P)))
+    if tp == 16:
+        assert "model" in schema["g0"]["mamba"]["w_z"].pspec
+    assert specs["shared"]["mlp"]["wo"] == P(
+        *schema["shared"]["mlp"]["wo"].pspec)
 
 
 @pytest.mark.parametrize("heads,kv,tp", [(4, 2, 4), (32, 4, 2), (32, 4, 8),
@@ -259,8 +358,6 @@ def test_ctx_splits_only_in_a_split_step():
 def test_configs_are_the_references():
     """The variants' configs are the reference's field for field (the
     6-head internvl2-1b made by ``dataclasses.replace`` in both)."""
-    import dataclasses
-
     for name in tr.TP_VARIANTS:
         a = dataclasses.asdict(tr._tp_cfg(get_config, name))
         b = dataclasses.asdict(tr._tp_cfg(j_get_config, name))

@@ -778,26 +778,34 @@ def port_elastic(rank, world, outdir):
 # tp: the "model" split of the transformer families' steps
 # ---------------------------------------------------------------------------
 
-TP_VARIANTS = ("yi", "yi/scan", "internvl6", "deepseek/dense",
-               "deepseek/psum", "deepseek/a2a")
 #: the reference's jobs of one mesh, run side by side
-TP_GROUPS = {"dense": TP_VARIANTS[:3], "moe": TP_VARIANTS[3:]}
-TP_SERVED = ("yi", "internvl6", "deepseek/dense")
+TP_GROUPS = {"dense": ("yi", "yi/scan", "yi/uneven", "internvl6"),
+             "hybrid": ("zamba2",),
+             "moe": ("deepseek/dense", "deepseek/psum", "deepseek/a2a")}
+TP_VARIANTS = tuple(v for g in TP_GROUPS.values() for v in g)
+TP_SERVED = ("yi", "internvl6", "zamba2", "deepseek/dense")
 TP_S, TP_B, TP_STEPS, TP_NEW = 8, 4, 3, 4
 TP_PROMPTS = ([5, 9, 13, 17, 21, 25], [7, 11, 3, 19, 23, 29])
+#: "yi/uneven" masks this many targets of the first row, in the first
+#: data shard's part of the batch on both meshes, and none of the other's
+TP_MASKED = 3
 
 
 def _tp_cfg(get_config, name):
     """The yi-9b smoke (GQA: 4 q heads, 2 kv heads; also scanned over its
-    layers, ``_tp_par``), the internvl2-1b smoke with 6 q heads (whole at
-    a model axis of 4), the deepseek-moe-16b smoke (shared experts, a
-    dense first layer) with each MoE impl."""
+    layers, ``_tp_par``, and on a batch masked unevenly over "data",
+    ``_tp_batch_fn``), the internvl2-1b smoke with 6 q heads (whole at a
+    model axis of 4), the zamba2-7b smoke (8 Mamba-2 heads, ``d_inner``
+    128, a shared block of 4 heads) and the deepseek-moe-16b smoke
+    (shared experts, a dense first layer) with each MoE impl."""
     arch, _, impl = name.partition("/")
     if arch == "yi":
         return get_config("yi-9b", smoke=True)
     if arch == "internvl6":
         return dataclasses.replace(get_config("internvl2-1b", smoke=True),
                                    n_heads=6)
+    if arch == "zamba2":
+        return get_config("zamba2-7b", smoke=True)
     cfg = get_config("deepseek-moe-16b", smoke=True)
     return dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe,
                                                             impl=impl))
@@ -808,11 +816,15 @@ def _tp_par(ParallelismConfig, name):
                              scan_layers=name.endswith("/scan"))
 
 
-def _tp_batch_fn(cfg, lm_batch_for_step):
-    """Either package's trainer ``batch_fn``: the LM batch of a step and,
-    for the vision config, the same patches at every step."""
+def _tp_batch_fn(cfg, lm_batch_for_step, name):
+    """Either package's trainer ``batch_fn``: the LM batch of a step, its
+    first ``TP_MASKED`` targets masked for "yi/uneven" and, for the
+    vision config, the same patches at every step."""
     def batch_fn(data_cfg, step):
         b = lm_batch_for_step(data_cfg, step)
+        if name.endswith("/uneven"):
+            b["targets"] = b["targets"].copy()
+            b["targets"][0, :TP_MASKED] = -1
         if cfg.frontend == "vision":
             b["patches"] = _rng(21).standard_normal(
                 (TP_B, cfg.n_frontend_tokens, cfg.frontend_dim)).astype(
@@ -866,7 +878,7 @@ def ref_tp(outdir, mesh_name, group):
     for name in TP_GROUPS[group]:
         cfg = _tp_cfg(get_config, name)
         par = _tp_par(ParallelismConfig, name)
-        batch_fn = _tp_batch_fn(cfg, lm_batch_for_step)
+        batch_fn = _tp_batch_fn(cfg, lm_batch_for_step, name)
         dcfg = LMDataConfig(vocab_size=cfg.vocab_size, seq_len=TP_S,
                             global_batch=TP_B)
         st = Stepper(cfg, shape, mcfg, par, mesh=mesh)
@@ -889,7 +901,7 @@ def ref_tp(outdir, mesh_name, group):
             for step in range(TP_STEPS):
                 (loss, m), g = grad(p, batch_fn(dcfg, step))
                 if step == 0:
-                    out.update(loss=float(loss),
+                    out.update(loss=float(loss), n_tok=int(m["n_tok"]),
                                grads=jax.tree.map(np.asarray, g))
                 p, opt, _ = update(g, jax.device_put(opt, whole), p)
                 p = jax.device_put(p, psh)
@@ -931,6 +943,7 @@ def port_tp(rank, world, outdir):
     variants ``Server(mesh=)``'s greedy tokens, its cache's kv heads and
     the meshless ``Server``'s tokens; then the counters."""
     import torch
+    from torch.distributed.tensor.debug import CommDebugMode
 
     from repro_torch.configs import get_config
     from repro_torch.convert import params_from_jax, to_torch
@@ -962,12 +975,18 @@ def port_tp(rank, world, outdir):
         st = lm.Stepper(cfg, shape, mcfg, par, mesh=mesh)
         sh = st.state_shardings()["params"]
         blocks = local_blocks(params, sh)
-        out = {}
+        out = {"blocks": tree_map(lambda t: tuple(t.shape),
+                                  lm.model_blocks(params, cfg, mcfg, mesh))}
         for form, split in (("split", True), ("whole", False)):
-            loss, _, g = lm._mesh_grad_fn(cfg, mcfg, par, mesh, split)(
-                blocks, batch)
+            with CommDebugMode() as comm:
+                loss, m, g = lm._mesh_grad_fn(cfg, mcfg, par, mesh, split)(
+                    blocks, batch)
             full = _tp_full(g, sh)
-            out[form] = {"loss": float(loss), "digest": _digest(full),
+            out[form] = {"loss": float(loss), "n_tok": float(m["n_tok"]),
+                         "digest": _digest(full),
+                         "gathers": sum(v for k, v in
+                                        comm.get_comm_counts().items()
+                                        if "all_gather" in str(k)),
                          "grads": (tree_map(_np, full) if rank == 0
                                    else None)}
         st.init = lambda *a, **k: params
@@ -976,13 +995,13 @@ def port_tp(rank, world, outdir):
                      TrainerConfig(total_steps=TP_STEPS, ckpt_every=100,
                                    log_every=1,
                                    ckpt_dir=tempfile.mkdtemp(dir=outdir)),
-                     batch_fn=_tp_batch_fn(cfg, lm_batch_for_step),
+                     batch_fn=_tp_batch_fn(cfg, lm_batch_for_step, name),
                      device="cpu")
         out["train_losses"] = [m["loss"] for m in tr.train()["metrics"]]
         if name in TP_SERVED:
             out["tokens"], srv = _serve(Server, ServerConfig, cfg, params,
                                         mcfg, par, device="cpu", mesh=mesh)
-            out["cache_kv_heads"] = int(srv._cache["layers"][0]["k"].shape[2])
+            out["cache_heads"] = _cache_heads(srv._cache)
             out["meshless_tokens"] = _serve(Server, ServerConfig, cfg,
                                             params, SMOKE_MESH, par,
                                             device="cpu")[0]
@@ -990,6 +1009,18 @@ def port_tp(rank, world, outdir):
     res["counter"] = _tp_counter(mcfg, mesh, ref["yi"]["init"],
                                  ref["yi"]["batch"])
     _dump(res, os.path.join(outdir, f"port_tp_{world}_{rank}.pkl"))
+
+
+def _cache_heads(cache) -> dict:
+    """The heads a server's cache holds: the kv heads of its first
+    attention (zamba2's shared block's), and for a Mamba-2 layer its SSM
+    state's heads and its conv state's ``d_inner`` channels."""
+    first = cache["layers"][0]
+    if "ssm" not in first:
+        return {"kv": int(first["k"].shape[2])}
+    return {"kv": int(cache["shared"][0]["k"].shape[2]),
+            "ssm": int(first["ssm"].shape[1]),
+            "conv_x": int(first["conv_x"].shape[2])}
 
 
 def _tp_counter(mcfg, mesh, init, batch_np):
