@@ -324,23 +324,39 @@ phase 20's DeepSeek-MoE-16B weights, before they are freed):
 The ``"model"`` split at tp = 2 on the one card (two processes in a
 gloo group; NCCL puts no two ranks on one card):
 
-24. Yi-9B at full width and 4 of 48 layers, and Zamba2-7B at full width
-    and 6 of 81 layers (six Mamba-2 layers and one shared-block
-    invocation), in f32, random weights from one seed drawn on the card:
+24. Yi-9B at full width and 4 of 48 layers, Zamba2-7B at full width and
+    6 of 81 layers (six Mamba-2 layers and one shared-block invocation),
+    and RWKV6-7B at full width and 4 of 32 layers (about 5.6 GB of f32
+    weights), in f32, random weights from one seed drawn on the card:
     first with no mesh, ``Server``'s greedy tokens for 2 prompts of 256
     tokens and 8 new ones, one bf16 prefill, and one train step (2 x 512
     tokens); then the two processes pass CUDA tensors to all-reduce,
     all-gather, reduce-scatter and the functional all-reduce ``DTensor``
     uses, printing each outcome, and if the ones the split steps call
     run, each takes its 16 q heads, half of ``d_ff``, half of each
-    Mamba-2 mixer's ``d_inner`` and 56 of its 112 heads, and half of the
-    vocabulary on the (1, 2) mesh: ``Server(mesh=)``'s tokens identical,
-    the loss within 1e-5 (relative), B5 on 16 q heads a launch
-    (``simt`` in f32, ``sm90`` in the bf16 prefill) and B6 on 56 heads
-    a launch (once a Mamba-2 layer of each prefill), each as often as
-    with no mesh; each rank's peak memory beside the one process's. If
-    one of them raises, the phase names it and runs the split steps on
-    a world of one instead.
+    Mamba-2 mixer's ``d_inner`` and 56 of its 112 heads, 32 of each
+    RWKV-6 time-mix's 64 heads, and half of the vocabulary on the (1, 2)
+    mesh: ``Server(mesh=)``'s tokens identical, the loss within 1e-5
+    (relative), B5 on 16 q heads a launch (``simt`` in f32, ``sm90`` in
+    the bf16 prefill), B6 on 56 heads a launch (once a Mamba-2 layer of
+    each prefill) and B7 on 32 heads a launch (64 with no mesh; 8 times
+    serving, 4 in the bf16 prefill, never in training), each as often as
+    with no mesh; each rank's peak memory and a step's host seconds
+    beside the one process's. If one of them raises, the phase names it
+    and runs the split steps on a world of one instead.
+
+The multi-pod dry-run (``repro_torch.launch.dryrun``: a step of one rank
+of the production mesh counted on ``meta`` tensors in a fake process
+group; no card):
+
+25. ``python -m repro_torch.launch.dryrun --arch rwkv6-7b --shape
+    train_4k`` and ``--arch yi-9b --shape decode_32k`` on the 16 x 16
+    mesh, two subprocesses started together after phase 24 (so that
+    phase 24's host seconds are taken alone) with no card visible, under
+    a timeout: exit 0, each cell's report row printed with its memory and
+    collective lines, FLOPs, bytes and wire bytes a device above 0. The
+    row's times are modelled from the counts and the H100 SXM's peak and
+    rates, not measured on the card.
 
 Then print the kernels line (B1's and B2's rows also carry the loop's
     launches, ``workflow_launches``, the farm's, ``farm_launches``, one
@@ -352,7 +368,7 @@ Then print the kernels line (B1's and B2's rows also carry the loop's
     ``collectives_launches``; B6's and B7's phase 21's,
     ``families_launches``; B5's, B6's and B7's one scanned prefill's by
     arch and B5's two scanned training steps', ``scan_launches``; B5's
-    phase 24 runs' by arch and variant and B6's by arch,
+    phase 24 runs' by arch and variant and B6's and B7's by arch,
     ``tp_launches``) and the card's name and power limit.
 
 Usage, from the repository root: ``python3 chip_smoke.py``. Needs one CUDA
@@ -4223,8 +4239,9 @@ def phase_scan_layers(ops_by_name: dict, card: str) -> dict:
 # The "model" split at tp = 2 (phase 24): two processes on the one card in
 # a gloo process group (NCCL puts no two ranks on one card). Each arch at
 # full width and a few of its layers: Yi-9B's 4 of 48, Zamba2-7B's 6 of 81
-# (six Mamba-2 layers and one shared-block invocation, one unit)
-TP_ARCHS = (("yi-9b", 4), ("zamba2-7b", 6))
+# (six Mamba-2 layers and one shared-block invocation, one unit),
+# RWKV6-7B's 4 of 32
+TP_ARCHS = (("yi-9b", 4), ("zamba2-7b", 6), ("rwkv6-7b", 4))
 TP_SHAPE = ("tp_train", "train", 512, 2)
 TP_PROMPT, TP_REQUESTS, TP_NEW = 256, 2, 8
 TP_LOSS_TOL = 1e-5                       # relative, f32
@@ -4277,14 +4294,16 @@ def tp_probe() -> dict:
     return out
 
 
-def tp_run(mesh, flash_ops, ssd_ops, arch: str, layers: int) -> dict:
+def tp_run(mesh, flash_ops, ssd_ops, wkv_ops, arch: str,
+           layers: int) -> dict:
     """One rank's (or, with no mesh, the one process's) phase 24 work on
     ``arch`` at full width and ``layers`` layers in f32, from weights
     drawn on the card from one seed: ``Server`` (with ``mesh``,
     ``Server(mesh=)``) serving ``TP_REQUESTS`` prompts of ``TP_PROMPT``
     tokens and ``TP_NEW`` new ones, one bf16 prefill, then one train
-    step; in each, B5 by variant and the q heads of each launch, B6's
-    launches and the heads of each, peak device memory, host seconds."""
+    step; in each, B5 by variant and the q heads of each launch, B6's and
+    B7's launches and the heads of each, peak device memory, host
+    seconds."""
     import dataclasses
 
     import numpy as np
@@ -4309,8 +4328,9 @@ def tp_run(mesh, flash_ops, ssd_ops, arch: str, layers: int) -> dict:
     rng = np.random.default_rng(SEED + 24)
     prompts = [rng.integers(2, cfg.vocab_size, TP_PROMPT).tolist()
                for _ in range(TP_REQUESTS)]
-    heads = {"b5": [], "b6": []}
+    heads = {"b5": [], "b6": [], "b7": []}
     real_b5, real_b6 = flash_ops.flash_attention_cuda, ssd_ops.ssd_cuda
+    real_b7 = wkv_ops.wkv6_cuda
 
     def counted_b5(q, *a, **kw):
         heads["b5"].append(q.shape[2])
@@ -4320,10 +4340,15 @@ def tp_run(mesh, flash_ops, ssd_ops, arch: str, layers: int) -> dict:
         heads["b6"].append(x.shape[2])
         return real_b6(x, *a, **kw)
 
+    def counted_b7(r, *a, **kw):
+        heads["b7"].append(r.shape[2])
+        return real_b7(r, *a, **kw)
+
     def counts():
         flash_ops.launches_by_variant = dict.fromkeys(
             flash_ops.launches_by_variant, 0)
         ssd_ops.launches = 0
+        wkv_ops.launches = 0
         for v in heads.values():
             v.clear()
 
@@ -4332,10 +4357,13 @@ def tp_run(mesh, flash_ops, ssd_ops, arch: str, layers: int) -> dict:
         out[f"{run}_heads"] = sorted(set(heads["b5"]))
         out[f"{run}_b6"] = ssd_ops.launches
         out[f"{run}_b6_heads"] = sorted(set(heads["b6"]))
+        out[f"{run}_b7"] = wkv_ops.launches
+        out[f"{run}_b7_heads"] = sorted(set(heads["b7"]))
 
     out = {}
     flash_ops.flash_attention_cuda = counted_b5
     ssd_ops.ssd_cuda = counted_b6
+    wkv_ops.wkv6_cuda = counted_b7
     try:
         with exact_f32_matmul():
             params = st.init(seed=SEED + 24, device="cuda")
@@ -4389,6 +4417,7 @@ def tp_run(mesh, flash_ops, ssd_ops, arch: str, layers: int) -> dict:
     finally:
         flash_ops.flash_attention_cuda = real_b5
         ssd_ops.ssd_cuda = real_b6
+        wkv_ops.wkv6_cuda = real_b7
     return out
 
 
@@ -4417,11 +4446,13 @@ def tp_rank(rank: int, world: int, store: str, out_dir: str) -> None:
         if all(res["collectives"][c] == "ok" for c in TP_NEEDED):
             from repro_torch.kernels.flash_attention import ops as flash_ops
             from repro_torch.kernels.mamba2 import ops as ssd_ops
+            from repro_torch.kernels.rwkv6 import ops as wkv_ops
             from repro_torch.launch.mesh import make_smoke_mesh
 
             mesh = make_smoke_mesh((1, world))
             for arch, layers in TP_ARCHS:
-                res[arch] = tp_run(mesh, flash_ops, ssd_ops, arch, layers)
+                res[arch] = tp_run(mesh, flash_ops, ssd_ops, wkv_ops, arch,
+                                   layers)
     except Exception:                                  # noqa: BLE001
         res["error"] = traceback.format_exc()
     finally:
@@ -4431,11 +4462,12 @@ def tp_rank(rank: int, world: int, store: str, out_dir: str) -> None:
 
 
 def tp_summary(res: dict) -> str:
-    """B5 by variant on its q heads, B6's launches on their heads, in
-    each of a :func:`tp_run`'s three runs."""
+    """B5 by variant on its q heads, B6's and B7's launches on their
+    heads, in each of a :func:`tp_run`'s three runs."""
     return "; ".join(
         f"{run} B5 {json.dumps(res[f'{run}_b5'])} on {res[f'{run}_heads']}"
         f" q heads, B6 {res[f'{run}_b6']} on {res[f'{run}_b6_heads']} heads"
+        f", B7 {res[f'{run}_b7']} on {res[f'{run}_b7_heads']} heads"
         for run in ("serve", "bf16", "train"))
 
 
@@ -4448,14 +4480,16 @@ def phase_tp(ops_by_name: dict, card: str) -> dict:
     by variant and B6's launches. Then two processes on the card in a
     gloo group pass CUDA tensors to each collective (:func:`tp_probe`);
     if the ones the split steps call run, each takes its half of the
-    heads, ``d_ff`` columns, Mamba-2 ``d_inner`` and heads and vocabulary
-    on the (1, 2) mesh: ``Server(mesh=)``'s greedy tokens identical, the
-    loss within ``TP_LOSS_TOL`` (relative), B5 on 16 q heads a launch and
-    B6 on half the Mamba-2 heads, each as often as with no mesh; each
-    rank's peak memory beside the one process's. If one of those
-    collectives raises, the phase names it and runs the split steps on a
-    world of one (NCCL, the (1, 1) mesh) instead. Returns B5's and B6's
-    launches by arch and run."""
+    heads, ``d_ff`` columns, Mamba-2 ``d_inner`` and heads, RWKV-6
+    time-mix heads and vocabulary on the (1, 2) mesh: ``Server(mesh=)``'s
+    greedy tokens identical, the loss within ``TP_LOSS_TOL`` (relative),
+    B5 on 16 q heads a launch, B6 on half the Mamba-2 heads and B7 on
+    half the RWKV-6 heads, each as often as with no mesh (B7 once a layer
+    of each prefill, never in training); each rank's peak memory beside
+    the one process's. If one of those collectives raises, the phase
+    names it and runs the split steps on a world of one (NCCL, the (1, 1)
+    mesh) instead. Returns B5's, B6's and B7's launches by arch and
+    run."""
     import pickle
     import tempfile
 
@@ -4463,14 +4497,17 @@ def phase_tp(ops_by_name: dict, card: str) -> dict:
     import torch.multiprocessing as mp
 
     from repro_torch.configs import get_config
+    from repro_torch.model.rwkv import rwkv_dims
     from repro_torch.model.ssm import mamba_dims
 
     flash_ops, ssd_ops = ops_by_name["flash_attention"], ops_by_name["ssd"]
+    wkv_ops = ops_by_name["wkv6"]
     t_phase = time.perf_counter()
     one = {}
     for arch, layers in TP_ARCHS:
         torch.cuda.empty_cache()
-        one[arch] = r1 = tp_run(None, flash_ops, ssd_ops, arch, layers)
+        one[arch] = r1 = tp_run(None, flash_ops, ssd_ops, wkv_ops, arch,
+                                layers)
         log(f"phase 24 tp = 1: {arch} full width, {layers} layers, f32, no "
             f"mesh: tokens {r1['tokens']}; loss {r1['loss']!r}; "
             f"{tp_summary(r1)}; peak GB serve {r1['serve_peak_gb']:.2f}, "
@@ -4497,18 +4534,25 @@ def phase_tp(ops_by_name: dict, card: str) -> dict:
         log(f"phase 24: {raised} raised on CUDA tensors in a gloo group; "
             "the split steps run on a world of one instead")
         with world_of_one() as mesh:
-            ranks = [{arch: tp_run(mesh, flash_ops, ssd_ops, arch, layers)
+            ranks = [{arch: tp_run(mesh, flash_ops, ssd_ops, wkv_ops, arch,
+                                   layers)
                       for arch, layers in TP_ARCHS}]
     tp = len(ranks)
     for arch, layers in TP_ARCHS:
         cfg = get_config(arch)
         r1 = one[arch]
-        b5_heads = [cfg.n_heads // tp]
+        b5_heads = [] if cfg.rwkv else [cfg.n_heads // tp]
         b6_heads = [mamba_dims(cfg)[1] // tp] if cfg.ssm else []
+        b7_heads = [rwkv_dims(cfg)[0] // tp] if cfg.rwkv else []
         # B5 sm90 in the bf16 prefill: once a layer, or once a shared
-        # block's invocation
+        # block's invocation, or never (RWKV-6 has no attention)
         bf16_sm90 = (len(cfg.with_(n_layers=layers).shared_attn_points())
-                     if cfg.ssm else layers)
+                     if cfg.ssm else 0 if cfg.rwkv else layers)
+        # B7 once a layer of each prefill (2 served, 1 in bf16), never in
+        # training
+        b7_want = ({"serve": TP_REQUESTS * layers, "bf16": layers,
+                    "train": 0} if cfg.rwkv
+                   else {"serve": 0, "bf16": 0, "train": 0})
         for r, rr in enumerate(ranks):
             res = rr[arch]
             rel = abs(res["loss"] - r1["loss"]) / abs(r1["loss"])
@@ -4519,6 +4563,14 @@ def phase_tp(ops_by_name: dict, card: str) -> dict:
                     or any(res[f"{k}_b6"] != r1[f"{k}_b6"] for k in runs)
                     or any(res[f"{k}_b6_heads"] != (b6_heads
                                                     if res[f"{k}_b6"] else [])
+                           for k in runs)
+                    or any(res[f"{k}_b7"] != b7_want[k]
+                           or r1[f"{k}_b7"] != b7_want[k] for k in runs)
+                    or any(res[f"{k}_b7_heads"] != (b7_heads
+                                                    if res[f"{k}_b7"] else [])
+                           or r1[f"{k}_b7_heads"] != ([rwkv_dims(cfg)[0]]
+                                                      if r1[f"{k}_b7"]
+                                                      else [])
                            for k in runs)
                     or (cfg.ssm and res["serve_b6"]
                         != TP_REQUESTS * layers)
@@ -4541,19 +4593,84 @@ def phase_tp(ops_by_name: dict, card: str) -> dict:
         f"{TP_WORLD} processes {spawn_s:.1f} s) ({card})")
 
     def total(res, kernel):
-        if kernel == "ssd":
-            return sum(res[f"{k}_b6"] for k in ("serve", "bf16", "train"))
+        if kernel in ("ssd", "wkv6"):
+            key = "b6" if kernel == "ssd" else "b7"
+            return sum(res[f"{k}_{key}"] for k in ("serve", "bf16", "train"))
         return {v: sum(res[f"{k}_b5"][v] for k in ("serve", "bf16", "train"))
                 for v in res["serve_b5"]}
 
-    out = {"flash_attention": {}, "ssd": {}}
+    out = {"flash_attention": {}, "ssd": {}, "wkv6": {}}
     for arch, _ in TP_ARCHS:
+        cfg = get_config(arch)
         for kernel in out:
-            if kernel == "flash_attention" or get_config(arch).ssm:
+            if {"flash_attention": not cfg.rwkv, "ssd": cfg.ssm,
+                    "wkv6": cfg.rwkv}[kernel]:
                 out[kernel][arch] = {
                     "tp1": total(one[arch], kernel),
                     f"tp{tp}_rank0": total(ranks[0][arch], kernel)}
     return out
+
+
+# The multi-pod dry-run (phase 25): two cells of ``python -m
+# repro_torch.launch.dryrun`` on the 16 x 16 mesh, each in a subprocess of
+# its own (a fake process group of 256 ranks, ``meta`` tensors: no card),
+# both started after phase 24
+DRYRUN_CELLS = (("rwkv6-7b", "train_4k"), ("yi-9b", "decode_32k"))
+DRYRUN_TIMEOUT = 300                     # seconds, from the start
+
+
+def dryrun_start(out_dir: str) -> list:
+    """Start the dry-run CLI for each of ``DRYRUN_CELLS``, its report's
+    JSON to ``out_dir``; no card is visible to it."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
+               CUDA_VISIBLE_DEVICES="")
+    return [subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+         "--shape", shape, "--json", out_dir], stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True, env=env, cwd=ROOT)
+        for arch, shape in DRYRUN_CELLS]
+
+
+def phase_dryrun(procs: list, out_dir: str, t_start: float,
+                 card: str) -> None:
+    """Phase 25: wait for :func:`dryrun_start`'s processes (until
+    ``DRYRUN_TIMEOUT`` after ``t_start``), and print each cell's report
+    row and its memory and collective lines; fails if one exits non-zero
+    or reports no FLOPs, no bytes, no wire bytes, or another mesh."""
+    from repro_torch.energy.roofline import HEADER
+
+    for (arch, shape), p in zip(DRYRUN_CELLS, procs):
+        left = DRYRUN_TIMEOUT - (time.perf_counter() - t_start)
+        try:
+            out, err = p.communicate(timeout=max(left, 1.0))
+        except subprocess.TimeoutExpired:
+            p.kill()
+            p.communicate()
+            raise AssertionError(f"phase 25 dry-run {arch} x {shape}: not "
+                                 f"done {DRYRUN_TIMEOUT} s after its start")
+        if p.returncode != 0:
+            raise AssertionError(f"phase 25 dry-run {arch} x {shape}: exit "
+                                 f"{p.returncode}: {err[-3000:]}")
+        with open(os.path.join(out_dir,
+                               f"{arch}__{shape}__16x16.json")) as f:
+            rep = json.load(f)
+        if not (rep["mesh"] == "16x16" and rep["n_devices"] == 256
+                and rep["flops_per_device"] > 0
+                and rep["bytes_per_device"] > 0
+                and rep["wire_bytes_per_device"] > 0):
+            raise AssertionError(f"phase 25 dry-run {arch} x {shape}: "
+                                 f"{json.dumps(rep)}")
+        lines = out.splitlines()
+        row = next(ln for ln in lines if ln.strip().startswith(arch + " "))
+        detail = [ln.strip() for ln in lines
+                  if ln.strip().startswith(("memory_analysis", "flops/",
+                                            "collectives"))]
+        log(f"phase 25 dry-run {arch} x {shape} x 16x16 (meta tensors, a "
+            f"fake group of 256 ranks): counted in "
+            f"{rep['compile_seconds']:.1f} s of host time ({card}); the "
+            f"row's ms and MFU are MODELLED from the counts and the H100 "
+            f"SXM's peak and rates, not measured on the card:\n{HEADER}\n"
+            f"{row}\n  " + "\n  ".join(detail))
 
 
 def main() -> int:
@@ -5335,11 +5452,23 @@ def main() -> int:
                 arch: n[row["name"]] for arch, n in scan_layers.items()
                 if row["name"] in n}
 
-    # ---- 24. the "model" split at tp = 2 -----------------------------------
+    # ---- 24. the "model" split at tp = 2, 25. the dry-run ------------------
+    import tempfile
+
     tp = phase_tp(ops_by_name, smi)
     for row in kernel_rows:
         if row["name"] in tp:
             row["tp_launches"] = tp[row["name"]]
+    with tempfile.TemporaryDirectory() as dry_dir:
+        t_dry = time.perf_counter()
+        dry = dryrun_start(dry_dir)
+        try:
+            phase_dryrun(dry, dry_dir, t_dry, smi)
+        finally:
+            for p in dry:
+                if p.poll() is None:
+                    p.kill()
+                    p.communicate()
 
     # ---- report -------------------------------------------------------------
     log(smi)                     # the card's name and power limit

@@ -38,8 +38,15 @@ counted without its weights (the reference's abstract lowering).
 * ``work`` and ``op_counts``: per meter channel
   (:func:`repro_torch.energy.meter.aten_channel`): ``mxu`` FLOPs of
   products, ``vpu`` and ``reduce`` their FLOPs, ``gather``, ``layout`` and
-  ``other`` their ops' bytes, ``hbm`` all bytes accessed, ``ici`` 0 on one
-  card.
+  ``other`` their ops' bytes, ``hbm`` all bytes accessed, ``ici`` the
+  bytes of the collectives (0 on one card).
+* Collectives (the ``c10d`` and ``_c10d_functional`` ops a step on a
+  device mesh issues) count no FLOPs, as XLA's cost analysis counts none
+  for a collective's transfer; their bytes are their operands read and
+  their results written, on the ``ici`` channel. A functional
+  collective's wrappers (``wait_tensor``, ``_wrap_tensor_autograd``)
+  count nothing. The bytes on the wire are not counted here: the dry-run
+  (``launch/dryrun.py``) reckons them.
 
 The hand-written kernels are counted as what they compute: a kernel
 launched through ``ctypes`` is invisible to any dispatch mode, so each
@@ -83,6 +90,11 @@ _INDEX_WRITES = {"index_put_", "_index_put_impl_", "index_copy_",
 #: ops that read only the elements they gather (and their indices)
 _GATHERS = {"index", "index_select", "gather", "embedding", "take",
             "masked_select"}
+#: the namespaces of the collectives: ``torch.distributed``'s in-place
+#: ops and the functional ones ``DTensor`` issues
+COLLECTIVES = {"c10d", "_c10d_functional"}
+#: a functional collective's wrappers, which move nothing
+COLLECTIVE_WRAPPERS = {"wait_tensor", "_wrap_tensor_autograd"}
 
 
 def _tensors(tree) -> List[torch.Tensor]:
@@ -243,11 +255,14 @@ class _Counter(TorchDispatchMode):
         out = func(*args, **kwargs)
         outs = _tensors(out)
         name = func.overloadpacket.__name__
-        if func.is_view or name in _METADATA:
+        collective = func.namespace in COLLECTIVES
+        if (func.is_view or name in _METADATA
+                or (collective and name in COLLECTIVE_WRAPPERS)):
             self._track(outs)              # an allocation holds memory
             return out
         ins = _tensors(list(args) + list(kwargs.values()))
-        channel = aten_channel(name, torch.Tag.pointwise in func.tags)
+        channel = ("ici" if collective else
+                   aten_channel(name, torch.Tag.pointwise in func.tags))
         out_bytes = sum(map(_nbytes, outs))
         if name in _SLICE_WRITES:
             nbytes = sum(map(_nbytes, ins[1:])) + out_bytes
@@ -262,7 +277,7 @@ class _Counter(TorchDispatchMode):
             flops = _matmul_flops(name, ins, outs[0])
         elif channel == "reduce":
             flops = float(ins[0].numel())
-        elif channel in ("gather", "layout"):
+        elif channel in ("gather", "layout", "ici"):
             flops = 0.0
         else:
             flops = float(sum(t.numel() for t in outs))

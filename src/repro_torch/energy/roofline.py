@@ -13,7 +13,10 @@ list holds no collective on one card, so ``collective_s`` is 0 there.
 operand size* turned into per-device wire bytes with the standard ring
 formulas, the group size parsed from ``replica_groups``; collectives inside
 ``while`` bodies are flagged), so a reference artifact reads the same in
-both packages. The default spec is the card the port runs on,
+both packages. The dry-run (``launch/dryrun.py``) counts a mesh step's
+collectives itself and hands :func:`roofline` its
+:class:`CollectiveStats`, the same ring formulas (:func:`ring_bytes`)
+giving their wire bytes. The default spec is the card the port runs on,
 ``H100_SXM``.
 """
 from __future__ import annotations
@@ -68,6 +71,13 @@ class CollectiveStats:
     in_while: int = 0
     ops: List[Tuple[str, int, int, float]] = field(default_factory=list)
 
+    def add(self, kind: str, n: int, opnd: int, wire: float) -> None:
+        """One collective of ``kind`` over ``n`` ranks."""
+        self.counts[kind] = self.counts.get(kind, 0) + 1
+        self.local_bytes[kind] = self.local_bytes.get(kind, 0) + opnd
+        self.wire_bytes[kind] = self.wire_bytes.get(kind, 0.0) + wire
+        self.ops.append((kind, n, opnd, wire))
+
     @property
     def total_wire_bytes(self) -> float:
         return sum(self.wire_bytes.values())
@@ -106,29 +116,26 @@ def parse_collectives(hlo_text: str, n_devices: int) -> CollectiveStats:
         else:
             out_b = _shape_bytes(out_shape)
         n = _group_size(ls, n_devices)
-        # per-device wire bytes (ring algorithms)
-        if kind == "all-reduce":
-            opnd = out_b
-            wire = 2 * opnd * (n - 1) / max(n, 1)
-        elif kind == "all-gather":
-            opnd = out_b // max(n, 1)
-            wire = out_b * (n - 1) / max(n, 1)
-        elif kind == "reduce-scatter":
-            opnd = out_b * n                       # input is n× the output
-            wire = out_b * (n - 1)
-        elif kind == "all-to-all":
-            opnd = out_b
-            wire = opnd * (n - 1) / max(n, 1)
-        else:  # collective-permute
-            opnd = out_b
-            wire = opnd
-        st.counts[kind] = st.counts.get(kind, 0) + 1
-        st.local_bytes[kind] = st.local_bytes.get(kind, 0) + opnd
-        st.wire_bytes[kind] = st.wire_bytes.get(kind, 0.0) + wire
+        opnd, wire = ring_bytes(kind, out_b, n)
+        st.add(kind, n, opnd, wire)
         if in_while_depth:
             st.in_while += 1
-        st.ops.append((kind, n, opnd, wire))
     return st
+
+
+def ring_bytes(kind: str, out_b: int, n: int) -> Tuple[int, float]:
+    """(operand bytes, per-device wire bytes) of one collective of
+    ``kind`` whose result holds ``out_b`` bytes, over a group of ``n``,
+    by the standard ring algorithms."""
+    if kind == "all-reduce":
+        return out_b, 2 * out_b * (n - 1) / max(n, 1)
+    if kind == "all-gather":
+        return out_b // max(n, 1), out_b * (n - 1) / max(n, 1)
+    if kind == "reduce-scatter":
+        return out_b * n, out_b * (n - 1)          # input is n× the output
+    if kind == "all-to-all":
+        return out_b, out_b * (n - 1) / max(n, 1)
+    return out_b, out_b                            # collective-permute
 
 
 def normalize_cost(cost) -> Dict[str, float]:
@@ -171,11 +178,16 @@ def roofline(
     *, arch: str, shape: str, mesh: str, n_devices: int,
     cost: Dict[str, float], hlo_text: str, model_flops: float,
     hw: HWSpec = H100_SXM, memory_analysis: str = "",
+    collectives: Optional[CollectiveStats] = None,
 ) -> RooflineReport:
+    """The report of one step. ``collectives``: the step's collectives
+    where they were counted (the dry-run's); else they are read from
+    ``hlo_text``."""
     cost = normalize_cost(cost)
     flops = float(cost.get("flops", 0.0))
     byts = float(cost.get("bytes accessed", 0.0))
-    coll = parse_collectives(hlo_text, n_devices)
+    coll = (collectives if collectives is not None
+            else parse_collectives(hlo_text, n_devices))
     wire = coll.total_wire_bytes
 
     compute_s = flops / hw.peak_flops

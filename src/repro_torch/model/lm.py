@@ -15,17 +15,19 @@ run on every rank of it and split the transformer and hybrid families'
 compute over ``"model"`` as the reference's layouts place it: each rank
 computes its q heads (and its kv heads where they divide the axis), its
 columns of every MLP's and the shared experts' hidden width, its block
-of a Mamba-2 mixer's ``d_inner`` and heads (``ssm.mixer_splits``), and
-its rows of the vocabulary, and the partial sums go through
-``shardmap.psum`` (``layers.Ctx.split``); the routed experts go to their
-ranks through the MoE's ``psum``/``a2a`` dispatches. The leaves computed
-split are :func:`_model_specs`'; every other leaf (the norms, the router,
-the RWKV-6 mixers, the frontends) is computed whole on every rank. The
-serving steps take the rank's blocks (:func:`model_blocks`), keep the
-rank's kv heads and Mamba-2 heads in the cache and give every rank the
-whole last-position logits. The train step takes and
-returns each rank's blocks of the parameters (their layouts,
-``Stepper.shardings``) and its slices of the moments (ZeRO-1,
+of a Mamba-2 mixer's ``d_inner`` and heads (``ssm.mixer_splits``), its
+block of an RWKV-6 time-mix's heads (``rwkv.time_mix_splits``) and of
+its channel-mix's ``d_ff``, and its rows of the vocabulary, and the
+partial sums go through ``shardmap.psum`` (``layers.Ctx.split``); the
+routed experts go to their ranks through the MoE's ``psum``/``a2a``
+dispatches. The leaves computed split are :func:`_model_specs`'; every
+other leaf (the norms, the router, the RWKV-6 token-shift mixes and
+decay LoRA's first matrix, the frontends) is computed whole on every
+rank. The serving steps take the rank's blocks (:func:`model_blocks`),
+keep the rank's kv heads, Mamba-2 heads and RWKV-6 ``wkv`` heads in the
+cache and give every rank the whole last-position logits. The train
+step takes and returns each rank's blocks of the parameters (their
+layouts, ``Stepper.shardings``) and its slices of the moments (ZeRO-1,
 ``optim/adamw.py``): the batch is split over the data axes (a
 ``shard_map`` region over them), the loss runs in a nested region over
 ``"model"`` whose operands are the blocks as ``DTensor``s (a leaf
@@ -242,12 +244,17 @@ def _model_specs(cfg: ModelConfig, schema, tp: int, split: bool = True):
     tp): its layout (``P(*s.pspec)``) for the embedding and head, every
     attention and MLP of a transformer block and of zamba2's shared
     block, the MoE's shared experts, a Mamba-2 mixer where it splits
-    (``ssm.mixer_splits``), and a routed expert stack that the MoE's
-    ``psum``/``a2a`` consume split (``PSpec.experts``); ``P()`` (whole)
-    for every other leaf: the norms, the router, the shared block's
-    ``out_proj``, a Mamba-2 mixer that does not split, the RWKV-6
-    mixers, the frontends. ``split=False``: the expert stacks alone keep
-    their layout (every rank computing the rest whole)."""
+    (``ssm.mixer_splits``), an RWKV-6 time-mix where its heads split
+    (``rwkv.time_mix_splits``), every RWKV-6 channel-mix (its ``d_ff``
+    leaves name ``"model"`` only where ``d_ff`` splits), and a routed
+    expert stack that the MoE's ``psum``/``a2a`` consume split
+    (``PSpec.experts``); ``P()`` (whole) for every other leaf: the norms,
+    the router, the shared block's ``out_proj``, a Mamba-2 mixer or
+    RWKV-6 time-mix that does not split, the frontends. A laid subtree's
+    leaves whose layout names no axis (the RWKV-6 ``maa_*``) are whole
+    all the same. ``split=False``: the expert stacks alone keep their
+    layout (every rank computing the rest whole)."""
+    from repro_torch.model.rwkv import time_mix_splits
     from repro_torch.model.ssm import mixer_splits
     from repro_torch.shardmap import P
 
@@ -260,14 +267,16 @@ def _model_specs(cfg: ModelConfig, schema, tp: int, split: bool = True):
     if not split or cfg.family in WINDOW_FAMILIES:
         return specs(schema)
     groups = {f"g{gi}" for gi in range(len(group_structure(cfg)))}
-    mamba = cfg.ssm is not None and mixer_splits(cfg, tp)
+    laid_mixers = {"mamba": cfg.ssm is not None and mixer_splits(cfg, tp),
+                   "att": cfg.rwkv is not None and time_mix_splits(cfg, tp),
+                   "ffn": cfg.rwkv is not None}
     out = {}
     for key, sub in schema.items():
         if key == "embed":
             out[key] = specs(sub, laid=True)
         elif key in groups or key == "shared":
             out[key] = {k: specs(v, laid=k in _SPLIT_BLOCKS
-                                 or (k == "mamba" and mamba))
+                                 or laid_mixers.get(k, False))
                         for k, v in sub.items()}
             if "moe" in sub and "shared" in sub["moe"]:
                 out[key]["moe"]["shared"] = specs(sub["moe"]["shared"],
@@ -351,11 +360,14 @@ def _mesh_grad_fn(cfg, mesh_cfg, par, mesh, split: bool = True):
     return grad_fn
 
 
-def _mesh_train_step(cfg, mesh_cfg, par, opt_cfg, mesh, donate):
+def _mesh_train_step(cfg, mesh_cfg, par, opt_cfg, mesh, donate,
+                     split: bool = True):
+    """The mesh train step (module doc); ``split`` as
+    :func:`_mesh_grad_fn`'s."""
     from repro_torch import shardmap as sm
 
     schema = param_schema(cfg, tp=mesh_cfg.axis_size("model"))
-    grad_fn = _mesh_grad_fn(cfg, mesh_cfg, par, mesh)
+    grad_fn = _mesh_grad_fn(cfg, mesh_cfg, par, mesh, split)
 
     def step(params, opt_state, batch):
         _, metrics, grads = grad_fn(params, batch)

@@ -5,6 +5,12 @@ and the SiLU gate) and the channel-mix (relu² FFN with a sigmoid gate).
 The decode cache of a layer is ``{"wkv": (B, H, N, N) f32, "shift_att",
 "shift_ffn": (B, D)}``.
 
+In a step split over ``"model"`` (``layers.Ctx.split``) each rank
+computes the time-mix on its block of the heads where they split
+(:func:`time_mix_splits`; its ``wkv`` state then holds those heads) and
+the channel-mix on its block of ``d_ff`` where that splits, each mixer's
+output projection summed over the axis; the shift states stay whole.
+
 Which scan runs (:func:`_wkv_scan`, the one seam): in prefill on a CUDA
 tensor the WKV6 kernel B7 (``kernels/rwkv6``), once a layer, the prompt's
 tail padded with the identity step (k = 0, w_log = 0) to the multiple of
@@ -28,7 +34,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.types import ModelConfig
-from repro_torch.model.layers import Ctx, PSpec, pspec, shard_axis
+from repro_torch.model.layers import (Ctx, PSpec, model_sum, pspec,
+                                      shard_axis)
 
 SUBCHUNK = 16
 MIX_RANK = 32
@@ -43,6 +50,16 @@ def rwkv_dims(cfg: ModelConfig) -> Tuple[int, int]:
     N = cfg.rwkv.head_size
     H = cfg.d_model // N
     return H, N
+
+
+def time_mix_splits(cfg: ModelConfig, tp: int) -> bool:
+    """Whether a split step computes the time-mix as this rank's block
+    over a ``"model"`` axis of ``tp``: its heads split over it, and with
+    them ``da = H·N`` (:func:`rwkv_time_schema`'s layouts). Where ``da``
+    divides the axis but the heads do not, a rank's columns would cut a
+    head, so every rank computes the time-mix whole."""
+    H, _ = rwkv_dims(cfg)
+    return shard_axis(H, tp) == "model"
 
 
 def rwkv_time_schema(cfg: ModelConfig, tp: int = 16):
@@ -186,7 +203,12 @@ def wkv6_chunked(
     seg = cs[:, :, None] - cs[:, None, :]             # (B,z,c,H,N) z >= c
     zmask = torch.tril(torch.ones((nc + 1, nc + 1), dtype=torch.bool,
                                   device=r.device))[None, :, :, None, None]
-    segd = torch.where(zmask, torch.exp(seg), 0.0)
+    # masked before the exp, as the subchunk pairs are: above the
+    # diagonal seg is positive and its exp overflows to inf, whose
+    # gradient through a select is 0 · inf = NaN (the reference's
+    # ``where(zmask, exp(seg), 0)`` gives NaN gradients there; ROADMAP
+    # §C15); the forward is the same
+    segd = torch.exp(seg.masked_fill(~zmask, float("-inf")))
     h_all = torch.einsum("bzchn,bchnp->bzhnp", segd, states)
     h_prev, h_final = h_all[:, :-1], h_all[:, -1]
 
@@ -311,10 +333,26 @@ def rwkv_time_mix(
     """The time-mix: (out (B, S, D) in hx's dtype, ``{"wkv",
     "shift_att"}`` in prefill and decode, else None). Decode takes one
     position and ``state``; prefill and training run the scan
-    (:func:`_wkv_scan`) from ``state["wkv"]`` where given."""
+    (:func:`_wkv_scan`) from ``state["wkv"]`` where given.
+
+    Where the step computes split and the time-mix splits
+    (:func:`time_mix_splits`), ``p`` holds this rank's block of the heads
+    over ``"model"`` (``wr``/``wk``/``wv``/``wg``/``decay_w2``'s columns,
+    ``decay``/``ln_x_*``'s and ``u``'s blocks, ``wo``'s rows) and
+    ``state["wkv"]`` its heads: the token shift, the interpolation and
+    the decay LoRA's first product run whole, the scan and the per-head
+    group norm on the rank's heads, and ``wo``'s partial products are
+    summed over the axis. The heads come from the blocks' shapes."""
     cfg = ctx.cfg
     dt = ctx.compute_dtype
-    H, N = rwkv_dims(cfg)
+    H_whole, N = rwkv_dims(cfg)
+    H = p["u"].shape[0]
+    split = ctx.split and time_mix_splits(cfg, ctx.tp_size)
+    want = H_whole // ctx.tp_size if split else H_whole
+    if H != want or p["wr"].shape[-1] != H * N:
+        raise ValueError(f"u holds {H} of {H_whole} heads and wr "
+                         f"{p['wr'].shape[-1]} columns, not the {want} "
+                         f"heads this step computes with")
     B, S, _ = hx.shape
     x = hx.to(dt)
 
@@ -345,8 +383,10 @@ def rwkv_time_mix(
 
     y = y.reshape(B, S, H * N).to(dt)
     y = _per_head_groupnorm(y, p["ln_x_scale"], p["ln_x_bias"], H, N) * g
-    out = (y @ p["wo"].to(dt)).to(hx.dtype)
-    return out, new_state
+    out = y @ p["wo"].to(dt)
+    if split:
+        out = model_sum(out)
+    return out.to(hx.dtype), new_state
 
 
 def rwkv_channel_mix(
@@ -356,7 +396,10 @@ def rwkv_channel_mix(
     state: Optional[Dict[str, torch.Tensor]] = None,
 ) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
     """The channel-mix: (out in hx's dtype, ``{"shift_ffn"}`` in prefill
-    and decode, else None)."""
+    and decode, else None). Where ``d_ff`` splits over ``"model"``
+    (:meth:`Ctx.splits`), ``wk`` holds the rank's columns and ``wv`` its
+    rows: the value's partial products are summed over the axis before
+    the whole ``wr``'s gate multiplies them."""
     dt = ctx.compute_dtype
     x = hx.to(dt)
     prev = state["shift_ffn"] if state is not None else None
@@ -366,6 +409,8 @@ def rwkv_channel_mix(
     x_r = x + delta * p["maa_r"].to(dt)
     kk = F.relu(x_k @ p["wk"].to(dt)).square()
     kv = kk @ p["wv"].to(dt)
+    if ctx.splits(ctx.cfg.d_ff):
+        kv = model_sum(kv)
     out = (torch.sigmoid(x_r @ p["wr"].to(dt)) * kv).to(hx.dtype)
     new_state = None
     if ctx.mode in ("prefill", "decode"):

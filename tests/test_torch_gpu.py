@@ -2457,3 +2457,68 @@ def test_card_tp_zamba2_on_a_world_of_one_is_the_meshless_model(
     assert torch.equal(l1, l0)
     assert all(torch.equal(a, b) for a, b in zip(tree_leaves(g1),
                                                  tree_leaves(g0)))
+
+
+def test_card_tp_rwkv6_on_a_world_of_one_is_the_meshless_model(
+        cuda, world_of_one, monkeypatch):
+    """The rwkv6 smoke in f32 on the (1, 1) card mesh, its time-mix and
+    channel-mix computed as the rank's share (here the whole on a model
+    axis of 1): ``Server(mesh=)``'s greedy tokens equal the meshless
+    ``Server``'s, B7 runs on the rank's heads once a layer of each
+    prefill, the served ``wkv`` state holds them, and the split train
+    step's loss and every gradient leaf equal the meshless step's bit for
+    bit (B7 does not run in training)."""
+    from repro_torch.core.types import MeshConfig
+    from repro_torch.data.pipeline import LMDataConfig, lm_batch_for_step
+    from repro_torch.model import lm
+    from repro_torch.model.layers import (local_blocks, tree_leaves,
+                                          value_and_grad)
+    from repro_torch.model.rwkv import rwkv_dims
+
+    cfg = get_config("rwkv6-7b", smoke=True)
+    mcfg = MeshConfig((1, 1), ("data", "model"))
+    par = ParallelismConfig(compute_dtype="float32")
+    st = Stepper(cfg, ShapeConfig("t", "train", 32, 2), mcfg, par,
+                 mesh=world_of_one)
+    params = st.init(seed=5, device=cuda)
+    heads = []
+    real = wkv_ops.wkv6_cuda
+
+    def counted(r, *a, **kw):
+        heads.append(r.shape[2])
+        return real(r, *a, **kw)
+
+    monkeypatch.setattr(wkv_ops, "wkv6_cuda", counted)
+    prompts = ([5, 9, 13, 17, 21, 25, 27], [7, 11, 3, 19, 23, 29, 31])
+    served = []
+    for mesh_cfg, mesh in ((SMOKE_MESH, None), (mcfg, world_of_one)):
+        wkv_ops.launches = 0
+        heads.clear()
+        srv = Server(cfg, params, ServerConfig(batch_slots=2, max_len=12,
+                                               eos_token=-1),
+                     mesh_cfg, par, device=cuda, mesh=mesh)
+        for p in prompts:
+            srv.submit(p, max_new_tokens=4)
+        served.append(([list(r.out_tokens) for r in srv.run_until_drained()],
+                       wkv_ops.launches, list(heads),
+                       int(srv._cache["layers"][0]["wkv"].shape[1])))
+    (t0, n0, h0, c0), (t1, n1, h1, c1) = served
+    n_heads, _ = rwkv_dims(cfg)
+    assert t1 == t0
+    assert n1 == n0 == len(prompts) * cfg.n_layers
+    assert h1 == h0 == [n_heads] * n0
+    assert c1 == c0 == n_heads
+    batch = {k: torch.as_tensor(v, device=cuda) for k, v in
+             lm_batch_for_step(LMDataConfig(vocab_size=cfg.vocab_size,
+                                            seq_len=32, global_batch=2),
+                               0).items()}
+    wkv_ops.launches = 0
+    (l0, _), g0 = value_and_grad(lm.make_loss_fn(cfg, SMOKE_MESH, par),
+                                 has_aux=True)(params, batch)
+    blocks = local_blocks(params, st.state_shardings()["params"])
+    l1, _, g1 = lm._mesh_grad_fn(cfg, mcfg, par, world_of_one)(blocks, batch)
+    torch.cuda.synchronize()
+    assert wkv_ops.launches == 0
+    assert torch.equal(l1, l0)
+    assert all(torch.equal(a, b) for a, b in zip(tree_leaves(g1),
+                                                 tree_leaves(g0)))

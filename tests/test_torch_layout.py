@@ -58,7 +58,8 @@ def test_importing_the_port_loads_neither_jax_nor_repro():
             "repro_torch.resilience.faults, repro_torch.resilience.guard, "
             "repro_torch.resilience.chaos, repro_torch.obs.export, "
             "repro_torch.runtime.failures, repro_torch.model.moe, "
-            "repro_torch.model.frontend, repro_torch.model.transformer; "
+            "repro_torch.model.frontend, repro_torch.model.transformer, "
+            "repro_torch.launch.dryrun; "
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'repro.')) or m == 'repro'); "
             "assert not bad, bad")

@@ -117,3 +117,49 @@ def test_wkv6_chunked_is_chunk_invariant():
     for y, hf in outs[1:]:
         assert (y - outs[0][0]).abs().max().item() < ORACLE_TOL
         assert (hf - outs[0][1]).abs().max().item() < ORACLE_TOL
+
+
+@pytest.mark.parametrize("with_h0", [False, True])
+def test_wkv6_chunked_gradient_is_finite_where_the_references_is_nan(
+        with_h0):
+    """ROADMAP §C15: decays near -1.5 a step over 4 chunks of 16 steps put
+    the carry's ``seg`` above the diagonal near 96, whose exp overflows
+    f32; the reference's ``where(zmask, exp(seg), 0)`` then gives NaN
+    gradients (0 · inf). The port masks ``seg`` before the exp: its
+    forward equals the reference's within 1e-5, and the gradient of every
+    input is finite and within 1e-4 (of the largest magnitude) of the
+    per-step oracle's in f64."""
+    import jax
+
+    r, k, v, _, u, h0 = _wkv_case(1, 64, 2, 4, 11)
+    w_log = np.full(r.shape, -1.5, np.float32)
+    h0 = h0 if with_h0 else None
+    rng = np.random.default_rng(12)
+    gy = _f32(rng, r.shape)
+    gh = _f32(rng, (1, 2, 4, 4))
+    ins = [r, k, v, w_log, u] + ([h0] if with_h0 else [])
+
+    def port(fn, dtype, **kw):
+        ts = [torch.tensor(a, dtype=dtype, requires_grad=True) for a in ins]
+        y, hf = fn(*ts[:5], h0=ts[5] if with_h0 else None, **kw)
+        ((y * torch.tensor(gy, dtype=dtype)).sum()
+         + (hf * torch.tensor(gh, dtype=dtype)).sum()).backward()
+        return y.detach(), [t.grad for t in ts]
+
+    y, grads = port(wkv6_chunked, torch.float32, chunk=16)
+    _, oracle = port(wkv6_reference, torch.float64)
+
+    def ref_loss(*a):
+        yj, hj = j_wkv6_chunked(*a[:5], h0=a[5] if with_h0 else None,
+                                chunk=16)
+        return (yj * gy).sum() + (hj * gh).sum()
+
+    ref_grads = jax.grad(ref_loss, argnums=tuple(range(len(ins))))(
+        *map(jnp.asarray, ins))
+    assert not all(bool(jnp.isfinite(g).all()) for g in ref_grads)
+    want_y, _ = j_wkv6_chunked(*map(_j, ins[:5]), h0=_j(h0), chunk=16)
+    assert _err(y, want_y) < SAME_ALGORITHM_TOL
+    for g, o in zip(grads, oracle):
+        assert torch.isfinite(g).all()
+        scale = o.abs().max().item()
+        assert (g.double() - o).abs().max().item() <= ORACLE_TOL * scale

@@ -1,9 +1,10 @@
-"""PyTorch port, the ``"model"`` split of the transformer and hybrid
-families' steps (``model/lm.py``: ``_model_specs``, the split train step
-and ``Server(mesh=)``; ``layers.py``'s MLP, embedding and head,
+"""PyTorch port, the ``"model"`` split of the transformer, hybrid and
+RWKV families' steps (``model/lm.py``: ``_model_specs``, the split train
+step and ``Server(mesh=)``; ``layers.py``'s MLP, embedding and head,
 ``attention.py``'s heads, ``moe.py``'s shared experts, ``ssm.py``'s
-Mamba-2 mixer, zamba2's shared block, the vocabulary-parallel
-cross-entropy and ``shardmap.logsumexp``) against the reference's
+Mamba-2 mixer, zamba2's shared block, ``rwkv.py``'s time-mix and
+channel-mix, the vocabulary-parallel cross-entropy and
+``shardmap.logsumexp``) against the reference's
 XLA-partitioned steps on (2, 2) and (2, 4) meshes (the port as 4 and 8
 ``gloo`` ranks, the reference with 8 forced host devices:
 ``tests/torch_ranks.py``), from the reference's parameters, in f32:
@@ -15,15 +16,17 @@ XLA-partitioned steps on (2, 2) and (2, 4) meshes (the port as 4 and 8
   §C14), the internvl2-1b smoke with 6 q heads (its attention split at
   2, whole at 4, its MLP and tied vocabulary split at both), the
   zamba2-7b smoke (8 Mamba-2 heads, ``d_inner`` 128, a shared block of 4
-  heads: all split at both) and the deepseek-moe-16b smoke (shared experts, a dense first layer) with each MoE impl;
+  heads: all split at both), the rwkv6-7b smoke (4 heads of 16, ``d_ff``
+  128: both mixers split at both) and the deepseek-moe-16b smoke (shared
+  experts, a dense first layer) with each MoE impl;
 * the loss and ``n_tok`` within 1e-5 (relative) and each gradient leaf
   within 1e-5 (relative rms) of the reference's and of the port's
   whole-step form, every rank gathering the same gradients; 3 steps of
   the mesh ``Trainer`` within 1e-4 of the reference's losses;
 * ``Server(mesh=)``'s greedy tokens (prefill, then decode) equal to the
   reference's ``Server(mesh=)`` and to the port's meshless ``Server``,
-  the rank's cache holding its kv heads where they split and its
-  Mamba-2 heads;
+  the rank's cache holding its kv heads where they split, its Mamba-2
+  heads and its RWKV-6 ``wkv`` heads;
 * the split step gathers no leaf over ``"model"`` (``CommDebugMode``
   sees no ``DTensor`` all-gather), and the helper's wire bytes are the
   sums the shapes call for: the activations' partial sums, the
@@ -46,8 +49,10 @@ from repro_torch.convert import params_from_jax
 from repro_torch.core.types import MeshConfig
 from repro_torch.model import attention as tattn
 from repro_torch.model import lm as tlm
+from repro_torch.model import rwkv as trwkv
 from repro_torch.model import ssm as tssm
-from repro_torch.model.layers import Ctx, is_pspec, shard_axis, tree_leaves
+from repro_torch.model.layers import (Ctx, init_params, is_pspec,
+                                      shard_axis, tree_leaves)
 from repro_torch.shardmap import P
 
 with warnings.catch_warnings():
@@ -137,13 +142,19 @@ def test_server_greedy_tokens(runs, name, mesh):
     reference's ``Server(mesh=)``'s tokens and the meshless ``Server``'s,
     on every rank; the rank's cache holds ``n_kv_heads / tp`` heads where
     they split over ``"model"``, all of them where they do not (zamba2's
-    in its shared block's cache), and a Mamba-2 layer's state the rank's
-    ``H / tp`` heads and ``d_inner / tp`` conv channels."""
+    in its shared block's cache), a Mamba-2 layer's state the rank's
+    ``H / tp`` heads and ``d_inner / tp`` conv channels, and an RWKV-6
+    layer's ``wkv`` state the rank's ``H / tp`` heads beside whole shift
+    states."""
     ref, ports = runs
     cfg = _cfg(name)
     tp = _tp(mesh)
     kv = cfg.n_kv_heads
     want = {"kv": kv // tp if shard_axis(kv, tp) else kv}
+    if cfg.rwkv is not None:
+        heads, _ = trwkv.rwkv_dims(cfg)
+        want = {"wkv": heads // tp, "shift_att": cfg.d_model,
+                "shift_ffn": cfg.d_model}
     if cfg.ssm is not None:
         d_inner, heads, _, _ = tssm.mamba_dims(cfg)
         want.update(ssm=heads // tp, conv_x=d_inner // tp)
@@ -216,6 +227,41 @@ def test_zamba2_split_holds_and_computes_its_blocks(runs, mesh):
 
 
 @pytest.mark.parametrize("mesh", MESHES)
+def test_rwkv6_split_holds_and_computes_its_blocks(runs, mesh):
+    """The rwkv6 smoke's split step: each rank holds its block of the
+    time-mix's heads (``wr``/``wk``/``wv``/``wg``/``decay_w2``'s columns,
+    ``decay``/``ln_x_*``/``u``'s blocks, ``wo``'s rows) and of the
+    channel-mix's ``d_ff`` (``wk``'s columns, ``wv``'s rows), the
+    token-shift mixes, ``decay_w1`` and the channel-mix's ``wr`` whole;
+    its served ``wkv`` state holds ``H / tp`` heads; and no leaf is
+    gathered over ``"model"``, where the whole-step form gathers them."""
+    _, ports = runs
+    cfg = _cfg("rwkv6")
+    tp = _tp(mesh)
+    heads, n = trwkv.rwkv_dims(cfg)
+    d, L, f = cfg.d_model, cfg.n_layers, cfg.d_ff
+    da = heads * n // tp
+    lora = cfg.rwkv.decay_lora
+    want_att = {
+        "wr": (L, d, da), "wk": (L, d, da), "wv": (L, d, da),
+        "wg": (L, d, da), "decay_w2": (L, lora, da), "decay": (L, da),
+        "ln_x_scale": (L, da), "ln_x_bias": (L, da),
+        "u": (L, heads // tp, n), "wo": (L, da, d),
+        "maa_x": (L, d), "maa_wkvrg": (L, 5, d),
+        "maa_w1": (L, d, 5 * trwkv.MIX_RANK),
+        "maa_w2": (L, 5, trwkv.MIX_RANK, d), "decay_w1": (L, d, lora)}
+    want_ffn = {"wk": (L, d, f // tp), "wv": (L, f // tp, d),
+                "wr": (L, d, d), "maa_k": (L, d), "maa_r": (L, d)}
+    for r in ports[mesh]:
+        got = r["rwkv6"]
+        assert got["blocks"]["g0"]["att"] == want_att
+        assert got["blocks"]["g0"]["ffn"] == want_ffn
+        assert got["cache_heads"]["wkv"] == heads // tp
+        assert got["split"]["gathers"] == 0
+        assert got["whole"]["gathers"] > 0
+
+
+@pytest.mark.parametrize("mesh", MESHES)
 def test_split_step_gathers_no_leaf_and_sums_what_the_shapes_say(runs,
                                                                   mesh):
     """The yi-9b smoke with no recompute and one CE pass
@@ -265,11 +311,12 @@ def test_split_step_gathers_no_leaf_and_sums_what_the_shapes_say(runs,
 def test_model_specs_split_the_transformer_leaves_alone(arch):
     """Each leaf of the embedding and head, of every attention and MLP of
     a transformer block and of zamba2's shared block, of the shared
-    experts and of a Mamba-2 mixer that splits (``ssm.mixer_splits``:
-    the zamba2 smoke's at a model axis of 4) keeps its layout; a routed
-    expert stack keeps its layout under ``psum``/``a2a``; every other
-    leaf (norms, router, the shared block's ``out_proj``, RWKV-6,
-    frontends) is whole."""
+    experts, of a Mamba-2 mixer that splits (``ssm.mixer_splits``: the
+    zamba2 smoke's at a model axis of 4), of an RWKV-6 time-mix that
+    splits (``rwkv.time_mix_splits``: the rwkv6 smoke's at 4) and of
+    every RWKV-6 channel-mix keeps its layout; a routed expert stack
+    keeps its layout under ``psum``/``a2a``; every other leaf (norms,
+    router, the shared block's ``out_proj``, frontends) is whole."""
     cfg = get_config(arch, smoke=True)
     schema = tlm.param_schema(cfg, tp=4)
     specs = tlm._model_specs(cfg, schema, 4)
@@ -277,6 +324,8 @@ def test_model_specs_split_the_transformer_leaves_alone(arch):
     split_keys = {"attn", "self_attn", "cross_attn", "mlp"}
     mamba = cfg.ssm is not None and tssm.mixer_splits(cfg, 4)
     assert mamba == (arch == "zamba2-7b")
+    rwkv = cfg.rwkv is not None and trwkv.time_mix_splits(cfg, 4)
+    assert rwkv == (arch == "rwkv6-7b")
 
     def walk(sch, sp, path):
         if is_pspec(sch):
@@ -284,7 +333,8 @@ def test_model_specs_split_the_transformer_leaves_alone(arch):
                     or (path[0].startswith("g") and (
                         path[1] in split_keys
                         or path[1:3] == ("moe", "shared")
-                        or (path[1] == "mamba" and mamba)))
+                        or (path[1] == "mamba" and mamba)
+                        or (path[1] in ("att", "ffn") and rwkv)))
                     or (path[0] == "shared" and path[1] in split_keys)
                     or (ep and sch.experts))
             assert sp == (P(*sch.pspec) if laid else P()), path
@@ -317,6 +367,37 @@ def test_mamba_mixer_is_whole_where_it_does_not_split(tp, groups):
         assert "model" in schema["g0"]["mamba"]["w_z"].pspec
     assert specs["shared"]["mlp"]["wo"] == P(
         *schema["shared"]["mlp"]["wo"].pspec)
+
+
+def test_rwkv6_time_mix_is_whole_where_its_heads_do_not_split():
+    """The rwkv6 smoke (4 heads of 16, ``d_ff`` 128) at a model axis of 8:
+    ``da`` = 64 divides it, so ``wr`` is laid over it, but a rank's 8
+    columns would cut a head, so every leaf of the time-mix is whole in
+    the split step, which computes it whole on every rank (a block of
+    the wrong width raises); the channel-mix's ``d_ff`` splits."""
+    cfg = get_config("rwkv6-7b", smoke=True)
+    assert not trwkv.time_mix_splits(cfg, 8)
+    assert trwkv.time_mix_splits(cfg, 4)
+    schema = tlm.param_schema(cfg, tp=8)
+    assert "model" in schema["g0"]["att"]["wr"].pspec
+    specs = tlm._model_specs(cfg, schema, 8)
+    assert all(s == P() for s in tree_leaves(
+        specs["g0"]["att"], lambda x: isinstance(x, P)))
+    ffn = schema["g0"]["ffn"]
+    assert specs["g0"]["ffn"]["wk"] == P(*ffn["wk"].pspec) != P()
+    assert specs["g0"]["ffn"]["wv"] == P(*ffn["wv"].pspec) != P()
+    assert "model" not in specs["g0"]["ffn"]["wr"]
+    mcfg = MeshConfig((1, 8), ("data", "model"))
+    ctx = Ctx(cfg=cfg, mesh_cfg=mcfg, mode="train", split=True)
+    assert ctx.splits(cfg.d_ff)
+    gen = torch.Generator().manual_seed(0)
+    p = init_params(trwkv.rwkv_time_schema(cfg, 8), gen)
+    x = torch.randn(1, 3, cfg.d_model, generator=gen)
+    out, _ = trwkv.rwkv_time_mix(p, x, ctx)     # whole: no collective
+    assert out.shape == x.shape
+    half = dict(p, u=p["u"][:2], wr=p["wr"][:, :32])
+    with pytest.raises(ValueError, match="heads this step computes"):
+        trwkv.rwkv_time_mix(half, x, ctx)
 
 
 @pytest.mark.parametrize("heads,kv,tp", [(4, 2, 4), (32, 4, 2), (32, 4, 8),

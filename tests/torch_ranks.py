@@ -781,9 +781,10 @@ def port_elastic(rank, world, outdir):
 #: the reference's jobs of one mesh, run side by side
 TP_GROUPS = {"dense": ("yi", "yi/scan", "yi/uneven", "internvl6"),
              "hybrid": ("zamba2",),
+             "ssm": ("rwkv6",),
              "moe": ("deepseek/dense", "deepseek/psum", "deepseek/a2a")}
 TP_VARIANTS = tuple(v for g in TP_GROUPS.values() for v in g)
-TP_SERVED = ("yi", "internvl6", "zamba2", "deepseek/dense")
+TP_SERVED = ("yi", "internvl6", "zamba2", "rwkv6", "deepseek/dense")
 TP_S, TP_B, TP_STEPS, TP_NEW = 8, 4, 3, 4
 TP_PROMPTS = ([5, 9, 13, 17, 21, 25], [7, 11, 3, 19, 23, 29])
 #: "yi/uneven" masks this many targets of the first row, in the first
@@ -796,8 +797,9 @@ def _tp_cfg(get_config, name):
     layers, ``_tp_par``, and on a batch masked unevenly over "data",
     ``_tp_batch_fn``), the internvl2-1b smoke with 6 q heads (whole at a
     model axis of 4), the zamba2-7b smoke (8 Mamba-2 heads, ``d_inner``
-    128, a shared block of 4 heads) and the deepseek-moe-16b smoke
-    (shared experts, a dense first layer) with each MoE impl."""
+    128, a shared block of 4 heads), the rwkv6-7b smoke (4 heads of 16,
+    ``d_ff`` 128) and the deepseek-moe-16b smoke (shared experts, a dense
+    first layer) with each MoE impl."""
     arch, _, impl = name.partition("/")
     if arch == "yi":
         return get_config("yi-9b", smoke=True)
@@ -806,6 +808,8 @@ def _tp_cfg(get_config, name):
                                    n_heads=6)
     if arch == "zamba2":
         return get_config("zamba2-7b", smoke=True)
+    if arch == "rwkv6":
+        return get_config("rwkv6-7b", smoke=True)
     cfg = get_config("deepseek-moe-16b", smoke=True)
     return dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe,
                                                             impl=impl))
@@ -1013,9 +1017,14 @@ def port_tp(rank, world, outdir):
 
 def _cache_heads(cache) -> dict:
     """The heads a server's cache holds: the kv heads of its first
-    attention (zamba2's shared block's), and for a Mamba-2 layer its SSM
-    state's heads and its conv state's ``d_inner`` channels."""
+    attention (zamba2's shared block's), for a Mamba-2 layer its SSM
+    state's heads and its conv state's ``d_inner`` channels, for an
+    RWKV-6 layer its ``wkv`` state's heads and its shift states' width."""
     first = cache["layers"][0]
+    if "wkv" in first:
+        return {"wkv": int(first["wkv"].shape[1]),
+                "shift_att": int(first["shift_att"].shape[1]),
+                "shift_ffn": int(first["shift_ffn"].shape[1])}
     if "ssm" not in first:
         return {"kv": int(first["k"].shape[2])}
     return {"kv": int(cache["shared"][0]["k"].shape[2]),
