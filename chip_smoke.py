@@ -343,7 +343,15 @@ gloo group; NCCL puts no two ranks on one card):
     serving, 4 in the bf16 prefill, never in training), each as often as
     with no mesh; each rank's peak memory and a step's host seconds
     beside the one process's. If one of them raises, the phase names it
-    and runs the split steps on a world of one instead.
+    and runs the split steps on a world of one instead. Then the data
+    split: two processes of a gloo group on the card, each one data rank
+    of the (2, 1) mesh, serve the same 2 prompts on 2 slots through
+    ``Server(mesh=)`` for each arch (no train step): each rank's tokens
+    identical to tp = 1's, each leaf of its pool cache 1 row (tp = 1's:
+    2), and its serving B5 (by variant), B6 and B7 launches half of tp =
+    1's on the same heads (each data rank prefills only its own
+    request); each rank's serving peak memory and host seconds beside tp
+    = 1's.
 
 The multi-pod dry-run (``repro_torch.launch.dryrun``: a step of one rank
 of the production mesh counted on ``meta`` tensors in a fake process
@@ -368,8 +376,9 @@ Then print the kernels line (B1's and B2's rows also carry the loop's
     ``collectives_launches``; B6's and B7's phase 21's,
     ``families_launches``; B5's, B6's and B7's one scanned prefill's by
     arch and B5's two scanned training steps', ``scan_launches``; B5's
-    phase 24 runs' by arch and variant and B6's and B7's by arch,
-    ``tp_launches``) and the card's name and power limit.
+    phase 24 runs' by arch and variant and B6's and B7's by arch, with
+    the (2, 1) run's serving launches of data rank 0, ``tp_launches``)
+    and the card's name and power limit.
 
 Usage, from the repository root: ``python3 chip_smoke.py``. Needs one CUDA
 card and ``nvcc``; exits non-zero, printing no result, without them. The
@@ -4294,16 +4303,17 @@ def tp_probe() -> dict:
     return out
 
 
-def tp_run(mesh, flash_ops, ssd_ops, wkv_ops, arch: str,
-           layers: int) -> dict:
+def tp_run(mesh, flash_ops, ssd_ops, wkv_ops, arch: str, layers: int,
+           serve_only: bool = False) -> dict:
     """One rank's (or, with no mesh, the one process's) phase 24 work on
     ``arch`` at full width and ``layers`` layers in f32, from weights
     drawn on the card from one seed: ``Server`` (with ``mesh``,
     ``Server(mesh=)``) serving ``TP_REQUESTS`` prompts of ``TP_PROMPT``
-    tokens and ``TP_NEW`` new ones, one bf16 prefill, then one train
-    step; in each, B5 by variant and the q heads of each launch, B6's and
-    B7's launches and the heads of each, peak device memory, host
-    seconds."""
+    tokens and ``TP_NEW`` new ones (and the batch rows of its pool
+    cache's leaves), then, unless ``serve_only``, one bf16 prefill and
+    one train step; in each, B5 by variant and the q heads of each
+    launch, B6's and B7's launches and the heads of each, peak device
+    memory, host seconds."""
     import dataclasses
 
     import numpy as np
@@ -4313,7 +4323,7 @@ def tp_run(mesh, flash_ops, ssd_ops, wkv_ops, arch: str,
     from repro_torch.core.types import (SMOKE_MESH, MeshConfig,
                                         ParallelismConfig, ShapeConfig)
     from repro_torch.data.pipeline import LMDataConfig, lm_batch_for_step
-    from repro_torch.model.layers import local_blocks
+    from repro_torch.model.layers import local_blocks, tree_leaves
     from repro_torch.model.lm import Stepper
     from repro_torch.optim.adamw import init_opt_state
     from repro_torch.runtime.server import Server, ServerConfig
@@ -4380,9 +4390,13 @@ def tp_run(mesh, flash_ops, ssd_ops, wkv_ops, arch: str,
             torch.cuda.synchronize()
             out["serve_s"] = time.perf_counter() - t0
             out["tokens"] = [list(r.out_tokens) for r in done]
+            out["serve_rows"] = sorted({t.shape[0] for t in
+                                        tree_leaves(srv._cache)})
             read("serve")
             out["serve_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
             del srv, done
+            if serve_only:
+                return out
             # one bf16 prefill: B5 sm90 on the same heads
             counts()
             srv = Server(cfg, params, ServerConfig(
@@ -4421,12 +4435,14 @@ def tp_run(mesh, flash_ops, ssd_ops, wkv_ops, arch: str,
     return out
 
 
-def tp_rank(rank: int, world: int, store: str, out_dir: str) -> None:
+def tp_rank(rank: int, world: int, store: str, out_dir: str,
+            shape: tuple) -> None:
     """Phase 24's rank ``rank`` (a process ``torch.multiprocessing``
     started): a gloo group of ``world`` processes on card 0, the probe of
     the collectives, then :func:`tp_run` of each of ``TP_ARCHS`` on the
-    (1, ``world``) mesh if the ones the split steps call ran; its results
-    pickled to ``out_dir``."""
+    ``shape`` mesh of ("data", "model") if the ones the split steps call
+    ran (serving alone where the mesh has more than one data rank); its
+    results pickled to ``out_dir``."""
     import datetime
     import pickle
     import traceback
@@ -4449,10 +4465,10 @@ def tp_rank(rank: int, world: int, store: str, out_dir: str) -> None:
             from repro_torch.kernels.rwkv6 import ops as wkv_ops
             from repro_torch.launch.mesh import make_smoke_mesh
 
-            mesh = make_smoke_mesh((1, world))
+            mesh = make_smoke_mesh(shape)
             for arch, layers in TP_ARCHS:
                 res[arch] = tp_run(mesh, flash_ops, ssd_ops, wkv_ops, arch,
-                                   layers)
+                                   layers, serve_only=shape[0] > 1)
     except Exception:                                  # noqa: BLE001
         res["error"] = traceback.format_exc()
     finally:
@@ -4488,8 +4504,9 @@ def phase_tp(ops_by_name: dict, card: str) -> dict:
     of each prefill, never in training); each rank's peak memory beside
     the one process's. If one of those collectives raises, the phase
     names it and runs the split steps on a world of one (NCCL, the (1, 1)
-    mesh) instead. Returns B5's, B6's and B7's launches by arch and
-    run."""
+    mesh) instead. Then the data split on the (2, 1) mesh
+    (:func:`tp_data_split`). Returns B5's, B6's and B7's launches by arch
+    and run."""
     import pickle
     import tempfile
 
@@ -4516,8 +4533,8 @@ def phase_tp(ops_by_name: dict, card: str) -> dict:
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as td:
         t0 = time.perf_counter()
-        mp.spawn(tp_rank, args=(TP_WORLD, os.path.join(td, "store"), td),
-                 nprocs=TP_WORLD)
+        mp.spawn(tp_rank, args=(TP_WORLD, os.path.join(td, "store"), td,
+                                (1, TP_WORLD)), nprocs=TP_WORLD)
         spawn_s = time.perf_counter() - t0
         ranks = []
         for r in range(TP_WORLD):
@@ -4574,6 +4591,8 @@ def phase_tp(ops_by_name: dict, card: str) -> dict:
                            for k in runs)
                     or (cfg.ssm and res["serve_b6"]
                         != TP_REQUESTS * layers)
+                    or [res["serve_rows"], r1["serve_rows"]]
+                    != [[TP_REQUESTS]] * 2
                     or r1["bf16_b5"] != {"sm90": bf16_sm90, "simt": 0}):
                 raise AssertionError(
                     f"phase 24 {arch} rank {r} of {tp}: tokens "
@@ -4589,8 +4608,10 @@ def phase_tp(ops_by_name: dict, card: str) -> dict:
                 f"{r1['train_peak_gb']:.2f}); host s serve "
                 f"{res['serve_s']:.2f}, train step {res['train_s']:.2f} "
                 f"({card})")
+    data = tp_data_split(one, card)
     log(f"phase 24 took {time.perf_counter() - t_phase:.1f} s (the "
-        f"{TP_WORLD} processes {spawn_s:.1f} s) ({card})")
+        f"{TP_WORLD} processes {spawn_s:.1f} s on (1, {TP_WORLD}), "
+        f"{data.pop('spawn_s'):.1f} s on ({TP_WORLD}, 1)) ({card})")
 
     def total(res, kernel):
         if kernel in ("ssd", "wkv6"):
@@ -4607,7 +4628,78 @@ def phase_tp(ops_by_name: dict, card: str) -> dict:
                     "wkv6": cfg.rwkv}[kernel]:
                 out[kernel][arch] = {
                     "tp1": total(one[arch], kernel),
-                    f"tp{tp}_rank0": total(ranks[0][arch], kernel)}
+                    f"tp{tp}_rank0": total(ranks[0][arch], kernel),
+                    f"dp{TP_WORLD}_rank0_serve": data[arch][kernel]}
+    return out
+
+
+def tp_data_split(one: dict, card: str) -> dict:
+    """Phase 24's run on the (``TP_WORLD``, 1) mesh: two processes of a
+    gloo group on card 0, each one data rank, serve the phase's prompts on
+    ``TP_REQUESTS`` slots through ``Server(mesh=)`` for each of
+    ``TP_ARCHS`` (:func:`tp_run`, serving alone). Raises unless each
+    rank's tokens are tp = 1's (``one``, :func:`tp_run` with no mesh),
+    each leaf of its pool cache holds ``TP_REQUESTS / TP_WORLD`` rows,
+    and its B5 (by variant), B6 and B7 serving launches are tp = 1's
+    over ``TP_WORLD`` on the same heads, each data rank prefilling only
+    its own requests. Returns rank 0's serving launches by arch and
+    kernel, and the processes' seconds as ``spawn_s``."""
+    import pickle
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    with tempfile.TemporaryDirectory() as td:
+        t0 = time.perf_counter()
+        mp.spawn(tp_rank, args=(TP_WORLD, os.path.join(td, "store"), td,
+                                (TP_WORLD, 1)), nprocs=TP_WORLD)
+        out = {"spawn_s": time.perf_counter() - t0}
+        ranks = []
+        for r in range(TP_WORLD):
+            with open(os.path.join(td, f"rank{r}.pkl"), "rb") as f:
+                ranks.append(pickle.load(f))
+    for r, res in enumerate(ranks):
+        if "error" in res or not all(arch in res for arch, _ in TP_ARCHS):
+            raise AssertionError(f"phase 24 ({TP_WORLD}, 1) rank {r}: "
+                                 f"{res.get('error', res['collectives'])}")
+    rows = TP_REQUESTS // TP_WORLD
+    for arch, _ in TP_ARCHS:
+        r1 = one[arch]
+        for r, rr in enumerate(ranks):
+            res = rr[arch]
+            b5 = {v: n * TP_WORLD for v, n in res["serve_b5"].items()}
+            if (res["tokens"] != r1["tokens"] or res["serve_rows"] != [rows]
+                    or b5 != r1["serve_b5"]
+                    or res["serve_b6"] * TP_WORLD != r1["serve_b6"]
+                    or res["serve_b7"] * TP_WORLD != r1["serve_b7"]
+                    or any(res[f"serve_{k}"] != r1[f"serve_{k}"]
+                           for k in ("heads", "b6_heads", "b7_heads"))):
+                raise AssertionError(
+                    f"phase 24 {arch} ({TP_WORLD}, 1) rank {r}: tokens "
+                    f"{res['tokens']} (tp = 1: {r1['tokens']}), pool rows "
+                    f"{res['serve_rows']} (want [{rows}]), serving B5 "
+                    f"{json.dumps(res['serve_b5'])} on {res['serve_heads']} "
+                    f"q heads, B6 {res['serve_b6']} on "
+                    f"{res['serve_b6_heads']}, B7 {res['serve_b7']} on "
+                    f"{res['serve_b7_heads']} (tp = 1: "
+                    f"{json.dumps(r1['serve_b5'])} on {r1['serve_heads']}, "
+                    f"{r1['serve_b6']} on {r1['serve_b6_heads']}, "
+                    f"{r1['serve_b7']} on {r1['serve_b7_heads']})")
+            log(f"phase 24 {arch} ({TP_WORLD}, 1) data rank {r}: tokens "
+                f"identical to tp = 1's; pool rows {res['serve_rows']} of "
+                f"every leaf (tp = 1: {r1['serve_rows']}); serving B5 "
+                f"{json.dumps(res['serve_b5'])}, B6 {res['serve_b6']}, B7 "
+                f"{res['serve_b7']} (tp = 1: {json.dumps(r1['serve_b5'])}, "
+                f"{r1['serve_b6']}, {r1['serve_b7']}), on "
+                f"{res['serve_heads']}, {res['serve_b6_heads']} and "
+                f"{res['serve_b7_heads']} heads a launch; peak GB serve "
+                f"{res['serve_peak_gb']:.2f} (tp = 1 "
+                f"{r1['serve_peak_gb']:.2f}); host s serve "
+                f"{res['serve_s']:.2f} (tp = 1 {r1['serve_s']:.2f}) ({card})")
+        out[arch] = {"flash_attention": sum(ranks[0][arch]["serve_b5"]
+                                            .values()),
+                     "ssd": ranks[0][arch]["serve_b6"],
+                     "wkv6": ranks[0][arch]["serve_b7"]}
     return out
 
 

@@ -78,8 +78,7 @@ from repro_torch.energy.roofline import (HEADER, CollectiveStats,
                                          RooflineReport, ring_bytes,
                                          roofline)
 from repro_torch.launch.mesh import make_production_mesh, mesh_config
-from repro_torch.model.layers import (local_blocks, placements,
-                                      tree_map_pspec)
+from repro_torch.model.layers import local_blocks, placements
 from repro_torch.model.lm import (WINDOW_FAMILIES, Stepper, batch_pspecs,
                                   model_blocks)
 
@@ -255,7 +254,6 @@ def _cell_step(st: Stepper, split: bool = True):
     (see the module doc). ``split=False``: the train step of
     ``lm._mesh_grad_fn(split=False)``, every rank computing the model
     whole."""
-    from repro_torch import shardmap as sm
     from repro_torch.model import lm
     from repro_torch.model.layers import Sharding, axes_of
 
@@ -284,7 +282,7 @@ def _cell_step(st: Stepper, split: bool = True):
     ba = axes_of(bspecs["tokens"][0])
     # the rank's rows: a region manual over the axes that cut them, so
     # that no region inside (the MoE's) cuts them again
-    rows = (sm.region(mesh, ba, batch=((ba, batch["tokens"].shape[0]),))
+    rows = (lm.rows_region(mesh, ba, batch["tokens"].shape[0])
             if ba else contextlib.nullcontext())
     if shape.kind == "prefill":
         prefill = st.prefill_fn()
@@ -301,30 +299,10 @@ def _cell_step(st: Stepper, split: bool = True):
             return decode(p, tokens, cache)
 
     cache = local_blocks(ab["cache"], st.shardings(
-        _batch_cut_cache(st.cache_schema(), bspecs["tokens"][0],
-                         shape.global_batch, st.par.scan_layers)))
+        lm.batch_cut_cache(st.cache_schema(), bspecs["tokens"][0],
+                           shape.global_batch, st.par.scan_layers)))
     return tick, {"params": params, "batch": batch["tokens"],
                   "cache": cache}
-
-
-def _batch_cut_cache(schema, batch_axes, batch: int, stacked: bool):
-    """The cache schema with every leaf's batch dim (dim 0, or 1 in the
-    stacked layout) cut over ``batch_axes`` as the tokens are: the
-    attention caches' ``pos`` rows, which the reference lays whole (XLA
-    slices each device's rows out of them), are a data rank's rows in its
-    block of the step."""
-    if batch_axes is None:
-        return schema
-    bd = 1 if stacked else 0
-
-    def cut(s):
-        layout = list(s.pspec) + [None] * (len(s.shape) - len(s.pspec))
-        if len(s.shape) <= bd or s.shape[bd] != batch or layout[bd]:
-            return s
-        layout[bd] = batch_axes
-        return dataclasses.replace(s, pspec=tuple(layout))
-
-    return tree_map_pspec(cut, schema)
 
 
 def _tree_bytes(tree) -> int:

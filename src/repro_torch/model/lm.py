@@ -25,7 +25,10 @@ other leaf (the norms, the router, the RWKV-6 token-shift mixes and
 decay LoRA's first matrix, the frontends) is computed whole on every
 rank. The serving steps take the rank's blocks (:func:`model_blocks`),
 keep the rank's kv heads, Mamba-2 heads and RWKV-6 ``wkv`` heads in the
-cache and give every rank the whole last-position logits. The train
+cache and give every rank the whole last-position logits; a server's
+pool is laid over the data axes by :func:`pool_rows` (a data rank's
+decode in :func:`rows_region`, its cache rows by :func:`batch_cut_cache`,
+the rule the dry-run's serving cells take too). The train
 step takes and returns each rank's blocks of the parameters (their
 layouts, ``Stepper.shardings``) and its slices of the moments (ZeRO-1,
 ``optim/adamw.py``): the batch is split over the data axes (a
@@ -43,18 +46,22 @@ the update keeps each rank's slices.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
+import math
 from dataclasses import dataclass
 from typing import Any, Dict, Optional, Tuple, Union
 
 import torch
 
 from repro_torch.core.types import (MeshConfig, ModelConfig,
-                                    ParallelismConfig, ShapeConfig)
+                                    ParallelismConfig, ShapeConfig,
+                                    torch_dtype)
 from repro_torch.device import resolve_device
 from repro_torch.model.layers import (Axis, Ctx, Sharding, abstract_params,
-                                      checkpoint, head_split, init_params,
-                                      is_pspec, local_blocks, placements,
-                                      pspec, pspecs, shardings, tree_map,
+                                      axes_of, checkpoint, head_split,
+                                      init_params, is_pspec, local_blocks,
+                                      placements, pspec, pspecs, shardings,
+                                      tree_map, tree_map_pspec,
                                       value_and_grad)
 from repro_torch.model.transformer import (apply_model, group_structure,
                                            head_logits, model_cache_schema,
@@ -66,7 +73,8 @@ from repro_torch.optim.adamw import (AdamWConfig, adamw_update,
 __all__ = ["param_schema", "cross_entropy", "chunked_ce_loss",
            "make_loss_fn", "make_train_step", "make_prefill_step",
            "make_decode_step", "model_blocks", "input_specs",
-           "batch_pspecs", "Stepper"]
+           "batch_pspecs", "pool_rows", "rows_region", "batch_cut_cache",
+           "pool_zeros", "Stepper"]
 
 WINDOW_FAMILIES = ("lstm", "conv1d")
 
@@ -474,6 +482,92 @@ def _batch_axis(mesh_cfg: MeshConfig,
     for a in dp:
         n *= mesh_cfg.axis_size(a)
     return dp if (n > 1 and batch % n == 0) else None
+
+
+def pool_rows(mesh_cfg: MeshConfig, batch_slots: int
+              ) -> Optional[Tuple[Tuple[str, ...], int]]:
+    """The serving pool's layout over the data axes, the reference's
+    batch layout (:func:`_batch_axis`): ``(axes, k)`` where the data axes
+    (``pod`` major) number more than one rank and divide ``batch_slots``,
+    data rank ``d`` of them holding slots ``[d·k, (d+1)·k)`` (``P(axes)``'s
+    blocks); None otherwise, every data rank holding the whole pool."""
+    axes = _batch_axis(mesh_cfg, batch_slots)
+    if axes is None:
+        return None
+    return axes, batch_slots // math.prod(mesh_cfg.axis_size(a)
+                                          for a in axes)
+
+
+def rows_region(mesh, axes: Tuple[str, ...], rows: int):
+    """A region manual over the data axes ``axes`` whose operands hold
+    ``rows`` rows of the batch those axes cut: a data rank's serving step
+    on its rows (``Server(mesh=)``'s ticks, the dry-run's serving cells).
+    ``Ctx.constrain`` checks the activations' batch against ``rows``, and
+    the MoE's region does not cut them again."""
+    from repro_torch import shardmap as sm
+
+    return sm.region(mesh, axes, batch=((axes, rows),))
+
+
+def batch_cut_cache(schema, batch_axes, batch: int, stacked: bool):
+    """The cache schema with every leaf's batch dim (dim 0, or 1 in the
+    stacked layout) cut over ``batch_axes`` as the tokens are: the
+    attention caches' ``pos`` rows, which the reference lays whole (XLA
+    slices each device's rows out of them), are a data rank's rows in its
+    block of the step. The dry-run's serving cells and ``Server(mesh=)``'s
+    pool (:func:`pool_zeros`) both take their rows from it."""
+    if batch_axes is None:
+        return schema
+    bd = 1 if stacked else 0
+
+    def cut(s):
+        layout = list(s.pspec) + [None] * (len(s.shape) - len(s.pspec))
+        if len(s.shape) <= bd or s.shape[bd] != batch or layout[bd]:
+            return s
+        layout[bd] = batch_axes
+        return dataclasses.replace(s, pspec=tuple(layout))
+
+    return tree_map_pspec(cut, schema)
+
+
+def pool_zeros(cfg: ModelConfig, mesh_cfg: MeshConfig,
+               par: ParallelismConfig, batch_slots: int, max_len: int,
+               mesh, device: torch.device):
+    """Zeros of the serving pool's cache as this rank of ``mesh`` holds
+    it, of the shapes and dtypes that a prefill padded to ``max_len``
+    gives: its rows (:func:`pool_rows`, cut by :func:`batch_cut_cache`),
+    every position, each leaf's heads over ``"model"`` as the serving
+    steps hold them (the schema's layout; a Mamba-2 state whole where the
+    mixer does not split, ``ssm.mixer_splits``); the compute dtype where
+    the schema says bf16. ``Server(mesh=)`` builds a data rank's pool
+    from it when the rank's first admission round brings it no request."""
+    from repro_torch.model.ssm import mixer_splits
+
+    tp = mesh_cfg.axis_size("model")
+    whole_mamba = cfg.ssm is not None and not mixer_splits(cfg, tp)
+
+    def served(entry):
+        if entry is None:
+            return None
+        keep = not (whole_mamba and "ssm" in entry)
+        return {k: dataclasses.replace(s, pspec=tuple(
+            "model" if keep and "model" in axes_of(a) else None
+            for a in s.pspec)) for k, s in entry.items()}
+
+    schema = model_cache_schema(cfg, batch_slots, max_len, mesh_cfg, tp=tp)
+    schema = {k: tuple(served(e) for e in v) for k, v in schema.items()}
+    rows = pool_rows(mesh_cfg, batch_slots)
+    schema = batch_cut_cache(schema, rows and rows[0], batch_slots, False)
+    dt = torch_dtype(par.compute_dtype)
+
+    def zeros(s):
+        shape = (s.shape if mesh is None else Sharding(
+            mesh, placements(mesh, s.pspec)).local_shape_and_offset(
+                s.shape)[0])
+        return torch.zeros(shape, device=device, dtype=(
+            dt if s.dtype == torch.bfloat16 else s.dtype))
+
+    return tree_map_pspec(zeros, schema)
 
 
 def batch_pspecs(cfg: ModelConfig, shape: ShapeConfig,

@@ -295,6 +295,17 @@ def moe_a2a(p, x: torch.Tensor, cfg: ModelConfig, ctx: Ctx):
 IMPLS = {"dense": moe_dense, "psum": moe_psum, "a2a": moe_a2a}
 
 
+def cuts_batch(cfg: ModelConfig, tp: int) -> bool:
+    """Whether the MoE's dispatch runs in a region of its own that cuts
+    its tokens' batch over the data axes (``psum``, ``a2a``, with the
+    experts split over a ``"model"`` axis of ``tp``): a batch that the
+    axes do not divide then raises there, as the reference's
+    ``shard_map`` refuses it."""
+    m = cfg.moe
+    return (m is not None and m.impl != "dense"
+            and shard_axis(m.n_experts, tp) is not None)
+
+
 def moe_apply(p, x: torch.Tensor, cfg: ModelConfig, ctx: Ctx):
     impl = cfg.moe.impl
     return IMPLS[impl](p, x, cfg, ctx)

@@ -8,7 +8,9 @@
   * finished sequences (EOS or length) free their slot immediately;
   * the pool cache is updated in place: decode writes each tick's K/V into
     it and an admitted request's cache is copied into its slot, where the
-    reference donates buffers.
+    reference donates buffers;
+  * on a mesh whose data axes divide the pool, each data rank holds,
+    prefills and decodes only its own slots (:class:`Server`).
 
 Sampling stays on the host with numpy (greedy or temperature), so greedy
 tokens compare one for one with the reference's. ``DeploymentPool`` here
@@ -17,6 +19,8 @@ is the reference's deprecated import site of
 """
 from __future__ import annotations
 
+import contextlib
+import math
 import time
 import warnings
 from dataclasses import dataclass, field
@@ -25,11 +29,14 @@ from typing import Dict, List, Optional, Union
 import numpy as np
 import torch
 
+from repro_torch import shardmap as sm
 from repro_torch.core.types import MeshConfig, ModelConfig, ParallelismConfig
 from repro_torch.device import resolve_device
 from repro_torch.model.layers import tree_map
 from repro_torch.model.lm import (make_decode_step, make_prefill_step,
-                                  model_blocks)
+                                  model_blocks, pool_rows, pool_zeros,
+                                  rows_region)
+from repro_torch.model.moe import cuts_batch
 from repro_torch.model.transformer import pad_cache
 from repro_torch.obs import MetricsRegistry, get_tracer
 # PoolStats is re-exported from its new home so old imports keep working
@@ -98,12 +105,19 @@ class DrainResult(list):
 class Server:
     """``params`` (whole) must live on ``device`` (None means CUDA, or
     raise). ``mesh``: the device mesh of ``mesh_cfg`` the steps run on, or
-    None. On a mesh every rank serves the same requests, one prefill at a
-    time: the server keeps only the rank's blocks of ``params``
+    None. On a mesh the server keeps only the rank's blocks of ``params``
     (``lm.model_blocks``, cut once here), each step computes its share of
-    the heads, hidden widths, vocabulary and experts over ``"model"``, the
-    caches hold its kv heads, and every rank samples from the whole
-    last-position logits."""
+    the heads, hidden widths, vocabulary and experts over ``"model"``, and
+    the caches hold its kv heads. Where the data axes divide
+    ``batch_slots`` (``lm.pool_rows``, the reference's batch layout) the
+    pool is cut over them: data rank ``d`` holds the cache rows of slots
+    ``[d·k, (d+1)·k)``, prefills only the requests admitted into them and
+    decodes only those rows, and the last-position logits of every row
+    are gathered over the data axes, so that every rank samples the same
+    tokens. Otherwise every data rank holds, prefills and decodes the
+    whole pool. The host state (queue, slots, last tokens, sampler) is
+    the same on every rank, so every rank takes the same branches and
+    joins the same collectives."""
 
     def __init__(self, cfg: ModelConfig, params, scfg: ServerConfig,
                  mesh_cfg: MeshConfig, par: Optional[ParallelismConfig] = None,
@@ -120,11 +134,34 @@ class Server:
         self._decode = make_decode_step(cfg, mesh_cfg, par, mesh)
         self._rng = np.random.default_rng(scfg.seed)
         self._slots: List[Optional[Request]] = [None] * scfg.batch_slots
-        self._cache = None            # batched cache across slots
+        self._cache = None            # this rank's rows of the pool cache
         self._last_tok = np.zeros((scfg.batch_slots, 1), np.int64)
         self._queue: List[Request] = []
         self._next_rid = 0
         self.requests: Dict[int, Request] = {}
+        # the pool's layout over the data axes: this rank's slots
+        # [lo, lo + k), all of them where the pool is whole
+        self._mesh, self._mesh_cfg, self._par = mesh, mesh_cfg, par
+        self._rows = None if mesh is None else pool_rows(mesh_cfg,
+                                                         scfg.batch_slots)
+        self._lo, self._k = 0, scfg.batch_slots
+        if self._rows is not None:
+            axes, self._k = self._rows
+            with sm.region(mesh, axes):
+                self._lo = sm.axis_index(axes) * self._k
+        # a prefill holds one request: an MoE whose dispatch cuts its
+        # batch over more than one data rank refuses it, as the
+        # reference's shard_map does; every rank raises before any
+        # collective
+        dp = math.prod(mesh_cfg.axis_size(a) for a in mesh_cfg.dp_axes)
+        self._refusal = None
+        if (mesh is not None and dp > 1
+                and cuts_batch(cfg, mesh_cfg.axis_size("model"))):
+            self._refusal = (
+                f"the {cfg.moe.impl!r} MoE cuts a prefill's batch of 1 over "
+                f"the data axes {mesh_cfg.dp_axes} ({dp} ranks), which do "
+                "not divide it (the reference's shard_map refuses it too); "
+                "serve with moe.impl='dense' or on one data rank")
         # observability: the server owns its registry (injectable for
         # tests); the clock is injectable too so latency histograms are
         # deterministic under test.
@@ -146,37 +183,90 @@ class Server:
         return [i for i, s in enumerate(self._slots) if s is None]
 
     def _admit(self) -> None:
+        """One admission round: the queue's head into the free slots in
+        index order. With the pool whole each request is prefilled and
+        sampled in turn; cut over the data axes each rank prefills the
+        requests of its own slots, the round's last-position logits are
+        gathered over the data axes (``server.exchange``), and every rank
+        samples them in admission order (``t_first_token`` is stamped
+        then)."""
+        admitted = []
         for slot in self._free_slots():
             if not self._queue:
                 break
-            req = self._queue.pop(0)
-            tokens = torch.tensor([req.prompt], dtype=torch.int64,
-                                  device=self.device)
-            with get_tracer().span("server.prefill", rid=req.rid,
-                                   prompt_len=len(req.prompt)):
-                with torch.no_grad():
-                    logits, cache = self._prefill(self.params,
-                                                  {"tokens": tokens})
-                cache = pad_cache(cache, self.scfg.max_len)
-                tok = self._sample(logits.cpu().numpy())
-            req.out_tokens.append(int(tok[0]))
-            req.t_first_token = self.clock()
-            self.metrics.counter("server.admitted").inc()
-            self.metrics.histogram("server.ttft_s").observe(
-                req.t_first_token - req.t_submit)
-            self._install(slot, req, cache, tok)
+            admitted.append((slot, self._queue.pop(0)))
+        if not admitted:
+            return
+        if self._refusal is not None:
+            raise ValueError(self._refusal)
+        if self._rows is None:
+            for slot, req in admitted:
+                self._first_token(slot, req, self._prefill_into(slot, req))
+            return
+        lo, k = self._lo, self._k
+        last = torch.zeros((k, self.cfg.padded_vocab), dtype=torch.float32,
+                           device=self.device)
+        for slot, req in admitted:
+            if lo <= slot < lo + k:
+                last[slot - lo] = self._prefill_into(slot, req)[0]
+        if self._cache is None:       # no request of this rank's yet
+            self._cache = pool_zeros(self.cfg, self._mesh_cfg, self._par,
+                                     self.scfg.batch_slots,
+                                     self.scfg.max_len, self._mesh,
+                                     self.device)
+        logits = self._gather_rows(last)
+        for slot, req in admitted:
+            self._first_token(slot, req, logits[slot:slot + 1])
 
-    def _install(self, slot: int, req, cache, tok) -> None:
+    def _prefill_into(self, slot: int, req: Request) -> torch.Tensor:
+        """Prefill ``req``, one of this rank's slots, and install its cache
+        padded to ``max_len`` in its row; its last-position logits
+        ``(1, V)``."""
+        tokens = torch.tensor([req.prompt], dtype=torch.int64,
+                              device=self.device)
+        with get_tracer().span("server.prefill", rid=req.rid,
+                               prompt_len=len(req.prompt)):
+            with torch.no_grad():
+                logits, cache = self._prefill(self.params, {"tokens": tokens})
+            self._install(slot - self._lo, pad_cache(cache,
+                                                     self.scfg.max_len))
+        return logits
+
+    def _first_token(self, slot: int, req: Request,
+                     logits: torch.Tensor) -> None:
+        tok = self._sample(logits.cpu().numpy())
+        req.out_tokens.append(int(tok[0]))
+        req.t_first_token = self.clock()
+        self.metrics.counter("server.admitted").inc()
+        self.metrics.histogram("server.ttft_s").observe(
+            req.t_first_token - req.t_submit)
         self._slots[slot] = req
         self._last_tok[slot, 0] = tok[0]
+
+    def _install(self, row: int, cache) -> None:
+        """``cache`` (one request's) into ``row`` of this rank's rows."""
         if self._cache is None:
             # materialize the pool cache by tiling the first request's cache
             self._cache = tree_map(
-                lambda a: torch.cat([a] * self.scfg.batch_slots, dim=0),
-                cache)
+                lambda a: torch.cat([a] * self._k, dim=0), cache)
         else:
-            tree_map(lambda pool, one: pool[slot:slot + 1].copy_(one),
+            tree_map(lambda pool, one: pool[row:row + 1].copy_(one),
                      self._cache, cache)
+
+    def _over_rows(self):
+        """The region of this rank's rows of the pool (none where the pool
+        is whole)."""
+        if self._rows is None:
+            return contextlib.nullcontext()
+        return rows_region(self._mesh, self._rows[0], self._k)
+
+    def _gather_rows(self, x: torch.Tensor) -> torch.Tensor:
+        """Every rank's ``k`` rows of ``x``, in slot order."""
+        if self._rows is None:
+            return x
+        with get_tracer().span("server.exchange", rows=self._k), \
+                self._over_rows():
+            return sm.all_gather(x, self._rows[0], axis=0, tiled=True)
 
     def _sample(self, logits: np.ndarray) -> np.ndarray:
         if self.scfg.temperature <= 0.0:
@@ -207,12 +297,12 @@ class Server:
             if all(s is None for s in self._slots):
                 return
             with trc.span("server.decode", slots_busy=self._busy_slots()):
-                with torch.no_grad():
+                tokens = torch.from_numpy(
+                    self._last_tok[self._lo:self._lo + self._k])
+                with torch.no_grad(), self._over_rows():
                     logits, self._cache = self._decode(
-                        self.params,
-                        torch.from_numpy(self._last_tok).to(self.device),
-                        self._cache)
-                toks = self._sample(logits.cpu().numpy())
+                        self.params, tokens.to(self.device), self._cache)
+                toks = self._sample(self._gather_rows(logits).cpu().numpy())
             for i, req in enumerate(self._slots):
                 if req is None:
                     continue

@@ -25,8 +25,13 @@ XLA-partitioned steps on (2, 2) and (2, 4) meshes (the port as 4 and 8
   the mesh ``Trainer`` within 1e-4 of the reference's losses;
 * ``Server(mesh=)``'s greedy tokens (prefill, then decode) equal to the
   reference's ``Server(mesh=)`` and to the port's meshless ``Server``,
-  the rank's cache holding its kv heads where they split, its Mamba-2
-  heads and its RWKV-6 ``wkv`` heads;
+  the rank's cache holding its data rank's rows of the pool where the
+  data axes divide it (the whole pool where they do not), its kv heads
+  where they split, its Mamba-2 heads and its RWKV-6 ``wkv`` heads; a
+  data rank prefilling only its own slots' requests, on a pool built
+  from zeros where none came in its first round (``tr.TP_SCENARIOS``);
+  the ``psum`` and ``a2a`` MoE refusing a prefill over two data ranks as
+  the reference's ``shard_map`` does, before any collective;
 * the split step gathers no leaf over ``"model"`` (``CommDebugMode``
   sees no ``DTensor`` all-gather), and the helper's wire bytes are the
   sums the shapes call for: the activations' partial sums, the
@@ -58,11 +63,20 @@ from repro_torch.shardmap import P
 with warnings.catch_warnings():
     warnings.simplefilter("ignore", DeprecationWarning)
     from repro.configs import get_config as j_get_config
+    from repro.core.types import MeshConfig as JMeshConfig
+    from repro.model import lm as jlm
 
 MESHES = ("2x2", "2x4")
 WORLD = {"2x2": 4, "2x4": 8}
 CASES = [(v, m) for m in MESHES for v in tr.TP_VARIANTS]
 SERVED = [(v, m) for m in MESHES for v in tr.TP_SERVED]
+SCENARIOS = [(sc, m) for m in MESHES for sc in tr.TP_SCENARIOS]
+REFUSED = [(v, m) for m in MESHES for v in tr.TP_REFUSED]
+#: each scenario's slot of each request (queue order into free slots in
+#: index order) and its exchanges over "data" where the data axes cut the
+#: pool: one an admission round that admits, one a decode tick
+SLOT_OF = {"refill": (0, 1, 1), "late": (0, 1), "whole": (0, 1, 2)}
+EXCHANGES = {"refill": 2 + 4, "late": 2 + 3}
 # each job takes under 60 s on an idle 8-core host, under 150 s beside
 # the rest of the suite on 6 workers
 TIMEOUT = 600
@@ -138,17 +152,19 @@ def test_mesh_trainer_against_reference(runs, name, mesh):
 
 @pytest.mark.parametrize("name,mesh", SERVED)
 def test_server_greedy_tokens(runs, name, mesh):
-    """Prefill then ``TP_NEW - 1`` decode ticks of two requests: the
-    reference's ``Server(mesh=)``'s tokens and the meshless ``Server``'s,
-    on every rank; the rank's cache holds ``n_kv_heads / tp`` heads where
-    they split over ``"model"``, all of them where they do not (zamba2's
-    in its shared block's cache), a Mamba-2 layer's state the rank's
-    ``H / tp`` heads and ``d_inner / tp`` conv channels, and an RWKV-6
-    layer's ``wkv`` state the rank's ``H / tp`` heads beside whole shift
-    states."""
+    """Prefill then ``TP_NEW - 1`` decode ticks of two requests on two
+    slots: the reference's ``Server(mesh=)``'s tokens and the meshless
+    ``Server``'s, on every rank; the rank's cache holds its data rank's
+    rows of the pool (2 slots over 2 data ranks: one row of every leaf),
+    ``n_kv_heads / tp`` heads where they split over ``"model"``, all of
+    them where they do not (zamba2's in its shared block's cache), a
+    Mamba-2 layer's state the rank's ``H / tp`` heads and ``d_inner /
+    tp`` conv channels, and an RWKV-6 layer's ``wkv`` state the rank's
+    ``H / tp`` heads beside whole shift states; ``lm.pool_zeros`` gives
+    that cache's shapes and dtypes."""
     ref, ports = runs
     cfg = _cfg(name)
-    tp = _tp(mesh)
+    dp, tp = tr._tp_mesh(mesh)
     kv = cfg.n_kv_heads
     want = {"kv": kv // tp if shard_axis(kv, tp) else kv}
     if cfg.rwkv is not None:
@@ -158,12 +174,65 @@ def test_server_greedy_tokens(runs, name, mesh):
     if cfg.ssm is not None:
         d_inner, heads, _, _ = tssm.mamba_dims(cfg)
         want.update(ssm=heads // tp, conv_x=d_inner // tp)
+    want["rows"] = [len(tr.TP_PROMPTS) // dp]
     for r in ports[mesh]:
         got = r[name]
         assert got["tokens"] == ref[mesh][name]["tokens"]
         assert got["meshless_tokens"] == got["tokens"]
         assert got["cache_heads"] == want
+        assert got["pool_zeros"]
         assert all(len(t) == tr.TP_NEW for t in got["tokens"])
+
+
+@pytest.mark.parametrize("scenario,mesh", SCENARIOS)
+def test_server_scenarios_on_the_data_axes(runs, scenario, mesh):
+    """The yi-9b smoke on ``tr.TP_SCENARIOS``: every rank's greedy tokens
+    are the reference's ``Server(mesh=)``'s and the meshless
+    ``Server``'s. Where the data axes divide the slots ("refill",
+    "late") a rank holds ``slots / dp`` rows, prefills only the requests
+    admitted into its data rank's slots (none in "refill"'s second round
+    for data rank 0; none in "late"'s first round for data rank 1, which
+    builds its pool from zeros and takes the late request into it) and
+    gathers the last logits over "data" once an admitting round and once
+    a tick; where they do not ("whole": 3 slots) every rank holds all 3
+    rows, prefills every request and exchanges nothing. Every row of
+    every pool stays finite."""
+    ref, ports = runs
+    dp, tp = tr._tp_mesh(mesh)
+    slots, news, _ = tr.TP_SCENARIOS[scenario]
+    want = ref[mesh]["yi"]["scenarios"][scenario]
+    assert [len(t) for t in want] == list(news)
+    split = slots % dp == 0
+    k = slots // dp if split else slots
+    for rank, r in enumerate(ports[mesh]):
+        got = r["yi"]["scenarios"][scenario]
+        assert got["tokens"] == want
+        assert got["meshless"] == want
+        assert got["rows"] == [k]
+        assert got["finite"]
+        d = rank // tp
+        assert got["prefilled"] == [
+            rid for rid, slot in enumerate(SLOT_OF[scenario])
+            if not split or slot // k == d]
+        assert got["exchanges"] == (EXCHANGES[scenario] if split else 0)
+
+
+@pytest.mark.parametrize("name,mesh", REFUSED)
+def test_moe_dispatch_over_data_refuses_a_prefill_as_the_reference(
+        runs, name, mesh):
+    """The deepseek-moe-16b smoke with ``psum`` and ``a2a`` through
+    ``Server(mesh=)``: the reference's ``shard_map`` refuses to cut a
+    prefill's batch of 1 over 2 data ranks (a ValueError); the port
+    raises a ValueError on every rank before any collective (no wire
+    bytes), so no rank waits on another."""
+    ref, ports = runs
+    kind, msg = ref[mesh][name]["refusal"]
+    assert kind == "ValueError" and "not evenly divisible" in msg
+    for r in ports[mesh]:
+        kind, msg = r[name]["refusal"]
+        assert kind == "ValueError"
+        assert "cuts a prefill's batch of 1" in msg
+        assert r[name]["refusal_wire"] == {}
 
 
 @pytest.mark.parametrize("mesh", MESHES)
@@ -302,8 +371,8 @@ def test_split_step_gathers_no_leaf_and_sums_what_the_shapes_say(runs,
 
 
 # --------------------------------------------------------------------------- #
-# No ranks: which leaves the split steps compute split, and the kv heads
-# a rank's q heads read
+# No ranks: which leaves the split steps compute split, the kv heads a
+# rank's q heads read, and the serving pool's rows and zeros
 # --------------------------------------------------------------------------- #
 
 
@@ -434,6 +503,46 @@ def test_ctx_splits_only_in_a_split_step():
     for split, want in ((False, (False, False)), (True, (True, False))):
         ctx = Ctx(cfg=cfg, mesh_cfg=mcfg, mode="train", split=split)
         assert (ctx.splits(cfg.n_heads), ctx.splits(cfg.n_kv_heads)) == want
+
+
+@pytest.mark.parametrize("shape", [(1, 1), (2, 2), (2, 4), (2, 16, 16)])
+@pytest.mark.parametrize("slots", [1, 2, 3, 4, 16])
+def test_pool_rows_are_the_references_batch_layout(shape, slots):
+    """``lm.pool_rows``: the data axes of the reference's
+    ``_batch_axis`` (``pod`` major), where the pool is cut over them,
+    with ``slots`` over their size rows a data rank; None where the
+    reference keeps the batch whole."""
+    axes = ("data", "model") if len(shape) == 2 else ("pod", "data",
+                                                      "model")
+    want = jlm._batch_axis(JMeshConfig(shape, axes), slots)
+    got = tlm.pool_rows(MeshConfig(shape, axes), slots)
+    if want is None:
+        assert got is None
+    else:
+        assert got == (tuple(want), slots // int(np.prod(shape[:-1])))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("name", tr.TP_SERVED)
+def test_pool_zeros_has_a_padded_prefills_cache_leaves(name, dtype):
+    """With no mesh, ``lm.pool_zeros`` of one slot is zeros of the shapes
+    and dtypes of a prefill's cache padded to ``max_len``, for every
+    served variant, in f32 and bf16."""
+    from repro_torch.core.types import SMOKE_MESH, ParallelismConfig
+    from repro_torch.model.transformer import pad_cache
+
+    cfg = _cfg(name)
+    par = ParallelismConfig(compute_dtype=dtype)
+    params = init_params(tlm.param_schema(cfg, tp=1),
+                         torch.Generator().manual_seed(0))
+    _, cache = tlm.make_prefill_step(cfg, SMOKE_MESH, par)(
+        params, {"tokens": torch.tensor([tr.TP_PROMPTS[0]])})
+    cache = tree_leaves(pad_cache(cache, 10))
+    zeros = tree_leaves(tlm.pool_zeros(cfg, SMOKE_MESH, par, 1, 10, None,
+                                       torch.device("cpu")))
+    assert [(t.shape, t.dtype) for t in zeros] == [(t.shape, t.dtype)
+                                                   for t in cache]
+    assert all(not t.any() for t in zeros)
 
 
 def test_configs_are_the_references():

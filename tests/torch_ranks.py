@@ -850,6 +850,50 @@ def _serve(Server, ServerConfig, cfg, params, mesh_cfg, par, **kw):
     return [list(r.out_tokens) for r in done], srv
 
 
+#: the yi-9b smoke's further serving scenarios: (batch_slots, each
+#: request's max_new_tokens, how many of the last requests are submitted
+#: after the first tick). "refill": slot 1 retires after its second
+#: token and takes the third request while slot 0 decodes, a round in
+#: which data rank 0 admits nothing; "late": one request in the first
+#: round, so data rank 1 builds its pool from zeros, and a second one
+#: into it a tick later; "whole": 3 slots, which the data axes do not
+#: divide, so every rank holds the whole pool
+TP_SCENARIOS = {"refill": (2, (4, 2, 4), 0), "late": (2, (3, 3), 1),
+                "whole": (3, (4, 2, 4), 0)}
+TP_SCENARIO_PROMPTS = TP_PROMPTS + ([31, 4, 27, 8, 15, 2],)
+#: the MoE impls whose prefill cuts its batch over "data" (step 4)
+TP_REFUSED = ("deepseek/psum", "deepseek/a2a")
+
+
+def _serve_scenario(Server, ServerConfig, cfg, params, mesh_cfg, par, name,
+                    **kw):
+    """Either package's ``Server`` on ``TP_SCENARIOS[name]``: the greedy
+    tokens and the server."""
+    slots, news, late = TP_SCENARIOS[name]
+    srv = Server(cfg, params, ServerConfig(
+        batch_slots=slots, max_len=len(TP_PROMPTS[0]) + max(news),
+        eos_token=-1), mesh_cfg, par, **kw)
+    reqs = list(zip(TP_SCENARIO_PROMPTS, news))
+    for prompt, n in reqs[:len(reqs) - late]:
+        srv.submit(prompt, max_new_tokens=n)
+    if late:
+        srv.step()
+        for prompt, n in reqs[len(reqs) - late:]:
+            srv.submit(prompt, max_new_tokens=n)
+    done = srv.run_until_drained()
+    return [list(r.out_tokens) for r in done], srv
+
+
+def _refusal(Server, ServerConfig, cfg, params, mesh_cfg, par, **kw):
+    """What ``Server(mesh=)`` raises serving ``TP_PROMPTS`` (None if it
+    serves): the error's type and first line."""
+    try:
+        _serve(Server, ServerConfig, cfg, params, mesh_cfg, par, **kw)
+    except Exception as e:                          # noqa: BLE001
+        return type(e).__name__, str(e).splitlines()[0]
+    return None
+
+
 def _tp_mesh(name: str):
     return tuple(int(n) for n in name.split("x"))
 
@@ -860,7 +904,8 @@ def ref_tp(outdir, mesh_name, group):
     reference's train step (its XLA-partitioned loss gradient, the
     parameters laid out by their layouts and the batch over "data", then
     ``adamw_update``, as its ``make_train_step`` composes them), the first
-    step's gradients, and its ``Server(mesh=)``'s greedy tokens."""
+    step's gradients, and its ``Server(mesh=)``'s greedy tokens (yi-9b's
+    also on ``TP_SCENARIOS``; for ``TP_REFUSED`` what it raises)."""
     import jax
     from jax.sharding import Mesh, NamedSharding
     from jax.sharding import PartitionSpec as P
@@ -913,6 +958,14 @@ def ref_tp(outdir, mesh_name, group):
             out["tokens"] = (_serve(Server, ServerConfig, cfg, params, mcfg,
                                     par, mesh=mesh)[0]
                              if name in TP_SERVED else None)
+            if name == "yi":
+                out["scenarios"] = {
+                    sc: _serve_scenario(Server, ServerConfig, cfg, params,
+                                        mcfg, par, sc, mesh=mesh)[0]
+                    for sc in TP_SCENARIOS}
+            if name in TP_REFUSED:
+                out["refusal"] = _refusal(Server, ServerConfig, cfg, params,
+                                          mcfg, par, mesh=mesh)
         res[name] = dict(out, train_losses=np.asarray(losses))
     _dump(res, os.path.join(outdir, f"ref_tp_{mesh_name}_{group}.pkl"))
 
@@ -945,7 +998,11 @@ def port_tp(rank, world, outdir):
     gradients (gathered whole on every rank) from the split step and the
     whole-step form, the mesh ``Trainer``'s losses, and for the served
     variants ``Server(mesh=)``'s greedy tokens, its cache's kv heads and
-    the meshless ``Server``'s tokens; then the counters."""
+    rows, whether ``lm.pool_zeros`` gives its cache's shapes and dtypes,
+    and the meshless ``Server``'s tokens; yi-9b's on ``TP_SCENARIOS``
+    with the requests each rank prefilled and its exchanges; for
+    ``TP_REFUSED`` what ``Server(mesh=)`` raises and the wire bytes moved
+    before it; then the counters."""
     import torch
     from torch.distributed.tensor.debug import CommDebugMode
 
@@ -956,7 +1013,9 @@ def port_tp(rank, world, outdir):
     from repro_torch.data.pipeline import LMDataConfig, lm_batch_for_step
     from repro_torch.launch.mesh import make_smoke_mesh
     from repro_torch.model import lm
-    from repro_torch.model.layers import local_blocks, tree_map
+    from repro_torch import shardmap as sm
+    from repro_torch.model.layers import local_blocks, tree_leaves, tree_map
+    from repro_torch.obs import capture
     from repro_torch.runtime.server import Server, ServerConfig
     from repro_torch.runtime.trainer import Trainer, TrainerConfig
 
@@ -1009,6 +1068,33 @@ def port_tp(rank, world, outdir):
             out["meshless_tokens"] = _serve(Server, ServerConfig, cfg,
                                             params, SMOKE_MESH, par,
                                             device="cpu")[0]
+            out["pool_zeros"] = _leaf_kinds(lm.pool_zeros(
+                cfg, mcfg, par, 2, len(TP_PROMPTS[0]) + TP_NEW, mesh,
+                torch.device("cpu"))) == _leaf_kinds(srv._cache)
+        if name == "yi":
+            out["scenarios"] = {}
+            for sc in TP_SCENARIOS:
+                with capture() as cap:
+                    toks, srv = _serve_scenario(Server, ServerConfig, cfg,
+                                                params, mcfg, par, sc,
+                                                device="cpu", mesh=mesh)
+                spans = cap.trace.spans
+                out["scenarios"][sc] = {
+                    "tokens": toks, "rows": _cache_heads(srv._cache)["rows"],
+                    "prefilled": [s.attrs["rid"] for s in spans
+                                  if s.name == "server.prefill"],
+                    "exchanges": sum(s.name == "server.exchange"
+                                     for s in spans),
+                    "finite": all(bool(torch.isfinite(t).all()) for t in
+                                  tree_leaves(srv._cache)),
+                    "meshless": _serve_scenario(
+                        Server, ServerConfig, cfg, params, SMOKE_MESH, par,
+                        sc, device="cpu")[0]}
+        if name in TP_REFUSED:
+            sm.reset_wire_bytes()
+            out["refusal"] = _refusal(Server, ServerConfig, cfg, params,
+                                      mcfg, par, device="cpu", mesh=mesh)
+            out["refusal_wire"] = dict(sm.wire_bytes)
         res[name] = out
     res["counter"] = _tp_counter(mcfg, mesh, ref["yi"]["init"],
                                  ref["yi"]["batch"])
@@ -1019,17 +1105,28 @@ def _cache_heads(cache) -> dict:
     """The heads a server's cache holds: the kv heads of its first
     attention (zamba2's shared block's), for a Mamba-2 layer its SSM
     state's heads and its conv state's ``d_inner`` channels, for an
-    RWKV-6 layer its ``wkv`` state's heads and its shift states' width."""
+    RWKV-6 layer its ``wkv`` state's heads and its shift states' width;
+    and ``rows``, the batch rows of its leaves (each size once)."""
+    from repro_torch.model.layers import tree_leaves
+
+    rows = sorted({int(t.shape[0]) for t in tree_leaves(cache)})
     first = cache["layers"][0]
     if "wkv" in first:
         return {"wkv": int(first["wkv"].shape[1]),
                 "shift_att": int(first["shift_att"].shape[1]),
-                "shift_ffn": int(first["shift_ffn"].shape[1])}
+                "shift_ffn": int(first["shift_ffn"].shape[1]), "rows": rows}
     if "ssm" not in first:
-        return {"kv": int(first["k"].shape[2])}
+        return {"kv": int(first["k"].shape[2]), "rows": rows}
     return {"kv": int(cache["shared"][0]["k"].shape[2]),
             "ssm": int(first["ssm"].shape[1]),
-            "conv_x": int(first["conv_x"].shape[2])}
+            "conv_x": int(first["conv_x"].shape[2]), "rows": rows}
+
+
+def _leaf_kinds(cache) -> list:
+    """Every leaf's shape and dtype, in tree order."""
+    from repro_torch.model.layers import tree_leaves
+
+    return [(tuple(t.shape), str(t.dtype)) for t in tree_leaves(cache)]
 
 
 def _tp_counter(mcfg, mesh, init, batch_np):
