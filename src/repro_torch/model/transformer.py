@@ -31,6 +31,12 @@ Block kinds:
                embeddings)
   enc/dec    - whisper encoder (non-causal) and decoder (causal + cross)
 
+In a serving forward (prefill or decode) the attention, MoE and decoder
+blocks record their attention half (norm, attention, residual) as a
+``model.attn`` span and their feed-forward half as ``model.mlp``, each with
+its ``layer``, on the process tracer, timed on the device too; training
+records none.
+
 The Mamba-2 and RWKV-6 blocks run the SSD (B6) and WKV6 (B7) kernels in
 every CUDA prefill (``model/ssm.py``, ``model/rwkv.py``).
 
@@ -56,6 +62,7 @@ from repro_torch.model.layers import (Ctx, PSpec, apply_mlp, apply_norm,
                                       model_sum, norm_schema,
                                       pspec, tree_leaves, tree_map,
                                       tree_map_pspec)
+from repro_torch.obs import Tracer, get_tracer
 
 # ---------------------------------------------------------------------------
 # Group structure
@@ -250,24 +257,39 @@ def _stacked_cache_schema(cfg: ModelConfig, batch: int, seq: int,
 # ---------------------------------------------------------------------------
 
 
-def _apply_attn_block(p, x, ctx: Ctx, cache):
+#: the tracer of a forward that records no spans (training, remat)
+_UNTRACED = Tracer(enabled=False)
+
+
+def _apply_attn_block(p, x, ctx: Ctx, cache, trc: Tracer = _UNTRACED,
+                      layer: int = 0):
     cfg = ctx.cfg
-    a, new_cache = attn_apply(p["attn"], apply_norm(p["norm1"], x, cfg),
-                              ctx, cache=cache)
-    x = ctx.constrain(x + a)
+    with trc.span("model.attn", device=x.device, layer=layer):
+        a, new_cache = attn_apply(p["attn"], apply_norm(p["norm1"], x, cfg),
+                                  ctx, cache=cache)
+        x = ctx.constrain(x + a)
     # an MoE model's dense blocks are its leading ``attn_dense`` layers
     d_ff = cfg.moe.d_ff_dense if cfg.moe else cfg.d_ff
-    m = apply_mlp(p["mlp"], apply_norm(p["norm2"], x, cfg), cfg, ctx, d_ff)
-    return ctx.constrain(x + m), new_cache, None
+    with trc.span("model.mlp", device=x.device, layer=layer):
+        m = apply_mlp(p["mlp"], apply_norm(p["norm2"], x, cfg), cfg, ctx,
+                      d_ff)
+        x = ctx.constrain(x + m)
+    return x, new_cache, None
 
 
-def _apply_moe_block(p, x, ctx: Ctx, cache):
-    a, new_cache = attn_apply(p["attn"], apply_norm(p["norm1"], x, ctx.cfg),
-                              ctx, cache=cache)
-    x = ctx.constrain(x + a)
-    m, aux = moe_mod.moe_apply(p["moe"], apply_norm(p["norm2"], x, ctx.cfg),
-                               ctx.cfg, ctx)
-    return ctx.constrain(x + m), new_cache, aux
+def _apply_moe_block(p, x, ctx: Ctx, cache, trc: Tracer = _UNTRACED,
+                     layer: int = 0):
+    with trc.span("model.attn", device=x.device, layer=layer):
+        a, new_cache = attn_apply(p["attn"],
+                                  apply_norm(p["norm1"], x, ctx.cfg),
+                                  ctx, cache=cache)
+        x = ctx.constrain(x + a)
+    with trc.span("model.mlp", device=x.device, layer=layer):
+        m, aux = moe_mod.moe_apply(p["moe"],
+                                   apply_norm(p["norm2"], x, ctx.cfg),
+                                   ctx.cfg, ctx)
+        x = ctx.constrain(x + m)
+    return x, new_cache, aux
 
 
 def _apply_mamba_block(p, x, ctx: Ctx, cache):
@@ -323,16 +345,22 @@ def _apply_enc_block(p, x, ctx: Ctx):
     return ctx.constrain(x + m)
 
 
-def _apply_dec_block(p, x, ctx: Ctx, cache, enc_kv):
-    a, new_cache = attn_apply(p["self_attn"],
-                              apply_norm(p["norm1"], x, ctx.cfg), ctx,
-                              cache=cache)
-    x = ctx.constrain(x + a)
-    c, _ = attn_apply(p["cross_attn"], apply_norm(p["norm2"], x, ctx.cfg),
-                      ctx, cross_kv=enc_kv)
-    x = ctx.constrain(x + c)
-    m = apply_mlp(p["mlp"], apply_norm(p["norm3"], x, ctx.cfg), ctx.cfg, ctx)
-    return ctx.constrain(x + m), new_cache, None
+def _apply_dec_block(p, x, ctx: Ctx, cache, enc_kv,
+                     trc: Tracer = _UNTRACED, layer: int = 0):
+    with trc.span("model.attn", device=x.device, layer=layer):
+        a, new_cache = attn_apply(p["self_attn"],
+                                  apply_norm(p["norm1"], x, ctx.cfg), ctx,
+                                  cache=cache)
+        x = ctx.constrain(x + a)
+        c, _ = attn_apply(p["cross_attn"],
+                          apply_norm(p["norm2"], x, ctx.cfg), ctx,
+                          cross_kv=enc_kv)
+        x = ctx.constrain(x + c)
+    with trc.span("model.mlp", device=x.device, layer=layer):
+        m = apply_mlp(p["mlp"], apply_norm(p["norm3"], x, ctx.cfg), ctx.cfg,
+                      ctx)
+        x = ctx.constrain(x + m)
+    return x, new_cache, None
 
 
 def _dec_inputs(pl, enc_out, c_in, ctx: Ctx):
@@ -469,6 +497,9 @@ def apply_model(
         caches, shared_caches = _layer_views(cfg, cache)
     else:
         caches, shared_caches = cache["layers"], cache.get("shared")
+    # a serving forward's attention and MLP halves are spans of the
+    # process tracer (read once a forward); training records none
+    trc = get_tracer() if ctx.mode in ("prefill", "decode") else _UNTRACED
     kinds: List[str] = []
     p_layers: List[Any] = []
     for gi, (kind, count) in enumerate(group_structure(cfg)):
@@ -487,7 +518,7 @@ def apply_model(
             if kind == "enc":                # ran above, from the frames
                 out.append((None, None, None))
                 continue
-            block = _block_apply_fn(kind, ctx)
+            block = _block_apply_fn(kind, ctx, trc, l)
             if not whole:
                 block = _maybe_ckpt(block, ctx)
             pl = p_layers[l]
@@ -539,20 +570,22 @@ def apply_model(
     return logits, new_cache, aux
 
 
-def _block_apply_fn(kind: str, ctx: Ctx):
-    """The apply of one layer of block kind ``kind`` under ``ctx``:
+def _block_apply_fn(kind: str, ctx: Ctx, trc: Tracer, layer: int):
+    """The apply of layer ``layer``, of block kind ``kind``, under ``ctx``:
     ``(p, x, cache) -> (x', cache', aux or None)``; a decoder layer's also
-    takes the cross K/V."""
+    takes the cross K/V. The attention and decoder blocks record their
+    halves on ``trc`` (``model.attn``, ``model.mlp``)."""
     if kind in ("attn", "attn_dense"):
-        return lambda p, x, c: _apply_attn_block(p, x, ctx, c)
+        return lambda p, x, c: _apply_attn_block(p, x, ctx, c, trc, layer)
     if kind == "moe":
-        return lambda p, x, c: _apply_moe_block(p, x, ctx, c)
+        return lambda p, x, c: _apply_moe_block(p, x, ctx, c, trc, layer)
     if kind == "mamba2":
         return lambda p, x, c: _apply_mamba_block(p, x, ctx, c)
     if kind == "rwkv6":
         return lambda p, x, c: _apply_rwkv_block(p, x, ctx, c)
     if kind == "dec":
-        return lambda p, x, c, kv: _apply_dec_block(p, x, ctx, c, kv)
+        return lambda p, x, c, kv: _apply_dec_block(p, x, ctx, c, kv, trc,
+                                                    layer)
     raise ValueError(kind)
 
 

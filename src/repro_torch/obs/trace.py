@@ -23,6 +23,16 @@ Design contract (DESIGN.md §11):
   toolchain's pipelines are single-threaded, and a concurrent consumer
   should install one Tracer per thread.
 
+Device intervals: a span opened with ``device=`` also records where the
+work it enqueued ran on that device. On a CUDA device it records a timing
+event on the device's current stream when it opens and when it closes (none
+while the stream is being captured into a CUDA Graph) and never waits on
+one; the events are placed on the tracer's clock against one anchor a
+device (a synchronize and an event, at the device's first timed span), and
+read lazily, when :attr:`Tracer.spans` is read after the device has
+reached them. Elsewhere the work ran synchronously: the device interval is
+the host interval.
+
 Exporters: :func:`to_chrome_trace` emits Chrome trace-event JSON (the
 ``{"traceEvents": [...]}`` envelope, ``ph:"X"`` complete events with µs
 timestamps) viewable in Perfetto / ``chrome://tracing``;
@@ -49,6 +59,9 @@ class Span:
 
     ``parent_id`` links the nesting tree (``None`` for roots); ``attrs``
     carry the knobs/shapes/modes the instrumented site attached.
+    ``dev_start``/``dev_end`` are the interval on the device of a span
+    opened with ``device=``, on the same clock (``None`` otherwise, and
+    until the device has reached the span's end).
     """
 
     name: str
@@ -57,6 +70,8 @@ class Span:
     attrs: Dict[str, Any] = field(default_factory=dict)
     span_id: int = 0
     parent_id: Optional[int] = None
+    dev_start: Optional[float] = None
+    dev_end: Optional[float] = None
 
     @property
     def duration(self) -> float:
@@ -81,16 +96,22 @@ class _NullSpan:
 
 _NULL_SPAN = _NullSpan()
 
+#: what :meth:`Tracer._mark` returns for a device that runs synchronously
+_HOST = object()
+
 
 class _ActiveSpan:
     """A span being recorded; created by :meth:`Tracer.span`."""
 
-    __slots__ = ("_tracer", "name", "attrs", "span_id", "parent_id", "start")
+    __slots__ = ("_tracer", "name", "attrs", "span_id", "parent_id", "start",
+                 "device", "_open")
 
-    def __init__(self, tracer: "Tracer", name: str, attrs: Dict[str, Any]):
+    def __init__(self, tracer: "Tracer", name: str, attrs: Dict[str, Any],
+                 device: Any = None):
         self._tracer = tracer
         self.name = name
         self.attrs = attrs
+        self.device = device
 
     def __enter__(self) -> "_ActiveSpan":
         t = self._tracer
@@ -99,15 +120,21 @@ class _ActiveSpan:
         t._next_id += 1
         t._stack.append(self)
         self.start = t.clock()
+        self._open = None if self.device is None else t._mark(self.device)
         return self
 
     def __exit__(self, *exc) -> bool:
         t = self._tracer
+        mark = None if self._open is None else t._mark(self.device)
         end = t.clock()
         t._stack.pop()
-        t.spans.append(Span(name=self.name, start=self.start, end=end,
-                            attrs=self.attrs, span_id=self.span_id,
-                            parent_id=self.parent_id))
+        s = Span(name=self.name, start=self.start, end=end, attrs=self.attrs,
+                 span_id=self.span_id, parent_id=self.parent_id)
+        if mark is _HOST:
+            s.dev_start, s.dev_end = s.start, s.end
+        elif mark is not None:
+            t._pending.append((s, self._open, mark))
+        t._spans.append(s)
         return False
 
     def set_attrs(self, **attrs) -> None:
@@ -122,36 +149,95 @@ class Tracer:
     and is injectable for deterministic tests.
     """
 
-    __slots__ = ("enabled", "clock", "spans", "_stack", "_next_id")
+    __slots__ = ("enabled", "clock", "_spans", "_stack", "_next_id",
+                 "_pending", "_anchors")
 
     def __init__(self, enabled: bool = True,
                  clock: Callable[[], float] = time.perf_counter):
         self.enabled = enabled
         self.clock = clock
-        self.spans: List[Span] = []          # finished, in completion order
+        self._spans: List[Span] = []         # finished, in completion order
         self._stack: List[_ActiveSpan] = []
         self._next_id = 1
+        # (span, open mark, close mark) whose device times are not read yet
+        self._pending: List[tuple] = []
+        # CUDA device index -> (host clock, event) read together
+        self._anchors: Dict[int, tuple] = {}
 
-    def span(self, name: str, **attrs):
-        """Context manager recording one nested span (no-op when disabled)."""
+    @property
+    def spans(self) -> List[Span]:
+        """The finished spans, in completion order, each with its device
+        interval where the device has reached its end."""
+        if self._pending:
+            self._read_device()
+        return self._spans
+
+    def span(self, name: str, *, device: Any = None, **attrs):
+        """Context manager recording one nested span (no-op when disabled).
+        With ``device`` (a ``torch.device`` or its name) the span also
+        records its interval on that device (module doc)."""
         if not self.enabled:                 # the one-attribute-check guard
             return _NULL_SPAN
-        return _ActiveSpan(self, name, attrs)
-
-    def event(self, name: str, **attrs) -> None:
-        """A zero-duration instant (recorded as a 0-length span)."""
-        if not self.enabled:
-            return
-        now = self.clock()
-        parent = self._stack[-1].span_id if self._stack else None
-        self.spans.append(Span(name=name, start=now, end=now, attrs=attrs,
-                               span_id=self._next_id, parent_id=parent))
-        self._next_id += 1
+        return _ActiveSpan(self, name, attrs, device)
 
     def reset(self) -> None:
-        self.spans = []
+        self._spans = []
         self._stack = []
         self._next_id = 1
+        self._pending = []
+
+    # ------------------------------------------------------------------ #
+    def _mark(self, device: Any):
+        """A timing event on ``device``'s current stream with its device's
+        anchor; :data:`_HOST` where the device is not CUDA; None while the
+        stream is being captured."""
+        if not str(device).startswith("cuda"):
+            return _HOST
+        import torch
+
+        if torch.cuda.is_current_stream_capturing():
+            return None
+        index = torch.device(device).index
+        if index is None:
+            index = torch.cuda.current_device()
+        anchor = self._anchors.get(index)
+        if anchor is None:
+            anchor = self._anchors[index] = self._anchor(index)
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record(torch.cuda.current_stream(index))
+        return anchor, ev
+
+    def _anchor(self, index: int) -> tuple:
+        """The device's clock against the host's: with the device idle, a
+        host reading and an event recorded right after it, waited for (its
+        first record, which creates it, is made and waited for before the
+        reading). An event recorded later on an idle stream so maps to no
+        earlier than the host instant of its record."""
+        import torch
+
+        torch.cuda.synchronize(index)
+        stream = torch.cuda.current_stream(index)
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record(stream)
+        ev.synchronize()
+        host = self.clock()
+        ev.record(stream)
+        ev.synchronize()
+        return host, ev
+
+    def _read_device(self) -> None:
+        """Device times of the pending spans whose end the device has
+        reached; the rest stay pending."""
+        left = []
+        for item in self._pending:
+            s, (anchor, ev0), (_, ev1) = item
+            if not ev1.query():
+                left.append(item)
+                continue
+            host, ref = anchor
+            s.dev_start = host + ref.elapsed_time(ev0) / 1e3
+            s.dev_end = host + ref.elapsed_time(ev1) / 1e3
+        self._pending = left
 
 
 #: Process default: disabled until someone opts in (``obs.capture`` or

@@ -12,6 +12,12 @@
   * on a mesh whose data axes divide the pool, each data rank holds,
     prefills and decodes only its own slots (:class:`Server`).
 
+With the process tracer on, ``server.tick`` holds each admission's
+``server.prefill`` and the pool's ``server.decode``, and each of those a
+``model.forward`` around the model step alone (``mode``, ``rows``,
+``tokens``); ``server.prefill`` and ``model.forward`` are timed on the
+device too (``obs/trace.py``).
+
 Sampling stays on the host with numpy (greedy or temperature), so greedy
 tokens compare one for one with the reference's. ``DeploymentPool`` here
 is the reference's deprecated import site of
@@ -224,9 +230,12 @@ class Server:
         ``(1, V)``."""
         tokens = torch.tensor([req.prompt], dtype=torch.int64,
                               device=self.device)
-        with get_tracer().span("server.prefill", rid=req.rid,
-                               prompt_len=len(req.prompt)):
-            with torch.no_grad():
+        trc = get_tracer()
+        with trc.span("server.prefill", device=self.device, rid=req.rid,
+                      prompt_len=len(req.prompt)):
+            with torch.no_grad(), trc.span(
+                    "model.forward", device=self.device, mode="prefill",
+                    rows=1, tokens=len(req.prompt)):
                 logits, cache = self._prefill(self.params, {"tokens": tokens})
             self._install(slot - self._lo, pad_cache(cache,
                                                      self.scfg.max_len))
@@ -299,7 +308,9 @@ class Server:
             with trc.span("server.decode", slots_busy=self._busy_slots()):
                 tokens = torch.from_numpy(
                     self._last_tok[self._lo:self._lo + self._k])
-                with torch.no_grad(), self._over_rows():
+                with torch.no_grad(), self._over_rows(), trc.span(
+                        "model.forward", device=self.device, mode="decode",
+                        rows=self._k, tokens=self._k):
                     logits, self._cache = self._decode(
                         self.params, tokens.to(self.device), self._cache)
                 toks = self._sample(self._gather_rows(logits).cpu().numpy())

@@ -22,8 +22,11 @@ layer by a deployed prefill), and the LM families (the MoE oracle and its
 router's tie rule against the CPU, a DeepSeek-MoE-16B layer at full width
 with B5 against plain attention, whisper-tiny's decode through its cached
 cross K/V against a whole-sequence prefill), the hybrid and RWKV families
-(``-k family``), and concurrent SEU flips against program replays, once
-and 240 times in one process (``-k flips_under``).
+(``-k family``), concurrent SEU flips against program replays, once
+and 240 times in one process (``-k flips_under``), and spans timed on the
+card: a span's device interval against CUDA events, its end against the
+host's after a synchronize at the anchor and 50 s later, a traced server's
+spans (``-k "device_interval or server_spans"``).
 
 Imports nothing of JAX, so it also runs where JAX is not installed:
 
@@ -423,6 +426,108 @@ def test_server_flash_equals_plain_attention_on_card(cuda, arch):
         n = flash_ops.launches - before
         assert n == (cfg.n_layers * len(prompts) if impl == "flash" else 0)
     assert outs["flash"] == outs["ref"]
+
+
+# ---- spans timed on the card (``Tracer.span(device=)``) ---------------------
+
+
+def test_device_interval_of_a_timed_matmul_on_card(cuda):
+    """A span's device interval around 20 bf16 matmuls of 8,192 against
+    CUDA events recorded just inside it: within 2%."""
+    from repro_torch.obs import Tracer
+
+    g = torch.Generator(device=cuda).manual_seed(0)
+    a, b = (torch.randn(8192, 8192, device=cuda, dtype=torch.bfloat16,
+                        generator=g) for _ in range(2))
+    for _ in range(3):
+        a @ b
+    trc = Tracer()
+    for _ in range(3):
+        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        with trc.span("mm", device=cuda):
+            e0.record()
+            for _ in range(20):
+                a @ b
+            e1.record()
+        torch.cuda.synchronize()
+        s = trc.spans[-1]
+        want = e0.elapsed_time(e1) / 1e3
+        got = s.dev_end - s.dev_start
+        print(f"matmul span: device {got * 1e3:.4f} ms, events "
+              f"{want * 1e3:.4f} ms, host {s.duration * 1e3:.4f} ms")
+        assert abs(got - want) <= 0.02 * want
+
+
+def test_device_interval_ends_with_the_host_after_a_synchronize_on_card(
+        cuda):
+    """A span closed after ``torch.cuda.synchronize()`` ends on the device
+    no later than on the host and within 1 ms of it, at the card's first
+    timed span (the anchor) and 50 s later."""
+    import time
+
+    from repro_torch.obs import Tracer
+
+    a = torch.randn(4096, 4096, device=cuda, dtype=torch.bfloat16)
+    trc = Tracer()
+    for wait in (0.0, 50.0):
+        time.sleep(wait)
+        with trc.span("synced", device=cuda):
+            for _ in range(10):
+                a @ a
+            torch.cuda.synchronize()
+        s = trc.spans[-1]
+        print(f"after {wait:.0f} s: host end - device end "
+              f"{(s.end - s.dev_end) * 1e6:.2f} us, device "
+              f"{(s.dev_end - s.dev_start) * 1e3:.4f} ms of host "
+              f"{s.duration * 1e3:.4f} ms")
+        assert s.start <= s.dev_start <= s.dev_end <= s.end
+        assert s.end - s.dev_end <= 1e-3
+
+
+def test_server_spans_on_card(cuda):
+    """A smoke Yi-9B served in bf16 with B5 and tracing on: the same greedy
+    tokens as untraced; every ``model.*`` and ``server.prefill`` span has a
+    device interval inside its host span's start and its tick's end; a
+    decode forward's halves sum to no more than its device time, which is
+    no more than its ``server.decode``'s host time."""
+    from repro_torch.obs import capture, children_of, find_spans
+
+    cfg = get_config("yi-9b", smoke=True)
+    par = ParallelismConfig(compute_dtype="bfloat16", attn_impl="flash")
+    params = Stepper(cfg, ShapeConfig("p", "prefill", 32, 1), SMOKE_MESH,
+                     par).init(seed=1, device=cuda,
+                               dtype_override=torch.bfloat16)
+    prompts = [list(range(2, 2 + n)) for n in (16, 17, 5)]
+
+    def serve():
+        srv = Server(cfg, params, ServerConfig(batch_slots=2, max_len=32,
+                                               eos_token=-1), SMOKE_MESH,
+                     par, device=cuda)
+        for p in prompts:
+            srv.submit(p, max_new_tokens=6)
+        return [r.out_tokens for r in srv.run_until_drained()]
+
+    plain = serve()
+    with capture("serve") as cap:
+        traced = serve()
+    torch.cuda.synchronize()
+    assert traced == plain
+    spans = cap.trace.spans
+    timed = [s for s in spans if s.name.startswith("model.")
+             or s.name == "server.prefill"]
+    assert timed and all(s.dev_start is not None for s in timed)
+    ticks = {s.span_id: s for s in find_spans(spans, "server.tick")}
+    for s in timed:
+        # the anchor places the device clock within the jitter of an
+        # event's record on an idle stream (tens of microseconds)
+        assert s.start - 1e-4 <= s.dev_start <= s.dev_end
+    for dec in find_spans(spans, "server.decode"):
+        (fwd,) = children_of(spans, dec)
+        halves = children_of(spans, fwd)
+        assert len(halves) == 2 * cfg.n_layers
+        assert sum(h.dev_end - h.dev_start for h in halves) <= (
+            fwd.dev_end - fwd.dev_start) <= dec.duration
+        assert fwd.dev_end <= ticks[dec.parent_id].end
 
 
 # ---- B3, B4, B6, B7: the wrapper-only templates ----------------------------
