@@ -42,9 +42,10 @@ every prefill layer:
 
 6. serve 8 requests (prompts of 16 ... 4,000 tokens, 16 new tokens each)
    through ``Server`` with ``attn_impl="flash"`` on 4 slots of 4,096
-   positions; B5's launch counts are set to 0 just before and read just
-   after, and must be 48 per admitted request, all of them ``sm90``;
-   prints tokens/s, the TTFT and latency summaries and the prefill ms at
+   positions; B5's and the decode kernel's launch counts are set to 0
+   just before and read just after: B5 must launch 48 times per admitted
+   request, all ``sm90``, and the decode kernel 48 times per decode tick,
+   all ``mma``; prints tokens/s, the TTFT and latency summaries and the prefill ms at
    each length;
 7. prefill the same prompts with ``attn_impl="ref"`` (plain einsum
    attention) and hold the last-position logits to the flash path's: in
@@ -366,6 +367,25 @@ group; no card):
     row's times are modelled from the counts and the H100 SXM's peak and
     rates, not measured on the card.
 
+The decode-attention kernel (``kernels/decode_attention``; no TPU
+counterpart), which phase 6's ticks run:
+
+26. at yi-9b.long_decode's pool (32 slots of 4,096, KV 4, G 8, hd 128,
+    lengths drawn in 297-2,160), long_prompt's (16 slots, 512-4,032) and
+    Zamba2-7B's shared block (4 slots, 32 kv heads, G 1, hd 112, a free
+    slot past S_max): the bf16 kernel (``mma``) against the f32 plain
+    version on the same inputs (0.03, and ``BF16_REL_RMS_BAR`` of each
+    (row, head)'s rms), the f32 kernel (``simt``) within 2e-5, each launch
+    counted on its variant; then the kernel (CUDA events around graph
+    replays over three copies of the cache in turn, so the valid rows come
+    from HBM), its bound (the valid K/V rows, q and o at 3.35 TB/s), its
+    plain version, the path it replaced (K/V repeated to every q head,
+    cast to f32, an einsum over every position) and
+    ``scaled_dot_product_attention`` with ``enable_gqa`` and the length
+    mask (a yardstick the port never calls); and the host time of one
+    call of the kernel's wrapper and of the replaced path, not waiting for
+    the card.
+
 Then print the kernels line (B1's and B2's rows also carry the loop's
     launches, ``workflow_launches``, the farm's, ``farm_launches``, one
     multi-design replay's of each design, ``multi_launches``, and phase
@@ -377,8 +397,9 @@ Then print the kernels line (B1's and B2's rows also carry the loop's
     ``families_launches``; B5's, B6's and B7's one scanned prefill's by
     arch and B5's two scanned training steps', ``scan_launches``; B5's
     phase 24 runs' by arch and variant and B6's and B7's by arch, with
-    the (2, 1) run's serving launches of data rank 0, ``tp_launches``)
-    and the card's name and power limit.
+    the (2, 1) run's serving launches of data rank 0, ``tp_launches``;
+    the decode kernel's phase 6's launches and ticks and phase 26's
+    cells) and the card's name and power limit.
 
 Usage, from the repository root: ``python3 chip_smoke.py``. Needs one CUDA
 card and ``nvcc``; exits non-zero, printing no result, without them. The
@@ -4765,6 +4786,123 @@ def phase_dryrun(procs: list, out_dir: str, t_start: float,
             f"{row}\n  " + "\n  ".join(detail))
 
 
+# decode attention's cells: (B, S_max, KV, G, hd, kv_len drawn in [lo, hi])
+# -- yi-9b.long_decode's and long_prompt's pools, Zamba2-7B's shared block
+# over 4 slots (a free slot's position past S_max included)
+DECODE_CELLS = {"long_decode": (32, 4096, 4, 8, 128, (297, 2160)),
+                "long_prompt": (16, 4096, 4, 8, 128, (512, 4032)),
+                "zamba2_shared": (4, 4096, 32, 1, 112, (1, 4101))}
+
+
+def phase_decode_attention(card: str, served: dict) -> dict:
+    """Phase 26 (module doc); ``served``: phase 6's decode launches and
+    ticks. Returns the kernel's row of the kernels line."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.decode_attention import (decode_attention,
+                                                      decode_attention_ref)
+    from repro_torch.kernels.decode_attention import ops as dec_ops
+    from repro_torch.kernels.flash_attention.ref import (BF16_REL_RMS_BAR,
+                                                         rel_rms_by_block)
+    from repro_torch.model.attention import _attn_block, _repeat_kv
+
+    def replaced(q, k, v, kv_len):
+        G = q.shape[2] // k.shape[2]
+        return _attn_block(q, _repeat_kv(k, G), _repeat_kv(v, G),
+                           q.shape[-1] ** -0.5, False, 0, kv_len)
+
+    def sdpa(q, k, v, kv_len):
+        mask = (torch.arange(k.shape[1], device=q.device)[None, :]
+                < kv_len[:, None])[:, None, None, :]
+        return F.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            attn_mask=mask, enable_gqa=True).transpose(1, 2)
+
+    def enqueue_ms(fn, *args, reps=20):
+        """Host ms of one call, not waiting for the card (what a tick pays
+        where the host paces it)."""
+        fn(*args)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn(*args)
+        t = (time.perf_counter() - t0) / reps * 1e3
+        torch.cuda.synchronize()
+        return t
+
+    rng = np.random.default_rng(SEED + 26)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 26)
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    rows = {}
+    for label, (B, S, KV, G, hd, (lo, hi)) in DECODE_CELLS.items():
+        lens = rng.integers(lo, hi + 1, B)
+        kv_len = torch.tensor(lens, dtype=torch.int32, device="cuda")
+        copies = [tuple(torch.randn(shape, device="cuda", generator=gen,
+                                    dtype=torch.bfloat16)
+                        for shape in ((B, 1, KV * G, hd), (B, S, KV, hd),
+                                      (B, S, KV, hd))) + (kv_len,)
+                  for _ in range(3)]
+        q, k, v, _ = copies[0]
+        want = decode_attention_ref(q.float(), k.float(), v.float(), kv_len)
+        before = dict(dec_ops.launches_by_variant)
+        got = decode_attention(q, k, v, kv_len)
+        got32 = decode_attention(q.float(), k.float(), v.float(), kv_len)
+        torch.cuda.synchronize()
+        moved = {n: dec_ops.launches_by_variant[n] - before[n]
+                 for n in before}
+        err = (got.float() - want).abs().max().item()
+        rr = rel_rms_by_block(got, want)
+        err32 = (got32 - want).abs().max().item()
+        if (moved != {"mma": 1, "simt": 1} or err >= 0.03
+                or rr >= BF16_REL_RMS_BAR or err32 >= 2e-5):
+            raise AssertionError(
+                f"decode attention {label}: launches {moved}, bf16 max abs "
+                f"{err:.3e}, rel rms {rr:.3e} (bar {BF16_REL_RMS_BAR}), f32 "
+                f"max abs {err32:.3e} (bar 2e-5)")
+        del got32
+        valid = int(np.minimum(lens, S).sum())
+        n_bytes = valid * KV * hd * 2 * 2 + 2 * q.numel() * 2
+        bnd, by = bound_ms(n_bytes, 4 * valid * KV * G * hd,
+                           BF16_FLOP_PER_S)
+        k_ms = time_ms(rotating(decode_attention, *copies))
+        p_ms = events_ms(rotating(decode_attention_ref, *copies), reps=6)
+        r_ms = events_ms(rotating(replaced, *copies), reps=3)
+        l_ms = events_ms(rotating(sdpa, *copies), reps=6)
+        enqueue = {name: enqueue_ms(fn, q, k, v, kv_len)
+                   for name, fn in (("kernel", decode_attention),
+                                    ("replaced", replaced))}
+        splits, chunk = dec_ops.split_plan(B * KV, S, n_sm)
+        rows[label] = {"ms": k_ms, "bound_ms": bnd, "bound_by": by,
+                       "plain_ms": p_ms, "replaced_ms": r_ms,
+                       "library_ms": l_ms, "max_abs_err": err,
+                       "rel_rms": rr, "f32_max_abs_err": err32,
+                       "host_ms": enqueue}
+        log(f"phase 26 decode attention {label} (B {B}, S_max {S}, KV {KV}, "
+            f"G {G}, hd {hd}, kv_len {lo}-{hi}: {valid} keys, "
+            f"{n_bytes / 1e6:.1f} MB; {splits} splits of {chunk}): bf16 "
+            f"max abs {err:.3e}, rel rms {rr:.3e}; f32 max abs "
+            f"{err32:.3e}; kernel {k_ms:.4f} ms = {bnd / k_ms:.1%} of its "
+            f"bound {bnd:.4f} ms ({by}; {k_ms / bnd:.2f}x), plain "
+            f"{p_ms:.4f} ms, the replaced path {r_ms:.4f} ms, "
+            f"scaled_dot_product_attention {l_ms:.4f} ms; host ms a call "
+            f"(enqueue) kernel {enqueue['kernel']:.4f}, the replaced path "
+            f"{enqueue['replaced']:.4f} ({card})")
+        del copies, q, k, v, want, got
+        torch.cuda.empty_cache()
+    row = rows["long_decode"]
+    return {"name": "decode_attention", "route": "cuda",
+            "source": "src/repro_torch/csrc/decode_attention.cu",
+            "replaces": "none (XLA's einsum over the repeated cache, "
+                        "src/repro/model/attention.py)",
+            "launches": served["launches"], "decode_ticks": served["ticks"],
+            **{key: row[key] for key in ("max_abs_err", "ms", "plain_ms",
+                                         "bound_ms", "bound_by",
+                                         "library_ms", "replaced_ms")},
+            "cells": rows}
+
+
 def main() -> int:
     import torch
 
@@ -4784,6 +4922,7 @@ def main() -> int:
     from repro_torch.kernels.flash_attention import (attention_ref,
                                                      flash_attention,
                                                      flash_attention_cuda)
+    from repro_torch.kernels.decode_attention import ops as dec_ops
     from repro_torch.kernels.flash_attention import ops as flash_ops
     from repro_torch.kernels.flash_attention.ref import (BF16_REL_RMS_BAR,
                                                          rel_rms_by_block)
@@ -5253,9 +5392,9 @@ def main() -> int:
                                           eos_token=-1), SMOKE_MESH, par)
     tracer = Tracer()
     prev_tracer = set_tracer(tracer)
-    flash_ops.launches = 0
-    flash_ops.launches_by_variant = dict.fromkeys(
-        flash_ops.launches_by_variant, 0)
+    for mod in (flash_ops, dec_ops):
+        mod.launches = 0
+        mod.launches_by_variant = dict.fromkeys(mod.launches_by_variant, 0)
     t0 = time.perf_counter()
     for prompt in prompts:
         srv.submit(prompt, max_new_tokens=MAX_NEW)
@@ -5264,6 +5403,8 @@ def main() -> int:
     wall = time.perf_counter() - t0
     yi_launches = flash_ops.launches
     yi_variants = dict(flash_ops.launches_by_variant)
+    yi_decode = {"launches": dec_ops.launches,
+                 "ticks": len(find_spans(tracer.spans, "server.decode"))}
     set_tracer(prev_tracer)
     stats = done.stats
     if not done.drained or stats.admitted != len(prompts) or \
@@ -5281,6 +5422,13 @@ def main() -> int:
                              f"({yi_variants}) for {stats.admitted} "
                              f"requests, expected {yi.n_layers} per request,"
                              " all sm90")
+    if yi_decode["launches"] != yi.n_layers * yi_decode["ticks"] or \
+            dec_ops.launches_by_variant["mma"] != yi_decode["launches"]:
+        raise AssertionError(
+            f"yi-9b: the decode kernel launched {yi_decode['launches']} "
+            f"times ({dec_ops.launches_by_variant}) in "
+            f"{yi_decode['ticks']} decode ticks, expected {yi.n_layers} a "
+            "tick, all mma")
     n_tok = sum(len(r.out_tokens) for r in done)
     prefill_ms = {sp.attrs["prompt_len"]: sp.duration * 1e3
                   for sp in find_spans(tracer.spans, "server.prefill")}
@@ -5288,7 +5436,9 @@ def main() -> int:
         f"{wall:.3f} s = {n_tok / wall:.2f} tokens/s ({SLOTS} slots, "
         f"max_len {MAX_LEN}, {stats.ticks} ticks); B5 launches "
         f"{yi_launches} = {yi.n_layers} per request, by variant "
-        f"{yi_variants}")
+        f"{yi_variants}; decode kernel launches {yi_decode['launches']} = "
+        f"{yi.n_layers} per decode tick over {yi_decode['ticks']} ticks, "
+        "all mma")
     log("phase 6 ttft_s " + json.dumps(stats.ttft_s))
     log("phase 6 latency_s " + json.dumps(stats.latency_s))
     log("phase 6 prefill ms by prompt length (host clock, ends in the "
@@ -5561,6 +5711,9 @@ def main() -> int:
                 if p.poll() is None:
                     p.kill()
                     p.communicate()
+
+    # ---- 26. the decode-attention kernel ----------------------------------
+    kernel_rows.append(phase_decode_attention(smi, yi_decode))
 
     # ---- report -------------------------------------------------------------
     log(smi)                     # the card's name and power limit

@@ -15,7 +15,9 @@ training layer (its gradient is the plain version's VJP);
 matmul with its per-channel rescale; ``mamba2`` the Mamba-2 SSD chunk scan
 (``csrc/ssd.cu``); ``rwkv6`` the RWKV-6 WKV recurrence (``csrc/wkv6.cu``).
 The last four are reached through their public wrappers only, as in the
-reference.
+reference. ``decode_attention`` (:data:`PORT_KERNELS`) has no TPU
+counterpart: one token's GQA attention over the serving cache, run by
+every decode layer with ``attn_impl="flash"``.
 """
 
 # the template library: the reference's ``repro.kernels.TEMPLATES`` plus
@@ -28,6 +30,11 @@ TEMPLATES = (
     "mamba2",
     "quant_matmul",
     "rwkv6",
+)
+
+# kernels of the port that replace no TPU kernel, in the same layout
+PORT_KERNELS = (
+    "decode_attention",  # decode's GQA attention over the unrepeated cache
 )
 
 

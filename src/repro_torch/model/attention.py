@@ -3,7 +3,9 @@ long-sequence path (port of ``repro/model/attention.py``).
 
 The plain path is PyTorch einsum; ``ctx.attn_impl == "flash"`` sends every
 causal attention with Sq == Sk (each prefill and training layer) to B5
-(``kernels/flash_attention``). Decode writes the new K/V into the cache in
+(``kernels/flash_attention``) and every decode self-attention to the
+decode kernel (``kernels/decode_attention``), which reads the unrepeated
+cache up to each row's length. Decode writes the new K/V into the cache in
 place (``index_put_``) where the reference updates a donated buffer.
 
 Where the step computes split (``Ctx.split``) and the q heads divide the
@@ -231,10 +233,17 @@ def attn_apply(
 
     if split and not ctx.splits(cfg.n_kv_heads):
         k, v = _rank_kv(k, v, cfg, H)
-    if not ctx.par.gqa_grouped:        # baseline: materialized repeat
-        k = _repeat_kv(k, H // k.shape[2])
-        v = _repeat_kv(v, H // v.shape[2])
-    o = attention_core(q, k, v, ctx, causal=causal, kv_len=kv_len)
+    if kv_len is not None and ctx.attn_impl == "flash":
+        # a decode self-attention: the cache as it is, each row up to its
+        # length
+        from repro_torch.kernels.decode_attention import ops as decode_ops
+
+        o = decode_ops.decode_attention(q, k, v, kv_len)
+    else:
+        if not ctx.par.gqa_grouped:    # baseline: materialized repeat
+            k = _repeat_kv(k, H // k.shape[2])
+            v = _repeat_kv(v, H // v.shape[2])
+        o = attention_core(q, k, v, ctx, causal=causal, kv_len=kv_len)
     o = o.reshape(h.shape[0], h.shape[1], H * hd)
     out = o @ p["wo"].to(dt)
     if split:

@@ -22,7 +22,9 @@ layer by a deployed prefill), and the LM families (the MoE oracle and its
 router's tie rule against the CPU, a DeepSeek-MoE-16B layer at full width
 with B5 against plain attention, whisper-tiny's decode through its cached
 cross K/V against a whole-sequence prefill), the hybrid and RWKV families
-(``-k family``), concurrent SEU flips against program replays, once
+(``-k family``), the decode-attention kernel against its plain version
+and launched once a layer a decode tick (``-k decode_attention``),
+concurrent SEU flips against program replays, once
 and 240 times in one process (``-k flips_under``), and spans timed on the
 card: a span's device interval against CUDA events, its end against the
 host's after a synchronize at the anchor and 50 s later, a traced server's
@@ -42,6 +44,9 @@ import torch
 from repro_torch.configs import get_config
 from repro_torch.core.types import (SMOKE_MESH, LSTMConfig,
                                     ParallelismConfig, ShapeConfig)
+from repro_torch.kernels.decode_attention import (decode_attention,
+                                                  decode_attention_ref)
+from repro_torch.kernels.decode_attention import ops as dec_ops
 from repro_torch.kernels.flash_attention import (attention_ref,
                                                  flash_attention,
                                                  flash_attention_cuda)
@@ -404,8 +409,9 @@ def test_flash_bf16_goes_to_simt_where_tma_cannot(cuda):
 
 @pytest.mark.parametrize("arch", ["yi-9b", "stablelm-3b"])
 def test_server_flash_equals_plain_attention_on_card(cuda, arch):
-    """Smoke config in f32 on the card: the same greedy tokens with B5 as
-    with the plain einsum attention, and n_layers launches per request."""
+    """Smoke config in f32 on the card: the same greedy tokens with B5 and
+    the decode kernel as with the plain einsum attention, and n_layers B5
+    launches per request."""
     torch.backends.cuda.matmul.allow_tf32 = False
     cfg = get_config(arch, smoke=True)
     rng = np.random.default_rng(3)
@@ -421,11 +427,154 @@ def test_server_flash_equals_plain_attention_on_card(cuda, arch):
                      par, device=cuda)
         for p in prompts:
             srv.submit(p, max_new_tokens=6)
-        before = flash_ops.launches
+        before = flash_ops.launches, dec_ops.launches_by_variant["simt"]
         outs[impl] = [r.out_tokens for r in srv.run_until_drained()]
-        n = flash_ops.launches - before
+        n = flash_ops.launches - before[0]
         assert n == (cfg.n_layers * len(prompts) if impl == "flash" else 0)
+        n = dec_ops.launches_by_variant["simt"] - before[1]
+        assert (n > 0) == (impl == "flash")
     assert outs["flash"] == outs["ref"]
+
+
+# ---- the decode-attention kernel ------------------------------------------
+
+def _lengths(B, lo, hi, seed):
+    return np.random.default_rng(seed).integers(lo, hi + 1, B).tolist()
+
+
+# (B, S_max, KV, G, hd, kv_len): yi-9b.long_decode's and long_prompt's
+# pools, Zamba2-7B's shared block, the zoo's other groups and head dims
+# (InternVL2-1B's G 7, StableLM-12B's hd 160, StableLM-3B's and
+# whisper's MHA), a smoke config, and ragged edges: a length of 1, S_max,
+# a free slot past it (S_max + 5), S_max not a whole number of tiles
+DECODE_SHAPES = [
+    (32, 4096, 4, 8, 128, _lengths(32, 297, 2160, 1)),
+    (16, 4096, 4, 8, 128, _lengths(16, 512, 4032, 2)),
+    (4, 4096, 32, 1, 112, [2048, 1, 4096, 4101]),
+    (3, 300, 2, 7, 64, [1, 299, 305]),
+    (2, 1000, 8, 4, 160, [999, 17]),
+    (2, 500, 32, 1, 80, [64, 65]),
+    (2, 1500, 6, 1, 64, [1500, 700]),
+    (2, 32, 2, 2, 16, [5, 37]),
+    (4, 777, 8, 8, 128, [1, 64, 128, 777]),
+]
+
+
+def _decode_case(shape, dtype, device):
+    B, S, KV, G, hd, lens = shape
+    rng = np.random.default_rng(B * S + hd)
+    q, k, v = (torch.as_tensor(rng.standard_normal(s), dtype=torch.float32,
+                               device=device).to(dtype)
+               for s in ((B, 1, KV * G, hd), (B, S, KV, hd), (B, S, KV, hd)))
+    return q, k, v, torch.tensor(lens, dtype=torch.int32, device=device)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", DECODE_SHAPES,
+                         ids=lambda s: "x".join(map(str, s[:5])))
+def test_decode_attention_kernel_matches_plain(cuda, shape, dtype):
+    """The kernel of each dtype through its wrapper (its counter, and only
+    it, moves by one) against the plain version in f32 on the same inputs:
+    f32 within B5's 2e-5; bf16 within 0.03 and within
+    ``BF16_REL_RMS_BAR`` of each (row, head)'s rms."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    q, k, v, kv_len = _decode_case(shape, dtype, cuda)
+    name = {torch.float32: "simt", torch.bfloat16: "mma"}[dtype]
+    before = dict(dec_ops.launches_by_variant)
+    got = decode_attention(q, k, v, kv_len)
+    torch.cuda.synchronize()
+    after = dec_ops.launches_by_variant
+    assert {n: after[n] - before[n] for n in after} == {
+        n: int(n == name) for n in after}
+    assert got.dtype == dtype and got.shape == q.shape
+    want = decode_attention_ref(q.float(), k.float(), v.float(), kv_len)
+    err = (got.float() - want).abs().max().item()
+    if dtype == torch.float32:
+        assert err < 2e-5, err
+    else:
+        assert err < 0.03, err
+        rr = rel_rms_by_block(got, want)
+        assert rr < BF16_REL_RMS_BAR, rr
+
+
+def test_decode_attention_reads_only_each_rows_keys(cuda):
+    """Keys past a row's length (and the free slot's past S_max) never
+    reach the output: the cache past them set to 1e4 gives the same bf16
+    output bit for bit."""
+    q, k, v, kv_len = _decode_case(DECODE_SHAPES[0], torch.bfloat16, cuda)
+    got = decode_attention(q, k, v, kv_len)
+    for b, n in enumerate(kv_len.tolist()):
+        k[b, n:] = 1e4
+        v[b, n:] = 1e4
+    assert torch.equal(decode_attention(q, k, v, kv_len), got)
+
+
+def test_decode_attention_takes_the_rank_kv_views(cuda):
+    """K/V as a slice of a wider cache's kv heads (the ``"model"`` split's
+    run of whole groups) and as a head-gathered copy (G = 1)."""
+    q, k, v, kv_len = _decode_case(DECODE_SHAPES[4], torch.bfloat16, cuda)
+    ks, vs = k[:, :, 2:4], v[:, :, 2:4]
+    qs = q[:, :, 8:16]
+    got = decode_attention(qs, ks, vs, kv_len)
+    want = decode_attention_ref(qs.float(), ks.float(), vs.float(), kv_len)
+    assert rel_rms_by_block(got, want) < BF16_REL_RMS_BAR
+    idx = [i // 4 for i in range(8, 16)]
+    kg, vg = k[:, :, idx], v[:, :, idx]
+    got = decode_attention(qs, kg, vg, kv_len)
+    want = decode_attention_ref(qs.float(), kg.float(), vg.float(), kv_len)
+    assert rel_rms_by_block(got, want) < BF16_REL_RMS_BAR
+
+
+def test_decode_attention_refuses_what_it_does_not_take(cuda):
+    """No fallback on the card: G > 16, a bf16 hd that is not a multiple
+    of 8, and bf16 K/V rows off 16 bytes all raise, and launch nothing."""
+    before = dec_ops.launches
+    q, k, v, kv_len = _decode_case((2, 64, 1, 17, 64, [3, 4]),
+                                   torch.bfloat16, cuda)
+    with pytest.raises(ValueError, match="at most 16"):
+        decode_attention(q, k, v, kv_len)
+    q, k, v, kv_len = _decode_case((2, 64, 2, 2, 100, [3, 4]),
+                                   torch.bfloat16, cuda)
+    with pytest.raises(ValueError, match="hd % 8"):
+        decode_attention(q, k, v, kv_len)
+    q, k, v, kv_len = _decode_case((2, 64, 2, 2, 68, [3, 4]),
+                                   torch.bfloat16, cuda)
+    with pytest.raises(ValueError, match="16-byte"):
+        decode_attention(q[..., 4:], k[..., 4:], v[..., 4:], kv_len)
+    assert dec_ops.launches == before
+
+
+def test_server_decode_attention_launches_once_a_layer_a_tick(cuda):
+    """A smoke Yi-9B served in bf16 with ``attn_impl="flash"``: the decode
+    kernel launches ``n_layers`` times a decode tick (``mma``), and B5
+    ``n_layers`` times a request."""
+    from repro_torch.obs import Tracer, find_spans, set_tracer
+
+    cfg = get_config("yi-9b", smoke=True)
+    par = ParallelismConfig(compute_dtype="bfloat16", attn_impl="flash")
+    params = Stepper(cfg, ShapeConfig("p", "prefill", 32, 1), SMOKE_MESH,
+                     par).init(seed=1, device=cuda,
+                               dtype_override=torch.bfloat16)
+    srv = Server(cfg, params, ServerConfig(batch_slots=2, max_len=32,
+                                           eos_token=-1), SMOKE_MESH, par,
+                 device=cuda)
+    for n in (16, 17, 5):
+        srv.submit(list(range(2, 2 + n)), max_new_tokens=6)
+    tracer = Tracer()
+    prev = set_tracer(tracer)
+    before = (dec_ops.launches, dec_ops.launches_by_variant["mma"],
+              flash_ops.launches)
+    try:
+        done = srv.run_until_drained()
+    finally:
+        set_tracer(prev)
+    torch.cuda.synchronize()
+    ticks = len(find_spans(tracer.spans, "server.decode"))
+    assert ticks > 0 and all(len(r.out_tokens) == 6 for r in done)
+    assert (dec_ops.launches - before[0],
+            dec_ops.launches_by_variant["mma"] - before[1],
+            flash_ops.launches - before[2]) == (
+                cfg.n_layers * ticks, cfg.n_layers * ticks, cfg.n_layers * 3)
 
 
 # ---- spans timed on the card (``Tracer.span(device=)``) ---------------------

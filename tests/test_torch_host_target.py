@@ -351,6 +351,7 @@ def test_flash_attention_counted_once_a_layer_with_its_formula():
 
 
 def _wrapper_cases():
+    from repro_torch.kernels.decode_attention import ops as da
     from repro_torch.kernels.flash_attention import ops as fa
     from repro_torch.kernels.lstm_cell import ops as lc
     from repro_torch.kernels.lstm_cell_int import ops as lci
@@ -378,6 +379,10 @@ def _wrapper_cases():
         "flash_attention": (fa.flash_attention,
                             (rn(2, 9, 3, 8), rn(2, 9, 3, 8), rn(2, 9, 3, 8)),
                             {}, 4 * 2 * 3 * 8 * 45),
+        "decode_attention": (da.decode_attention,
+                             (rn(2, 1, 6, 8), rn(2, 9, 3, 8), rn(2, 9, 3, 8),
+                              torch.tensor([4, 9], dtype=torch.int32)),
+                             {}, 4 * 2 * 6 * 8 * 9),
         "mac_int": (mi.mac_int_op, (ri(-9, 9, 5, 7), ri(-9, 9, 7, 3),
                                     ri(-9, 9, 3)),
                     dict(shift=2, lo=-128, hi=127), 2 * 5 * 7 * 3),
@@ -402,9 +407,10 @@ def _wrapper_cases():
     }
 
 
-@pytest.mark.parametrize("name", ["flash_attention", "mac_int",
-                                  "lstm_window_int", "lstm_window",
-                                  "quant_matmul", "ssd", "wkv6"])
+@pytest.mark.parametrize("name", ["flash_attention", "decode_attention",
+                                  "mac_int", "lstm_window_int",
+                                  "lstm_window", "quant_matmul", "ssd",
+                                  "wkv6"])
 def test_every_wrapper_reports_one_op_on_cpu_and_meta(name):
     fn, args, kwargs, flops = _wrapper_cases()[name]
     want = fn(*args, **kwargs)                   # no counter installed

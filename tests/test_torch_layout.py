@@ -39,6 +39,7 @@ def test_importing_the_port_loads_neither_jax_nor_repro():
             "repro_torch.convert, repro_torch.configs, "
             "repro_torch.runtime.server, repro_torch.launch.serve, "
             "repro_torch.kernels.flash_attention, "
+            "repro_torch.kernels.decode_attention, "
             "repro_torch.kernels.lstm_cell, repro_torch.kernels.quant_matmul, "
             "repro_torch.kernels.mamba2, repro_torch.kernels.rwkv6, "
             "repro_torch.quant.ptq, repro_torch.model.ssm, "
@@ -77,16 +78,18 @@ def _loaded_source(package: str) -> str:
 
 
 def test_every_kernel_has_source_launcher_wrapper_and_plain_version():
-    from repro_torch.kernels import TEMPLATES, build
+    from repro_torch.kernels import PORT_KERNELS, TEMPLATES, build
 
     names = build.kernel_names()
-    assert names == ["flash_attention", "lstm_cell", "lstm_cell_int",
-                     "mac_int", "quant_matmul", "ssd", "wkv6"]
-    for package in TEMPLATES:
+    assert names == ["decode_attention", "flash_attention", "lstm_cell",
+                     "lstm_cell_int", "mac_int", "quant_matmul", "ssd",
+                     "wkv6"]
+    for package in TEMPLATES + PORT_KERNELS:
         for part in ("kernel.py", "ops.py", "ref.py"):
             assert (PORT / "kernels" / package / part).is_file(), (package,
                                                                     part)
-    assert sorted(_loaded_source(p) for p in TEMPLATES) == names
+    assert sorted(_loaded_source(p)
+                  for p in TEMPLATES + PORT_KERNELS) == names
     assert build.BUILD_DIR == ROOT / "build" / "repro_torch"
 
 
@@ -95,10 +98,11 @@ def test_every_reference_template_is_ported():
     its source, so nothing of JAX is imported) has a port package with its
     launcher, wrapper, plain version and a CUDA source the launcher loads;
     the port's TEMPLATES lists them and ``mac_int`` (the reference keeps
-    that kernel in ``rtl/oplib.py``), and nothing else."""
+    that kernel in ``rtl/oplib.py``), and nothing else; every other kernel
+    package on disk is one of ``PORT_KERNELS``, which replace none."""
     import ast
 
-    from repro_torch.kernels import TEMPLATES
+    from repro_torch.kernels import PORT_KERNELS, TEMPLATES
 
     tree = ast.parse((ROOT / "src" / "repro" / "kernels" / "__init__.py")
                      .read_text())
@@ -109,7 +113,8 @@ def test_every_reference_template_is_ported():
     assert sorted(TEMPLATES) == sorted((*ref, "mac_int"))
     on_disk = sorted(p.parent.name for p in
                      (PORT / "kernels").glob("*/kernel.py"))
-    assert on_disk == sorted(TEMPLATES)
+    assert on_disk == sorted(TEMPLATES + PORT_KERNELS)
+    assert not set(TEMPLATES) & set(PORT_KERNELS)
     for package in ref:
         for part in ("kernel.py", "ops.py", "ref.py"):
             assert (PORT / "kernels" / package / part).is_file(), (package,
